@@ -1,0 +1,7 @@
+"""Shared utilities: telemetry (stage timers / counters / rates), profiling
+hooks and device selection."""
+
+from bundler_sfm_tpu_torch.utils.device import resolve_device  # noqa: F401
+from bundler_sfm_tpu_torch.utils.telemetry import (  # noqa: F401
+    Telemetry, get_telemetry, stage, counter, rate_report, trace,
+)

@@ -1,0 +1,105 @@
+"""Tests of the port that need an NVIDIA GPU: the hand-written kernel
+against its plain PyTorch version, and CUDA runs of the stages against
+their CPU runs.  They skip on a host without CUDA.  On the card (which has
+no JAX, so the repository's conftest is left out):
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+This file imports nothing of JAX or of the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bundler_sfm_tpu_torch.ops import matching_cuda as MC
+from bundler_sfm_tpu_torch.ops.matching import DescriptorTable
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _table(rng, sizes, dtype, K):
+    tab = np.zeros((len(sizes), K, 128), np.float32)
+    for i, n in enumerate(sizes):
+        tab[i, :n] = rng.integers(0, 256, (n, 128))
+    tab[0, 300:400] = tab[0, 0:100]                 # duplicated rows: ties
+    tab[1, :] = tab[1, 5]                           # one repeated row
+    if dtype == torch.int8:
+        tab = tab - 128
+    return torch.from_numpy(tab).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32],
+                         ids=["int8", "f32"])
+def test_kernel_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(0)
+    sizes = [1024, 1024, 700, 65, 1, 0]
+    tab = _table(rng, sizes, dtype, 1024).to(cuda)
+    counts = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    n = len(sizes)
+    pi = torch.arange(n, dtype=torch.int32, device=cuda).repeat_interleave(n)
+    pj = torch.arange(n, dtype=torch.int32, device=cuda).repeat(n)
+    before = MC.LAUNCHES["two_nn"]
+    got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES["two_nn"] == before + 1
+    want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    tab = torch.zeros((2, 128, 128), dtype=torch.int8, device=cuda)
+    counts = torch.tensor([128, 128], dtype=torch.int32, device=cuda)
+    p = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="Nq % 128"):
+        MC.two_nn_pairs(tab[:, :100], tab, counts, p, p)
+    with pytest.raises(ValueError, match="both be int8 or f32"):
+        MC.two_nn_pairs(tab, tab.float(), counts, p, p)
+    with pytest.raises(ValueError, match="out of range"):
+        MC.two_nn_pairs(tab, tab, counts, p, p + 2)
+    with pytest.raises(ValueError, match="out of range"):
+        MC.two_nn_pairs(tab, tab, counts + 1, p, p)
+
+
+def test_descriptor_table_cuda_equals_cpu(cuda):
+    rng = np.random.default_rng(1)
+    base = rng.integers(0, 256, (600, 128))
+    descs = []
+    for n in (600, 550, 480, 300):
+        d = np.clip(base[:n] + rng.integers(-5, 6, (n, 128)), 0, 255)
+        descs.append(d[rng.permutation(n)].astype(np.uint8))
+    pairs = [(j, i) for i in range(4) for j in range(i)]
+    want = DescriptorTable(descs, device="cpu").match_pairs(pairs)
+    got = DescriptorTable(descs, device=cuda).match_pairs(pairs)
+    assert want.keys() == got.keys() and len(got) == len(pairs)
+    for k in want:
+        np.testing.assert_array_equal(want[k], got[k])
+
+
+def test_sift_cuda_agrees_with_cpu(cuda):
+    from bundler_sfm_tpu_torch.features.sift import extract_sift
+    rng = np.random.default_rng(0)
+    ys, xs = np.mgrid[0:160, 0:160]
+    img = np.full((160, 160), 40.0)
+    for _ in range(14):
+        cx, cy, s = rng.uniform(30, 130), rng.uniform(30, 130), rng.uniform(3, 6)
+        img += 180.0 * np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2) / (2 * s * s))
+    img = np.clip(img, 0, 255)
+    ci, cd = extract_sift(img, max_keys_total=512, device="cpu")
+    gi, gd = extract_sift(img, max_keys_total=512, device=cuda)
+    assert len(ci) > 10 and abs(len(gi) - len(ci)) <= 0.01 * len(ci) + 1
+    hits = 0
+    for k in range(len(ci)):
+        near = np.nonzero(np.abs(gi - ci[k]).max(1) <= 1e-3)[0]
+        if len(near):
+            hits += 1
+            assert np.abs(gd[near].astype(int) - cd[k].astype(int)).max(1).min() <= 1
+    assert hits >= 0.97 * len(ci)

@@ -1,0 +1,104 @@
+"""The PyTorch port stands alone: no JAX, no import of the JAX package, and
+its entry points run on the card unless asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "bundler_sfm_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(mod: str) -> bool:
+    root = mod.split(".")[0]
+    return root == "jax" or root == "jaxlib" or root == "bundler_sfm_tpu"
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_out():
+    mods = ["bundler_sfm_tpu_torch." + m for m in (
+        "run_bundler", "convert", "native", "features.sift", "ops.matching",
+        "ops.matching_cuda", "ops.fmatrix", "ops.homography",
+        "pipeline.verify", "pipeline.tracks", "io.constraints", "io.exif",
+        "utils.render_scene")]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
+              "assert not bad, bad\n"
+              "import torch\n"
+              "assert not torch.backends.cuda.matmul.allow_tf32\n"
+              "assert not torch.backends.cudnn.allow_tf32\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def _entry_points(tmp_path):
+    from bundler_sfm_tpu_torch import run_bundler
+    from bundler_sfm_tpu_torch.config import BundlerConfig
+    from bundler_sfm_tpu_torch.convert import scene_from_numpy
+    from bundler_sfm_tpu_torch.features.sift import extract_sift_batch
+    from bundler_sfm_tpu_torch.io.listfile import ImageEntry
+    from bundler_sfm_tpu_torch.ops.matching import DescriptorTable, match_pair
+    d = np.zeros((4, 128), np.uint8)
+    img = np.zeros((64, 64), np.float32)
+    from PIL import Image
+    Image.fromarray(img.astype(np.uint8)).save(tmp_path / "a.jpg")
+    return {
+        "DescriptorTable": lambda: DescriptorTable([d, d]),
+        "match_pair": lambda: match_pair(d, d),
+        "extract_sift_batch": lambda: extract_sift_batch([img]),
+        "scene_from_numpy": lambda: scene_from_numpy(
+            [ImageEntry("a.jpg")], [(64, 64)], [np.zeros((0, 2))], {},
+            BundlerConfig()),
+        "run_bundler": lambda: run_bundler.main([str(tmp_path)]),
+    }
+
+
+@pytest.mark.parametrize("name", ["DescriptorTable", "match_pair",
+                                  "extract_sift_batch", "scene_from_numpy",
+                                  "run_bundler"])
+def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
+    """Without a card, the default device raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without it")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points(tmp_path)[name]()
+
+
+def test_two_nn_pairs_rejects_non_cuda_accelerators():
+    from bundler_sfm_tpu_torch.ops.matching_cuda import two_nn_pairs
+    t = torch.zeros((1, 128, 128), dtype=torch.int8, device="meta")
+    c = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        two_nn_pairs(t, t, c, c, c)
