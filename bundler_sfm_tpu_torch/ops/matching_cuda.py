@@ -32,8 +32,8 @@ BIG = 3.0e38
 QUERY_TILE = 128      # kernel block: 128 query rows
 DB_TILE = 64          # kernel db tile: 64 rows
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "two_nn.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,22 +48,25 @@ _lib = None
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the two_nn kernel cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
-def build(verbose: bool = False) -> str:
-    """Compile `csrc/two_nn.cu` into `build/kernels/` (keyed by the source's
-    hash, so an edited source rebuilds); returns the library path."""
-    with open(_SRC, "rb") as f:
+def build(source: str = "two_nn.cu", verbose: bool = False) -> str:
+    """Compile `csrc/<source>` into its own library in `build/kernels/`,
+    named after the source and keyed by the hash of the source and the
+    flags (an edited source rebuilds); returns the library path."""
+    src = os.path.join(_CSRC, source)
+    with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
                               ).hexdigest()[:12]
-    out = os.path.join(_BUILD_DIR, f"libtwo_nn_{digest}.so")
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     res = subprocess.run(cmd, capture_output=True, text=True)

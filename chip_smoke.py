@@ -15,6 +15,14 @@ Phases (any failure raises, so the exit code is non-zero):
                the kernel launch count; compare the kernel with its plain
                version at the main path's shapes; re-run verification on the
                CPU with the same RANSAC draw and count differing pairs.
+  4. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) and
+               mode bit-exact against its plain version at the probe's shape
+               (276 pairs x 2048 keys), at ragged counts and on ties; run the
+               probe entry point (`probes/probe_two_nn_variants.py`) with the
+               launch counts zeroed, check every exact variant IDENTICAL to
+               two_nn and every count moved; time each kernel, its plain
+               version, a library yardstick and the bound at 2208 pairs x
+               2048^2.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
 power limit as nvidia-smi reports them.
@@ -28,6 +36,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,12 +45,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from bundler_sfm_tpu_torch.ops import matching_cuda  # noqa: E402
+from bundler_sfm_tpu_torch.ops import matching_variants  # noqa: E402
 from bundler_sfm_tpu_torch.ops.matching import DescriptorTable  # noqa: E402
+from bundler_sfm_tpu_torch.probes import probe_two_nn_variants  # noqa: E402
 
 INT8_TOPS = 1979e12      # H100 SXM dense int8 tensor-core peak
+BF16_TOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
 TWO_NN_SOURCE = "bundler_sfm_tpu_torch/csrc/two_nn.cu"
 TWO_NN_REPLACES = "bundler_sfm_tpu/ops/matching_pallas.py:193"
+VARIANTS_SOURCE = "bundler_sfm_tpu_torch/csrc/two_nn_variants.cu"
+PROBE = "benchmarks/probes/probe_pallas_variants.py"
 
 
 def log(*a):
@@ -90,24 +104,28 @@ def pair_tensors(pairs):
     return p[:, 0].contiguous(), p[:, 1].contiguous()
 
 
-def compare_two_nn(tab, counts, pi, pj, name):
-    """Kernel vs plain version on the same inputs; bit-exact or raise.
-    Returns the max |difference| over finite distances (0)."""
-    d0, i0, d1 = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
-    torch.cuda.synchronize()
-    r0, ri, r1 = matching_cuda._two_nn_pairs_plain(tab, tab, counts, pi, pj)
-    n_i0 = int((i0 != ri).sum())
-    n_d0 = int((d0 != r0).sum())
-    n_d1 = int((d1 != r1).sum())
-    fin = r1 < matching_cuda.BIG
-    err = max(float((d0 - r0).abs().max()) if d0.numel() else 0.0,
-              float((d1 - r1)[fin].abs().max()) if fin.any() else 0.0)
-    log(f"[kernels] {name}: {tuple(pi.shape)[0]} pairs x {tab.shape[1]} keys "
-        f"{str(tab.dtype)}: i0 mismatches {n_i0}, d0 {n_d0}, d1 {n_d1}, "
+def compare_outputs(got, want, what):
+    """A kernel's (d0, i0, d1) against its plain version's; bit-exact or
+    raise.  Returns the max |difference| over finite distances (0)."""
+    bad = [int((g != w).sum()) for g, w in zip(got, want)]
+    err = 0.0
+    for k in (0, 2):
+        fin = want[k].abs() < matching_cuda.BIG
+        if fin.any():
+            err = max(err, float((got[k] - want[k])[fin].abs().max()))
+    log(f"{what}: mismatches d0 {bad[0]}, i0 {bad[1]}, d1 {bad[2]}, "
         f"max |err| {err}")
-    check(not (n_i0 or n_d0 or n_d1),
-          f"two_nn kernel disagrees with plain ({name})")
+    check(not any(bad), f"kernel disagrees with its plain version: {what}")
     return err
+
+
+def compare_two_nn(tab, counts, pi, pj, name):
+    """two_nn kernel vs its plain version on the same inputs."""
+    got = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    return compare_outputs(
+        got, matching_cuda._two_nn_pairs_plain(tab, tab, counts, pi, pj),
+        f"[kernels] {name}: {len(pi)} pairs x {tab.shape[1]} keys {tab.dtype}")
 
 
 def yardstick(tab, counts, pi, pj, chunk=64):
@@ -145,9 +163,17 @@ def time_two_nn(tab, counts, pi, pj, reps):
 
 
 def phase_build():
+    """One nvcc per source under csrc/, all started together."""
     t0 = time.time()
-    path = matching_cuda.build(verbose=True)
-    log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.2f} s")
+    sources = sorted(f for f in os.listdir(os.path.join(
+        ROOT, "bundler_sfm_tpu_torch", "csrc")) if f.endswith(".cu"))
+    check(sources == ["two_nn.cu", "two_nn_variants.cu"], sources)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(
+            lambda s: matching_cuda.build(s, verbose=True), sources))
+    for p in paths:
+        log(f"[build] {os.path.relpath(p, ROOT)}")
+    log(f"[build] {len(paths)} libraries in {time.time() - t0:.2f} s")
 
 
 def phase_kernels():
@@ -349,6 +375,8 @@ def phase_main():
         get_telemetry().reset()
         torch.cuda.reset_peak_memory_stats()
         matching_cuda.LAUNCHES["two_nn"] = 0
+        for k in matching_variants.LAUNCHES:
+            matching_variants.LAUNCHES[k] = 0
         buf = io.StringIO()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
@@ -357,6 +385,7 @@ def phase_main():
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = matching_cuda.LAUNCHES["two_nn"]
+        variant_launches = sum(matching_variants.LAUNCHES.values())
     finally:
         os.chdir(cwd)
     out = buf.getvalue()
@@ -376,7 +405,8 @@ def phase_main():
         f"({min(len(k) for k in key_xy)}..{max(len(k) for k in key_xy)} per "
         f"image), pairs {24 * 23 // 2}, matched pairs {len(matches)}, "
         f"matches {sum(len(m) for m in matches.values())}, tracks {n_tracks}, "
-        f"two_nn launches {launches}")
+        f"two_nn launches {launches}, variant kernel launches "
+        f"{variant_launches}")
 
     # The kernel at the main path's shapes, against its plain version.
     table = DescriptorTable(descs, device="cuda")
@@ -396,6 +426,163 @@ def phase_main():
     return [record]
 
 
+# The TPU kernel each variant kernel replaces, by its wrapper's name.
+REPLACES = {"two_nn_oneblock": f"{PROBE}:62",
+            "two_nn_blockmerge_bf16": f"{PROBE}:111",
+            "two_nn_ablation": f"{PROBE}:171"}
+
+
+def _replaces(kernel):
+    return next(v for k, v in REPLACES.items() if kernel.startswith(k))
+
+
+def _variant_plain(kernel):
+    V = matching_variants
+    if kernel.startswith("two_nn_oneblock"):
+        return V.oneblock_plain
+    if kernel == "two_nn_blockmerge_bf16":
+        return V.blockmerge_plain
+    mode = kernel[len("two_nn_ablation_"):]
+    return lambda *a: V.ablation_plain(*a, mode)
+
+
+def compare_variant(kernel, fn, tab, counts, pi, pj, label):
+    """A variant kernel vs its plain version on the same inputs."""
+    got = fn(tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    return compare_outputs(
+        got, _variant_plain(kernel)(tab, counts, pi, pj),
+        f"[variants] {kernel} {label}: {len(pi)} pairs x {tab.shape[1]} keys")
+
+
+def library_yardstick(kind, tab, counts, pi, pj, chunk=64):
+    """One library computation of the same function per chunk of pairs,
+    f32 matmul (TF32 off) plus: topk(2) of the masked distances (exact
+    variants), amax (matmul_max), max with its argmax over the max-form
+    score (top1).  Timed only; the port never calls it."""
+    if kind == "exact":
+        return yardstick(tab, counts, pi, pj, chunk)
+    x = tab.float()
+    hb = 0.5 * torch.where(
+        torch.arange(tab.shape[1], device=tab.device) < counts[:, None],
+        (x * x).sum(-1), torch.full_like(x[..., 0], matching_cuda.BIG))
+    for s in range(0, len(pi), chunk):
+        a, b = pi[s:s + chunk].long(), pj[s:s + chunk].long()
+        dots = torch.matmul(x[a], x[b].transpose(1, 2))
+        if kind == "matmul_max":
+            dots.amax(-1)
+        else:
+            torch.max(dots - hb[b][:, None, :], dim=-1)
+
+
+def _ragged_table(rng):
+    """5 images x 4096 keys, counts 4096, 3001, 65, 1, 0; shared rows give
+    exact hits, and image 0 holds duplicated rows."""
+    sizes = [4096, 3001, 65, 1, 0]
+    descs = [rng.integers(0, 256, (n, 128)).astype(np.uint8) for n in sizes]
+    descs[0][3000:3500] = descs[0][:500]
+    descs[1][:2000] = descs[0][1000:3000]
+    descs[2][:] = descs[0][5]
+    table = DescriptorTable(descs, device="cuda")
+    return table.table, table.counts
+
+
+def _ties_table(rng):
+    """4 images x 1024 keys: duplicated rows, a db of one repeated row."""
+    descs = [rng.integers(0, 256, (1024, 128)).astype(np.uint8)
+             for _ in range(4)]
+    for d in descs:
+        d[500:600] = d[0:100]
+        d[1023] = d[7]
+    descs[3][:] = descs[3][9]
+    descs[1][:300] = descs[0][200:500]
+    table = DescriptorTable(descs, device="cuda")
+    return table.table, table.counts
+
+
+def phase_variants():
+    V = matching_variants
+    P = probe_two_nn_variants
+    rows = [v for v in P.variants() if v.kernel != "two_nn"]
+    rng = np.random.default_rng(3)
+    shapes = {"probe": P.make_table(2048, "cuda"),
+              "ragged": _ragged_table(rng), "ties": _ties_table(rng)}
+    # Every kernel and mode, the three bf16 tiles the probe does not run
+    # included.
+    every = [(v.kernel, v.fn) for v in rows] + [
+        (f"two_nn_oneblock_bf16_{tq}",
+         (lambda t: lambda *a: V.two_nn_oneblock(*a, tq=t, dot="bf16"))(tq))
+        for tq in V.ONEBLOCK_TILES[1:]]
+    errs = {}
+    for label, (tab, counts) in shapes.items():
+        n = tab.shape[0]
+        pairs = (P.make_pairs(276) if label == "probe"
+                 else [(i, j) for i in range(n) for j in range(n)])
+        pi, pj = pair_tensors(pairs)
+        for kernel, fn in every:
+            e = compare_variant(kernel, fn, tab, counts, pi, pj, label)
+            errs[kernel] = max(errs.get(kernel, 0.0), e)
+
+    # The probe path through its command-line entry point, with every
+    # launch count zeroed just before it.
+    matching_cuda.LAUNCHES["two_nn"] = 0
+    for k in V.LAUNCHES:
+        V.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = P.main(["276", "2048", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = dict(V.LAUNCHES, two_nn=matching_cuda.LAUNCHES["two_nn"])
+    res = {}
+    for line in buf.getvalue().splitlines():
+        log(f"[probe] {line}")
+        if "vs_base:" in line:
+            res[line.split()[0]] = (
+                line.rsplit("vs_base: ", 1)[1],
+                float(re.search(r"ms:\s+([0-9.]+)", line).group(1)))
+    check(rc == 0, f"probe returned {rc}")
+    log("[variants] probe-path launches: "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    for v in P.variants():
+        check(v.name in res, f"probe skipped {v.name}")
+        check(launches[v.kernel] > 0, f"probe: {v.kernel} was not launched")
+        if v.exact and v.kernel != "two_nn":
+            check(res[v.name][0] == "IDENTICAL",
+                  f"probe: {v.name} {res[v.name][0]}")
+
+    # Times at 2208 pairs x 2048^2.
+    tab, counts = shapes["probe"]
+    pi, pj = pair_tensors(P.make_pairs(2208))
+    bound, by = two_nn_bound_ms(tab, counts, pi, pj)
+    ops = 2.0 * 128 * float((counts.long()[pi.long()]
+                             * counts.long()[pj.long()]).sum())
+    base_ms = cuda_ms(lambda: matching_cuda.two_nn_pairs(
+        tab, tab, counts, pi, pj), 10)
+    log(f"[variants] 2208 pairs x 2048^2: bound {bound:.4f} ms ({by}: "
+        f"{ops:.4e} int8 ops at {INT8_TOPS:.3e}/s); two_nn (base) "
+        f"{base_ms:.4f} ms")
+    records = []
+    for v in rows:
+        compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")
+        k = cuda_ms(lambda: v.fn(tab, counts, pi, pj), 10)
+        p = cuda_ms(lambda: _variant_plain(v.kernel)(tab, counts, pi, pj), 2)
+        kind = "exact" if v.exact else v.kernel[len("two_nn_ablation_"):]
+        y = cuda_ms(lambda: library_yardstick(kind, tab, counts, pi, pj), 2)
+        extra = (f", {100 * ops / BF16_TOPS * 1e3 / k:.2f} % of the bf16 "
+                 f"bound ({ops / BF16_TOPS * 1e3:.4f} ms)" if v.bf16 else "")
+        log(f"[variants] {v.kernel}: kernel {k:.4f} ms ({100 * bound / k:.2f} "
+            f"% of the int8 bound{extra}), plain {p:.4f} ms, library {y:.4f} "
+            f"ms, probe best-of-3 {res[v.name][1]:.4f} ms at 276 pairs")
+        records.append({"name": v.kernel, "route": "cuda",
+                        "source": VARIANTS_SOURCE,
+                        "replaces": _replaces(v.kernel),
+                        "launches": launches[v.kernel],
+                        "max_abs_err": errs[v.kernel], "ms": k,
+                        "plain_ms": p, "bound_ms": bound, "bound_by": by,
+                        "library_ms": y})
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -403,6 +590,7 @@ def main():
     phase_build()
     phase_kernels()
     kernels = phase_main()
+    kernels += phase_variants()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -1,5 +1,5 @@
-"""Tests of the port that need an NVIDIA GPU: the hand-written kernel
-against its plain PyTorch version, and CUDA runs of the stages against
+"""Tests of the port that need an NVIDIA GPU: the hand-written kernels
+against their plain PyTorch versions, and CUDA runs of the stages against
 their CPU runs.  They skip on a host without CUDA.  On the card (which has
 no JAX, so the repository's conftest is left out):
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from bundler_sfm_tpu_torch.ops import matching_cuda as MC
+from bundler_sfm_tpu_torch.ops import matching_variants as MV
 from bundler_sfm_tpu_torch.ops.matching import DescriptorTable
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +68,72 @@ def test_kernel_rejects_bad_inputs(cuda):
         MC.two_nn_pairs(tab, tab, counts, p, p + 2)
     with pytest.raises(ValueError, match="out of range"):
         MC.two_nn_pairs(tab, tab, counts + 1, p, p)
+
+
+VARIANTS = ([("oneblock", dict(tq=tq, dot=dot)) for dot in MV.DOTS
+             for tq in MV.ONEBLOCK_TILES]
+            + [("blockmerge", {})]
+            + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES])
+
+
+def _variant(kind, kw):
+    if kind == "oneblock":
+        return (lambda *a: MV.two_nn_oneblock(*a, **kw),
+                f"two_nn_oneblock_{kw['dot']}_{kw['tq']}")
+    if kind == "blockmerge":
+        return MV.two_nn_blockmerge_bf16, "two_nn_blockmerge_bf16"
+    return (lambda *a: MV.two_nn_ablation(*a, **kw),
+            f"two_nn_ablation_{kw['mode']}")
+
+
+@pytest.mark.parametrize("kind,kw", VARIANTS,
+                         ids=[f"{k}-{'-'.join(map(str, kw.values()))}"
+                              for k, kw in VARIANTS])
+def test_variant_kernel_matches_plain(cuda, kind, kw):
+    """Each variant kernel bit-exact against its plain version: ragged
+    counts, duplicated rows (ties), one repeated row, exact hits."""
+    rng = np.random.default_rng(2)
+    sizes = [1024, 1000, 700, 65, 1, 0]
+    tab = _table(rng, sizes, torch.int8, 1024)
+    tab[2, :40] = tab[0, 10:50]                     # distance-0 hits
+    tab, counts = tab.to(cuda), torch.tensor(sizes, dtype=torch.int32,
+                                             device=cuda)
+    n = len(sizes)
+    pi = torch.arange(n, dtype=torch.int32, device=cuda).repeat_interleave(n)
+    pj = torch.arange(n, dtype=torch.int32, device=cuda).repeat(n)
+    fn, counter = _variant(kind, kw)
+    before = MV.LAUNCHES[counter]
+    got = fn(tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    assert MV.LAUNCHES[counter] == before + 1
+    plain = {"oneblock": MV.oneblock_plain, "blockmerge": MV.blockmerge_plain,
+             "ablation": lambda *a: MV.ablation_plain(*a, **kw)}[kind]
+    want = plain(tab, counts, pi, pj)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if kind != "ablation":
+        for g, w in zip(got, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
+            assert torch.equal(g, w)
+
+
+def test_variant_wrappers_reject_bad_inputs(cuda):
+    tab = torch.zeros((2, 256, 128), dtype=torch.int8, device=cuda)
+    c = torch.tensor([256, 256], dtype=torch.int32, device=cuda)
+    p = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="centered int8"):
+        MV.two_nn_oneblock(tab.float(), c, p, p)
+    with pytest.raises(ValueError, match="K % 512"):
+        MV.two_nn_oneblock(tab, c, p, p, tq=512)
+    with pytest.raises(ValueError, match="K % 512"):
+        MV.two_nn_blockmerge_bf16(tab, c, p, p)
+    with pytest.raises(ValueError, match="unknown mode"):
+        MV.two_nn_ablation(tab, c, p, p, "top2")
+    with pytest.raises(ValueError, match="out of range"):
+        MV.two_nn_oneblock(tab, c, p, p + 2)
+    with pytest.raises(ValueError, match="out of range"):
+        MV.two_nn_ablation(tab, c + 1, p, p, "top1")
+    with pytest.raises(ValueError, match="table on"):
+        MV.two_nn_oneblock(tab, c.cpu(), p, p)
 
 
 def test_descriptor_table_cuda_equals_cpu(cuda):

@@ -46,7 +46,8 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_out():
     mods = ["bundler_sfm_tpu_torch." + m for m in (
         "run_bundler", "convert", "native", "features.sift", "ops.matching",
-        "ops.matching_cuda", "ops.fmatrix", "ops.homography",
+        "ops.matching_cuda", "ops.matching_variants", "ops.fmatrix",
+        "ops.homography", "probes.probe_two_nn_variants",
         "pipeline.verify", "pipeline.tracks", "io.constraints", "io.exif",
         "utils.render_scene")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
@@ -69,6 +70,7 @@ def _entry_points(tmp_path):
     from bundler_sfm_tpu_torch.features.sift import extract_sift_batch
     from bundler_sfm_tpu_torch.io.listfile import ImageEntry
     from bundler_sfm_tpu_torch.ops.matching import DescriptorTable, match_pair
+    from bundler_sfm_tpu_torch.probes import probe_two_nn_variants
     d = np.zeros((4, 128), np.uint8)
     img = np.zeros((64, 64), np.float32)
     from PIL import Image
@@ -81,12 +83,14 @@ def _entry_points(tmp_path):
             [ImageEntry("a.jpg")], [(64, 64)], [np.zeros((0, 2))], {},
             BundlerConfig()),
         "run_bundler": lambda: run_bundler.main([str(tmp_path)]),
+        "probe_two_nn_variants": lambda: probe_two_nn_variants.main(["4",
+                                                                     "256"]),
     }
 
 
 @pytest.mark.parametrize("name", ["DescriptorTable", "match_pair",
                                   "extract_sift_batch", "scene_from_numpy",
-                                  "run_bundler"])
+                                  "run_bundler", "probe_two_nn_variants"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, the default device raises instead of falling back."""
     if torch.cuda.is_available():
