@@ -8,45 +8,543 @@
 // which the first db_counts[pj[b]] are valid.  For every query row the kernel
 // returns the squared L2 distance d0 and index i0 of the nearest valid db
 // row and the distance d1 of the second nearest.  Ties go to the lowest db
-// index; with fewer than two valid rows the missing distance is 3e38 and
-// i0 is 0, as in the XLA path (ops/matching.py::two_nn).
+// index; with fewer than two valid rows the missing distance is 3e38, and
+// with none i0 is 0, as in the XLA path (ops/matching.py::two_nn), whatever
+// the rows past the count hold.
 //
-// Element types:
-//   int8  — centered descriptors (u8 - 128).  Distances are computed as
-//           |q|^2 + |b|^2 - 2 q.b in int32 and converted to f32 once: every
-//           value is an integer below 2^23, so the result is bit-identical
-//           to the XLA path.
-//   float — operands rounded to bf16 for the tensor cores, f32 accumulate;
-//           |q|^2 and |b|^2 from the unrounded f32 values, d = (|q|^2 +
-//           |b|^2) - 2 q.b in f32.  Exact for integer-valued descriptors.
+// Three instantiations:
+//   two_nn_pairs_i8      — the main path.  Centered int8 descriptors
+//                          (u8 - 128), a warp-specialised wgmma kernel (below).
+//   two_nn_pairs_i8_mma  — the first design (mma.sync.m16n8k32, db tiles staged
+//                          synchronously by all warps), kept as a yardstick.
+//   two_nn_pairs_f32     — f32 tables on the same mma.sync template, operands
+//                          rounded to bf16, f32 accumulate, norms from the
+//                          unrounded values, d = (|q|^2 + |b|^2) - 2 q.b in f32
+//                          (exact for integer-valued descriptors).
 //
-// Bound on an H100: the distance products are 2*B*Nq*Nd*128 int8
-// tensor-core operations (1979 TOP/s dense), and the epilogue does B*Nq*Nd
-// compare/selects on the CUDA cores.  At 2048 keys per image the epilogue,
-// not the matrix product, bounds this design: each 16x8 int32 tile of an
-// m16n8k32 mma.sync costs ~4 mma plus ~30 integer instructions of
-// distance assembly and top-2 update.  What the design does about it: the
-// [Nq, Nd] distance tile never leaves registers (the point of the TPU
-// kernel), db rows stream through shared memory in 64-row tiles with their
-// norms computed once per tile, padded rows are poisoned through their norm
-// so the inner loop has no validity branch, and the running top-2 is a
-// branch-free select chain merged across the four lanes of a row only once
-// at the end.  wgmma, TMA and a persistent schedule are left for later.
+// Bound on an H100: 2*B*Nq*Nd*128 int8 tensor-core operations (1979 TOP/s
+// dense, 4096 int8 MAC per clock per SM), and B*Nq*Nd top-2 updates on the
+// CUDA cores.  Every int8 distance is an integer below 2^23, so all of it
+// runs in int32 and is converted to f32 once: bit-identical to the XLA path.
+//
+// What held the first design back, and what this one does about it:
+//  * Operand bandwidth.  Each of 8 warps loaded its own B fragments from
+//    shared memory with 32-bit loads: 256 B per m16n8k32 (4096 MAC, one SM
+//    clock at peak), against the 128 B per clock shared memory gives, so
+//    the product loop was capped near 50 % of peak before any conflict.
+//    Here each consumer warpgroup keeps its 64 query rows' A fragments in
+//    registers (16 a thread) for the whole db sweep and issues
+//    wgmma.m64n128k32.s32.s8.s8 with B read by the tensor cores from the
+//    swizzled ring stage: 4 KB per 64x128x32 product (64 clocks at peak),
+//    so two warpgroups need 64 B per clock.
+//  * Staging.  The db tile was a global load, a shared store, dp4a norms and
+//    two __syncthreads per 64 rows, overlapping nothing.  Here a producer
+//    warp keeps STAGES 128-row tiles in flight with TMA
+//    (cp.async.bulk.tensor, 128-byte swizzle: a descriptor row is one
+//    swizzle atom, so the box lands in the K-major layout wgmma reads, with
+//    no padding) plus a bulk copy of the tile's norm constants, on an
+//    mbarrier ring; consumers wait on full barriers and release empty ones.
+//    The persistent grid walks (pair, query tile) items in order, so the
+//    ring runs on across items and the pairs that share a db image run
+//    close together while it sits in L2.
+//  * Norms.  Every block recomputed every db row's norm.  two_nn_norms_i8
+//    writes them once per call: c = |b|^2 * 256 + (row % 128) for valid
+//    rows, KEY_POISON for rows at or past the count, [n_img, Kp] int32 with
+//    Kp = K rounded up to 128.
+//  * Epilogue.  It took ~6 integer instructions a score (qsq + bsq - 2 acc,
+//    a compare, three selects).  Here the per-row |q|^2 leaves the
+//    comparison: key = c - 512 acc = (|b|^2 - 2 q.b) * 256 + column is one
+//    IMAD (e = |b|^2 - 2 q.b lies in [-2^21, 2^23), so the key fits int32
+//    and orders by (distance, column)).  Two keys fold into a tile-local
+//    top-2 with six min/max: 4 instructions a score in all.  Once per
+//    tile the tile's top-2 merges into the running (e0, i0, e1) with the
+//    running entry winning ties (tiles arrive in increasing column order);
+//    |q|^2 is added back at the end.  Rows past the count occur only in a
+//    pair's last tile, whose keys are raised to KEY_POISON there.  Two
+//    accumulator sets let tile n's epilogue run while tile n+1's wgmma
+//    flies; setmaxnreg moves registers from the producer warpgroup to the
+//    consumers.
+// What bounds it now is the epilogue: per 128-column tile each consumer
+// thread issues 64 IMAD, 192 min/max, 16 shared loads and ~20 instructions
+// of merge, so the 8 consumer warps of an SM put ~1000 clocks of integer
+// work (64 lanes a clock) against 512 clocks of tensor-core work.  That is a
+// reckoning from the instruction mix, not a measurement; PERF.md has the
+// measured times.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int DIM = 128;          // descriptor length
+constexpr float BIG = 3.0e38f;
+
+// ------------------------------------------------- int8 wgmma kernel ----
+
+constexpr int NT = 128;                      // db rows per ring stage (wgmma N)
+constexpr int QT_WS = 128;                   // query rows per work item
+constexpr int STAGES = 4;
+constexpr int WG = 128;                      // threads per warpgroup
+constexpr int WS_THREADS = 3 * WG;           // 2 consumer warpgroups + producer
+constexpr int TILE_BYTES = NT * DIM;
+constexpr int NORM_BYTES = NT * 4;
+constexpr int KEY_POISON = 0x7fffffff;       // key of a row past the count
+constexpr int E_POISON = KEY_POISON >> 8;    // its distance part
+constexpr int SMEM_WS = 1024 + STAGES * (TILE_BYTES + NORM_BYTES) + 2 * STAGES * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map,
+                                              int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 B, 8-row groups 1024 B apart (SBO), LBO unused.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Keep the compiler from moving accumulator registers across async wgmma.
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_k32(int (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
+}
+
+// One 64x128 int32 product tile: the warpgroup's A (registers) against the
+// 128 db rows of ring stage `b_addr`, four k32 steps of 32 bytes each.
+__device__ __forceinline__ void issue_tile(int (&d)[64], const uint32_t (&a)[4][4],
+                                           uint32_t b_addr) {
+  fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_k32<0>(d, a[0], desc_sw128(b_addr));
+  wgmma_k32<1>(d, a[1], desc_sw128(b_addr + 32));
+  wgmma_k32<1>(d, a[2], desc_sw128(b_addr + 64));
+  wgmma_k32<1>(d, a[3], desc_sw128(b_addr + 96));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait(int (&d)[64]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  fence_acc(d);
+}
+
+// Fold two keys of distinct columns into a top-2 (b0 <= b1): the second
+// smallest of two sorted pairs is min(max(b0, lo), b1, hi).
+__device__ __forceinline__ void fold2(int ka, int kb, int& b0, int& b1) {
+  const int lo = min(ka, kb);
+  const int hi = max(ka, kb);
+  b1 = min(min(max(b0, lo), b1), hi);
+  b0 = min(b0, lo);
+}
+
+// Merge a tile's top-2 keys into the running (e0, i0, e1); the running
+// entry has the lower columns, so it wins ties.
+__device__ __forceinline__ void merge_tile(int b0, int b1, int col0, int& e0,
+                                           int& i0, int& e1) {
+  const int t0 = b0 >> 8;
+  const int t1 = b1 >> 8;
+  const bool lt = t0 < e0;
+  e1 = lt ? min(e0, t1) : min(e1, t0);
+  i0 = lt ? col0 + (b0 & 255) : i0;
+  e0 = lt ? t0 : e0;
+}
+
+__device__ __forceinline__ int key(int c, int acc) {
+  // c - 512 * acc, wrapping: only a poisoned column of a last tile can leave
+  // int32, and its key is replaced.
+  return static_cast<int>(static_cast<uint32_t>(c) -
+                          512u * static_cast<uint32_t>(acc));
+}
+
+// Tile-local top-2 of this thread's 2 rows x 32 columns, merged into the
+// running state.  Thread (warp w, lane 4g+t) holds rows 16w+g (acc[4i],
+// acc[4i+1]) and 16w+g+8 (acc[4i+2], acc[4i+3]) at columns 8i+2t, 8i+2t+1.
+template <bool LAST>
+__device__ __forceinline__ void epilogue(const int (&acc)[64], const int* cst,
+                                         int t, int col0, int& e0lo, int& i0lo,
+                                         int& e1lo, int& e0hi, int& i0hi,
+                                         int& e1hi) {
+  int b0lo = KEY_POISON, b1lo = KEY_POISON, b0hi = KEY_POISON, b1hi = KEY_POISON;
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    const int2 c = *reinterpret_cast<const int2*>(cst + 8 * i + 2 * t);
+    int k0 = key(c.x, acc[4 * i]);
+    int k1 = key(c.y, acc[4 * i + 1]);
+    int k2 = key(c.x, acc[4 * i + 2]);
+    int k3 = key(c.y, acc[4 * i + 3]);
+    if (LAST) {
+      const int fx = c.x == KEY_POISON ? KEY_POISON : INT32_MIN;
+      const int fy = c.y == KEY_POISON ? KEY_POISON : INT32_MIN;
+      k0 = max(k0, fx);
+      k1 = max(k1, fy);
+      k2 = max(k2, fx);
+      k3 = max(k3, fy);
+    }
+    fold2(k0, k1, b0lo, b1lo);
+    fold2(k2, k3, b0hi, b1hi);
+  }
+  merge_tile(b0lo, b1lo, col0, e0lo, i0lo, e1lo);
+  merge_tile(b0hi, b1hi, col0, e0hi, i0hi, e1hi);
+}
+
+// The product-only ablation (two_nn_product_max_i8): the row max of q.b
+// over the tile's valid columns, one max a score.
+template <bool LAST>
+__device__ __forceinline__ void max_epilogue(const int (&acc)[64], const int* cst,
+                                             int t, int& mlo, int& mhi) {
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    int a0 = acc[4 * i], a1 = acc[4 * i + 1];
+    int a2 = acc[4 * i + 2], a3 = acc[4 * i + 3];
+    if (LAST) {
+      const int2 c = *reinterpret_cast<const int2*>(cst + 8 * i + 2 * t);
+      a0 = c.x == KEY_POISON ? INT32_MIN : a0;
+      a1 = c.y == KEY_POISON ? INT32_MIN : a1;
+      a2 = c.x == KEY_POISON ? INT32_MIN : a2;
+      a3 = c.y == KEY_POISON ? INT32_MIN : a3;
+    }
+    mlo = max(mlo, max(a0, a1));
+    mhi = max(mhi, max(a2, a3));
+  }
+}
+
+__device__ __forceinline__ void merge_lanes(int& e0, int& i0, int& e1,
+                                            int lane_mask) {
+  const int o0 = __shfl_xor_sync(0xffffffffu, e0, lane_mask);
+  const int oi = __shfl_xor_sync(0xffffffffu, i0, lane_mask);
+  const int o1 = __shfl_xor_sync(0xffffffffu, e1, lane_mask);
+  const bool other = (o0 < e0) || (o0 == e0 && oi < i0);
+  const int n1 = other ? min(e0, o1) : min(o0, e1);
+  e0 = other ? o0 : e0;
+  i0 = other ? oi : i0;
+  e1 = n1;
+}
+
+__device__ __forceinline__ int dp4a_sq(uint32_t v, int acc) {
+  return __dp4a(static_cast<int>(v), static_cast<int>(v), acc);
+}
+
+__device__ __forceinline__ float to_dist(int qsq, int e) {
+  return e >= E_POISON ? BIG : static_cast<float>(qsq + e);
+}
+
+// TOP2: the exact 2-NN; else the product-only ablation (row max of q.b,
+// i0 = d1 = 0), which splits the kernel's time between product and top-2.
+template <bool TOP2>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
+                 const int8_t* __restrict__ qtab, long long q_stride, int nq,
+                 int nd, const int* __restrict__ db_counts,
+                 const int* __restrict__ norms, int kp,
+                 const int* __restrict__ pi, const int* __restrict__ pj,
+                 int num_items, float* __restrict__ d0_out,
+                 int* __restrict__ i0_out, float* __restrict__ d1_out) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t tiles = smem_u32(smem);
+  const int* norm_s = reinterpret_cast<const int*>(smem + STAGES * TILE_BYTES);
+  const uint32_t norm_u = tiles + STAGES * TILE_BYTES;
+  const uint32_t full = norm_u + STAGES * NORM_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+  const int q_tiles = nq / QT_WS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * WG) {
+    // Producer warpgroup: one thread walks every item's db tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * WG) {
+      int seq = 0;
+      for (int item = blockIdx.x; item < num_items; item += gridDim.x) {
+        const int dj = pj[item / q_tiles];
+        const int n_tiles = (db_counts[dj] + NT - 1) / NT;
+        for (int n = 0; n < n_tiles; ++n, ++seq) {
+          const int s = seq % STAGES;
+          mbar_wait(empty + 8 * s, ((seq / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, TILE_BYTES + NORM_BYTES);
+          tma_load_rows(tiles + s * TILE_BYTES, &db_map, dj * nd + n * NT,
+                        full + 8 * s);
+          bulk_load(norm_u + s * NORM_BYTES,
+                    norms + static_cast<long long>(dj) * kp + n * NT,
+                    NORM_BYTES, full + 8 * s);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / WG;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int rlo = wg * 64 + ((threadIdx.x % WG) / 32) * 16 + g;
+    int acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0;
+    int seq = 0;
+    for (int item = blockIdx.x; item < num_items; item += gridDim.x) {
+      const int b = item / q_tiles;
+      const int row = (item % q_tiles) * QT_WS + rlo;
+      const int dj = pj[b];
+      const int dbc = db_counts[dj];
+      const int8_t* qlo = qtab + static_cast<long long>(pi[b]) * q_stride +
+                          static_cast<long long>(row) * DIM + t * 4;
+      const int8_t* qhi = qlo + 8 * DIM;
+      // A fragments (the m16n8k32 layout per warp) and the two rows' norms.
+      uint32_t a[4][4];
+      int qsq_lo = 0, qsq_hi = 0;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        a[kk][0] = *reinterpret_cast<const uint32_t*>(qlo + kk * 32);
+        a[kk][1] = *reinterpret_cast<const uint32_t*>(qhi + kk * 32);
+        a[kk][2] = *reinterpret_cast<const uint32_t*>(qlo + kk * 32 + 16);
+        a[kk][3] = *reinterpret_cast<const uint32_t*>(qhi + kk * 32 + 16);
+        qsq_lo = dp4a_sq(a[kk][0], qsq_lo);
+        qsq_lo = dp4a_sq(a[kk][2], qsq_lo);
+        qsq_hi = dp4a_sq(a[kk][1], qsq_hi);
+        qsq_hi = dp4a_sq(a[kk][3], qsq_hi);
+      }
+      qsq_lo += __shfl_xor_sync(0xffffffffu, qsq_lo, 1);
+      qsq_lo += __shfl_xor_sync(0xffffffffu, qsq_lo, 2);
+      qsq_hi += __shfl_xor_sync(0xffffffffu, qsq_hi, 1);
+      qsq_hi += __shfl_xor_sync(0xffffffffu, qsq_hi, 2);
+
+      const int init = TOP2 ? E_POISON : INT32_MIN;
+      int e0lo = init, e1lo = init, e0hi = init, e1hi = init;
+      int i0lo = 0, i0hi = 0;
+      const int n_tiles = (dbc + NT - 1) / NT;
+
+      // Tile n sits in stage (seq + n) % STAGES; its product goes to acc0
+      // for even n and acc1 for odd n.  Tile n+1's product is issued before
+      // tile n's epilogue and waited for after it, so every wgmma group is
+      // retired inside the branch that issued it (ptxas serialises groups
+      // that stay in flight across a branch or a loop's back edge).  Only
+      // a pair's last tile can hold rows past the count.
+      auto stage_of = [&](int n) { return (seq + n) % STAGES; };
+      auto issue = [&](int (&acc)[64], int n) {
+        mbar_wait(full + 8 * stage_of(n), ((seq + n) / STAGES) & 1);
+        issue_tile(acc, a, tiles + stage_of(n) * TILE_BYTES);
+      };
+      auto tile_epilogue = [&](const int (&acc)[64], int n, auto last) {
+        const int* cst = norm_s + stage_of(n) * NT;
+        if constexpr (TOP2)
+          epilogue<decltype(last)::value>(acc, cst, t, n * NT, e0lo, i0lo,
+                                          e1lo, e0hi, i0hi, e1hi);
+        else
+          max_epilogue<decltype(last)::value>(acc, cst, t, e0lo, e0hi);
+        mbar_arrive(empty + 8 * stage_of(n));
+      };
+      auto finish = [&](const int (&acc)[64], int n) {
+        tile_epilogue(acc, n, std::false_type());
+      };
+      auto finish_last = [&](const int (&acc)[64], int n) {
+        if (dbc % NT)
+          tile_epilogue(acc, n, std::true_type());
+        else
+          tile_epilogue(acc, n, std::false_type());
+      };
+
+      if (n_tiles > 0) {
+        issue(acc0, 0);
+        wgmma_wait<0>(acc0);
+      }
+      for (int n = 0; n < n_tiles; n += 2) {
+        if (n + 1 == n_tiles) {
+          finish_last(acc0, n);
+          break;
+        }
+        issue(acc1, n + 1);
+        finish(acc0, n);
+        wgmma_wait<0>(acc1);
+        if (n + 2 == n_tiles) {
+          finish_last(acc1, n + 1);
+          break;
+        }
+        issue(acc0, n + 2);
+        finish(acc1, n + 1);
+        wgmma_wait<0>(acc0);
+      }
+      seq += n_tiles;
+
+      // The four lanes of a row group hold interleaved columns: merge them.
+      const long long o = static_cast<long long>(b) * nq + row;
+      if constexpr (TOP2) {
+        merge_lanes(e0lo, i0lo, e1lo, 1);
+        merge_lanes(e0lo, i0lo, e1lo, 2);
+        merge_lanes(e0hi, i0hi, e1hi, 1);
+        merge_lanes(e0hi, i0hi, e1hi, 2);
+        if (t == 0) {
+          d0_out[o] = to_dist(qsq_lo, e0lo);
+          i0_out[o] = i0lo;
+          d1_out[o] = to_dist(qsq_lo, e1lo);
+          d0_out[o + 8] = to_dist(qsq_hi, e0hi);
+          i0_out[o + 8] = i0hi;
+          d1_out[o + 8] = to_dist(qsq_hi, e1hi);
+        }
+      } else {
+        for (int mask = 1; mask <= 2; mask *= 2) {
+          e0lo = max(e0lo, __shfl_xor_sync(0xffffffffu, e0lo, mask));
+          e0hi = max(e0hi, __shfl_xor_sync(0xffffffffu, e0hi, mask));
+        }
+        if (t == 0) {
+          d0_out[o] = e0lo == INT32_MIN ? -BIG : static_cast<float>(e0lo);
+          d0_out[o + 8] = e0hi == INT32_MIN ? -BIG : static_cast<float>(e0hi);
+          i0_out[o] = i0_out[o + 8] = 0;
+          d1_out[o] = d1_out[o + 8] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// c[j, r] = |b|^2 * 256 + r % NT for r < counts[j], else KEY_POISON, over
+// [n_img, kp]; eight threads share a row.
+__global__ void __launch_bounds__(256)
+two_nn_norms_kernel(const int8_t* __restrict__ tab, int n_img, int nd, int kp,
+                    const int* __restrict__ counts, int* __restrict__ out) {
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const bool live = row < static_cast<long long>(n_img) * kp;
+  const int j = live ? static_cast<int>(row / kp) : 0;
+  const int r = live ? static_cast<int>(row % kp) : 0;
+  int s = 0;
+  if (live && r < nd) {
+    const int4 v = *reinterpret_cast<const int4*>(
+        tab + (static_cast<long long>(j) * nd + r) * DIM + part * 16);
+    s = __dp4a(v.x, v.x, s);
+    s = __dp4a(v.y, v.y, s);
+    s = __dp4a(v.z, v.z, s);
+    s = __dp4a(v.w, v.w, s);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if (live && part == 0) out[row] = r < counts[j] ? s * 256 + r % NT : KEY_POISON;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// ------------------------------------ mma.sync template (i8_mma, f32) ----
+
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int QT = WARPS * 16;    // query rows per block: one m16 tile per warp
 constexpr int DT = 64;            // db rows per shared-memory tile
 constexpr int POISON_I = 1 << 30; // |b|^2 of a padded int8 row
 constexpr int FAR_I = 1 << 29;    // int8 distances at or above this are padding
-constexpr float BIG = 3.0e38f;
 
 // Centered int8 rows, int32 distances.
 struct I8 {
@@ -228,6 +726,7 @@ two_nn_kernel(const typename T::elem* __restrict__ qtab, long long q_stride,
   dist lo0 = T::INIT, lo1 = T::INIT, hi0 = T::INIT, hi1 = T::INIT;
   int lo_i = 0, hi_i = 0;
 
+  // Only tiles holding a valid row run, so a db without one leaves i0 = 0.
   const int n_tiles = (dbc + DT - 1) / DT;
   for (int tile = 0; tile < n_tiles; ++tile) {
     __syncthreads();  // every warp is done with the previous tile
@@ -291,19 +790,95 @@ int launch(const void* qtab, long long q_stride, int nq, const void* dbtab,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool TOP2>
+int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
+              int n_img, int nd, const int* db_counts, const int* norms,
+              const int* pi, const int* pj, int num_pairs, float* d0, int* i0,
+              float* d1, cudaStream_t stream) {
+  if (num_pairs == 0 || nq == 0) return 0;
+  if (reinterpret_cast<uintptr_t>(dbtab) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {DIM, static_cast<cuuint64_t>(n_img) * nd};
+  const cuuint64_t strides[1] = {DIM};
+  const cuuint32_t box[2] = {DIM, NT};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(dbtab),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      two_nn_ws_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_WS);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = static_cast<long long>(num_pairs) * (nq / QT_WS);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  const int kp = (nd + NT - 1) / NT * NT;
+  two_nn_ws_kernel<TOP2><<<grid, WS_THREADS, SMEM_WS, stream>>>(
+      map, static_cast<const int8_t*>(qtab), q_stride, nq, nd, db_counts, norms,
+      kp, pi, pj, static_cast<int>(items), d0, i0, d1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Tables are contiguous [n_img, rows, 128]; q_stride / db_stride are the
-// per-image element strides.  nq % 128 == 0, db rows per image % 64 == 0,
-// db_counts[j] <= db rows.  Outputs are [num_pairs, nq].  Returns the CUDA
-// error code of the launch (0 on success).
+// Norm constants of a centered int8 table [n_img, nd, 128] for
+// two_nn_pairs_i8: out is int32 [n_img, kp], kp = nd rounded up to 128.
+int two_nn_norms_i8(const void* dbtab, int n_img, int nd, const int* db_counts,
+                    int* out, void* stream) {
+  const int kp = (nd + NT - 1) / NT * NT;
+  const long long threads = static_cast<long long>(n_img) * kp * 8;
+  if (threads == 0) return 0;
+  two_nn_norms_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(dbtab), n_img, nd, kp, db_counts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Centered int8 tables: qtab [*, nq, 128] with per-image element stride
+// q_stride, dbtab [n_img, nd, 128] contiguous and 16-byte aligned, norms
+// from two_nn_norms_i8 on the same table and counts.  nq % 128 == 0,
+// db_counts[j] <= nd.  Outputs are [num_pairs, nq].  Returns a CUDA error
+// code (0 on success).
 int two_nn_pairs_i8(const void* qtab, long long q_stride, int nq,
-                    const void* dbtab, long long db_stride,
-                    const int* db_counts, const int* pi, const int* pj,
+                    const void* dbtab, int n_img, int nd, const int* db_counts,
+                    const int* norms, const int* pi, const int* pj,
                     int num_pairs, float* d0, int* i0, float* d1,
                     void* stream) {
+  return launch_ws<true>(qtab, q_stride, nq, dbtab, n_img, nd, db_counts,
+                         norms, pi, pj, num_pairs, d0, i0, d1,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The same kernel with the top-2 epilogue replaced by one max a score:
+// d0 = max of q.b over the valid db rows (-3e38 if none), i0 = d1 = 0.
+int two_nn_product_max_i8(const void* qtab, long long q_stride, int nq,
+                          const void* dbtab, int n_img, int nd,
+                          const int* db_counts, const int* norms,
+                          const int* pi, const int* pj, int num_pairs,
+                          float* d0, int* i0, float* d1, void* stream) {
+  return launch_ws<false>(qtab, q_stride, nq, dbtab, n_img, nd, db_counts,
+                          norms, pi, pj, num_pairs, d0, i0, d1,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The mma.sync instantiations.  Tables are contiguous [n_img, rows, 128];
+// q_stride / db_stride are the per-image element strides.  nq % 128 == 0,
+// db rows per image % 64 == 0, db_counts[j] <= db rows.  Outputs are
+// [num_pairs, nq].  Returns the CUDA error code of the launch.
+int two_nn_pairs_i8_mma(const void* qtab, long long q_stride, int nq,
+                        const void* dbtab, long long db_stride,
+                        const int* db_counts, const int* pi, const int* pj,
+                        int num_pairs, float* d0, int* i0, float* d1,
+                        void* stream) {
   return launch<I8>(qtab, q_stride, nq, dbtab, db_stride, db_counts, pi, pj,
                     num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
 }

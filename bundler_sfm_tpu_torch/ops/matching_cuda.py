@@ -1,20 +1,38 @@
-"""Fused exact 2-NN on a hand-written Hopper kernel (`csrc/two_nn.cu`).
+"""Fused exact 2-NN on hand-written Hopper kernels (`csrc/two_nn.cu`).
 
 Replaces `bundler_sfm_tpu/ops/matching_pallas.py::two_nn_pallas` (the
 TPU kernel and its three VMEM-sized variants), batched over image pairs
-the way `ops/matching.py::_match_pairs_from_table_masked` vmaps it: each
-block of the kernel reads its pair's image indices and gathers its query
-and db rows itself, so no [B, K, 128] stacks are materialised, and the
-[K, K] distance tile never reaches device memory.
+the way `ops/matching.py::_match_pairs_from_table_masked` vmaps it: the
+kernel reads each pair's image indices and fetches its query and db rows
+itself, so no [B, K, 128] stacks are materialised, and the [K, K]
+distance tile never reaches device memory.
 
-Bound on an H100 (see the source note in `csrc/two_nn.cu`): 2·B·Nq·Nd·128
-int8 tensor-core operations, and B·Nq·Nd compare/selects of the top-2
-epilogue on the CUDA cores.
+Bound on an H100: 2·B·Nq·Nd·128 int8 tensor-core operations (1979 TOP/s,
+4096 int8 MAC a clock per SM), beside B·Nq·Nd top-2 updates on the CUDA
+cores.  The first design (kept as `two_nn_pairs_mma`) fed `mma.sync` from
+8 warps that each loaded their own B fragments from shared memory: 256 B
+per m16n8k32, twice the 128 B a clock shared memory gives, with the db
+tiles staged synchronously and an epilogue of ~6 integer instructions a
+score.  The int8 kernel now runs two consumer warpgroups of `wgmma`
+m64n128k32 (A in registers, B from a 128-byte-swizzled TMA ring kept
+full by a producer warp: 64 B a clock), folds packed (distance, column)
+keys at 4 integer instructions a score, and overlaps each tile's top-2
+with the next tile's product; that epilogue is what bounds it now (see
+the source note for the arithmetic).
 
-`two_nn_pairs` is the wrapper.  For CPU tensors it runs the plain PyTorch
-version (`two_nn_reference`); for CUDA tensors it launches the kernel or
-raises.  The library is built with `nvcc` from the sources in this package
-at first use, into `build/kernels/` at the repository root.
+Wrappers, each counting its kernel launches in `LAUNCHES`:
+  two_nn_pairs     the matcher.  int8: `two_nn_norms` then the `wgmma`
+                   kernel ("two_nn"); f32: the bf16 `mma.sync` kernel.
+  two_nn_norms     |b|²·256 + row % 128 per table row, poisoned past the
+                   count: the int8 kernel's per-column constants.
+  two_nn_pairs_mma the first int8 design, for comparison only.
+  two_nn_product_max  the `wgmma` kernel with one max a score in place of
+                   the top-2 (row max of q·b): splits its time, not a
+                   matcher.
+For CPU tensors each runs its plain PyTorch version (`two_nn_reference`,
+`two_nn_norms_plain`); for CUDA tensors it launches its kernel or raises.
+The library is built with `nvcc` from the sources in this package at
+first use, into `build/kernels/` at the repository root.
 """
 
 from __future__ import annotations
@@ -29,8 +47,10 @@ from typing import Tuple
 import torch
 
 BIG = 3.0e38
-QUERY_TILE = 128      # kernel block: 128 query rows
-DB_TILE = 64          # kernel db tile: 64 rows
+QUERY_TILE = 128      # query rows per kernel work item
+DB_TILE = 64          # db rows per image must be a multiple of this
+NORM_TILE = 128       # db rows per ring stage of the int8 kernel
+KEY_POISON = 0x7FFFFFFF
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
@@ -39,8 +59,11 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# Kernel launches made by `two_nn_pairs` (one per call on CUDA tensors).
-LAUNCHES = {"two_nn": 0}
+# Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma` or the
+# f32 kernel), "two_nn_norms", "two_nn_mma" (the first int8 design) and
+# "two_nn_product_max" (the `wgmma` kernel's product-only ablation).
+LAUNCHES = {"two_nn": 0, "two_nn_norms": 0, "two_nn_mma": 0,
+            "two_nn_product_max": 0}
 
 _lib = None
 
@@ -52,17 +75,19 @@ def _nvcc() -> str:
     return path
 
 
-def build(source: str = "two_nn.cu", verbose: bool = False) -> str:
+def build(source: str = "two_nn.cu", verbose: bool = False,
+          force: bool = False) -> str:
     """Compile `csrc/<source>` into its own library in `build/kernels/`,
     named after the source and keyed by the hash of the source and the
-    flags (an edited source rebuilds); returns the library path."""
+    flags (an edited source rebuilds; `force` rebuilds anyway); returns the
+    library path.  `verbose` prints what ptxas reports of each kernel."""
     src = os.path.join(_CSRC, source)
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
                               ).hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     out = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
-    if os.path.exists(out):
+    if os.path.exists(out) and not force:
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -82,16 +107,17 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        for name in ("two_nn_pairs_i8", "two_nn_pairs_f32"):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ws = [p, ll, i, p, i, i, p, p, p, p, i, p, p, p, p]
+        mma = [p, ll, i, p, ll, p, p, p, i, p, p, p, p]
+        for name, args in (("two_nn_pairs_i8", ws),
+                           ("two_nn_product_max_i8", ws),
+                           ("two_nn_norms_i8", [p, i, i, p, p, p]),
+                           ("two_nn_pairs_i8_mma", mma),
+                           ("two_nn_pairs_f32", mma)):
             fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
+            fn.restype = i
+            fn.argtypes = args
         _lib = lib
     return _lib
 
@@ -142,23 +168,31 @@ def _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj, chunk_elems=1 << 26):
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
-def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
-                 db_counts: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exact 2-NN of every query row of qtab[pi[b]] against the first
-    db_counts[pj[b]] rows of dbtab[pj[b]].
+def two_nn_norms_plain(dbtab: torch.Tensor, db_counts: torch.Tensor
+                       ) -> torch.Tensor:
+    """The int8 kernel's per-column constants, int32 [n_img, Kp] with Kp =
+    Nd rounded up to NORM_TILE: |b|²·256 + row % NORM_TILE for rows below
+    the count, KEY_POISON for the rest (padding included)."""
+    n_img, nd = dbtab.shape[0], dbtab.shape[1]
+    kp = -(-nd // NORM_TILE) * NORM_TILE
+    t = dbtab.int()
+    bsq = torch.nn.functional.pad((t * t).sum(-1), (0, kp - nd))
+    row = torch.arange(kp, device=dbtab.device)
+    c = bsq * 256 + row % NORM_TILE
+    return torch.where(row < db_counts[:, None].long(), c,
+                       torch.full_like(c, KEY_POISON)).int()
 
-    qtab [Nq_img, Nq, 128], dbtab [Nd_img, Nd, 128]: both centered int8 or
-    both f32; db_counts int32 [Nd_img]; pi, pj int32 [B].  Returns d0 f32,
-    i0 int32, d1 f32, each [B, Nq].  On CUDA, Nq % 128 == 0 and
-    Nd % 64 == 0 (callers pad)."""
-    if qtab.device.type == "cpu":
-        return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
+
+def _check_tables(qtab, dbtab, db_counts, pi, pj, dtypes):
+    """Device, dtype, shape and index checks of the pair wrappers on CUDA
+    tensors; one device sync for the index ranges."""
     if qtab.device.type != "cuda":
         raise ValueError(f"two_nn_pairs: unsupported device {qtab.device}")
     dtype = qtab.dtype
-    if dtype not in (torch.int8, torch.float32) or dbtab.dtype != dtype:
-        raise ValueError(f"two_nn_pairs: tables must both be int8 or f32, "
+    if dtype not in dtypes or dbtab.dtype != dtype:
+        names = " or ".join({torch.int8: "int8", torch.float32: "f32"}[d]
+                            for d in dtypes)
+        raise ValueError(f"two_nn_pairs: tables must both be {names}, "
                          f"got {qtab.dtype} / {dbtab.dtype}")
     n_img_q, nq, dim_q = qtab.shape
     n_img_d, nd, dim_d = dbtab.shape
@@ -179,27 +213,154 @@ def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
     if pj.shape != (B,) or db_counts.shape != (n_img_d,):
         raise ValueError("two_nn_pairs: pi, pj must be [B] and db_counts "
                          "[Nd_img]")
-    # The kernel indexes with these: out-of-range values would read past
-    # the tables.  (One device sync.)
+    # The kernels index with these: out-of-range values would read past
+    # the tables.
     if B and bool(((pi < 0) | (pi >= n_img_q)).any()
                   | ((pj < 0) | (pj >= n_img_d)).any()
                   | ((db_counts < 0) | (db_counts > nd)).any()):
         raise ValueError("two_nn_pairs: image index or db count out of range")
+
+
+def _outputs(B, nq, device):
+    return (torch.empty((B, nq), dtype=torch.float32, device=device),
+            torch.empty((B, nq), dtype=torch.int32, device=device),
+            torch.empty((B, nq), dtype=torch.float32, device=device))
+
+
+def _launched(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def two_nn_norms(dbtab: torch.Tensor, db_counts: torch.Tensor
+                 ) -> torch.Tensor:
+    """`two_nn_norms_plain` of a centered int8 table [n_img, Nd, 128] and
+    its int32 counts [n_img]; on CUDA by the norms kernel."""
+    if dbtab.device.type == "cpu":
+        return two_nn_norms_plain(dbtab, db_counts)
+    if dbtab.device.type != "cuda" or db_counts.device != dbtab.device:
+        raise ValueError(f"two_nn_norms: table on {dbtab.device}, counts "
+                         f"on {db_counts.device}")
+    if (dbtab.dtype != torch.int8 or dbtab.dim() != 3
+            or dbtab.shape[2] != 128 or db_counts.dtype != torch.int32
+            or db_counts.shape != dbtab.shape[:1]):
+        raise ValueError("two_nn_norms: need an int8 [n_img, Nd, 128] table "
+                         "and int32 [n_img] counts")
+    dbtab, db_counts = dbtab.contiguous(), db_counts.contiguous()
+    n_img, nd = dbtab.shape[0], dbtab.shape[1]
+    out = torch.empty((n_img, -(-nd // NORM_TILE) * NORM_TILE),
+                      dtype=torch.int32, device=dbtab.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dbtab.device):
+        err = _load().two_nn_norms_i8(
+            dbtab.data_ptr(), n_img, nd, db_counts.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _launched(err, "two_nn_norms")
+    return out
+
+
+def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
+                 db_counts: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact 2-NN of every query row of qtab[pi[b]] against the first
+    db_counts[pj[b]] rows of dbtab[pj[b]].
+
+    qtab [Nq_img, Nq, 128], dbtab [Nd_img, Nd, 128]: both centered int8 or
+    both f32; db_counts int32 [Nd_img]; pi, pj int32 [B].  Returns d0 f32,
+    i0 int32, d1 f32, each [B, Nq].  On CUDA, Nq % 128 == 0 and
+    Nd % 64 == 0 (callers pad)."""
+    if qtab.device.type == "cpu":
+        return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
+    _check_tables(qtab, dbtab, db_counts, pi, pj,
+                  (torch.int8, torch.float32))
+    if qtab.dtype == torch.float32:
+        return _launch_mma(qtab, dbtab, db_counts, pi, pj, "two_nn")
+    return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn")
+
+
+def product_max_plain(qtab, dbtab, db_counts, pi, pj, chunk_elems=1 << 26):
+    """The product-only ablation's plain version: d0 = max of q·b over the
+    first db_counts[pj[b]] rows (−3e38 if none), i0 = d1 = 0.  Exact in
+    f32: |q·b| ≤ 2²¹."""
+    nq, nd = qtab.shape[1], dbtab.shape[1]
+    step = max(1, chunk_elems // max(nq * nd, 1))
+    col = torch.arange(nd, device=qtab.device)
+    d0 = torch.empty((len(pi), nq), device=qtab.device)
+    for s in range(0, len(pi), step):
+        a, b = pi[s:s + step].long(), pj[s:s + step].long()
+        dots = qtab[a].float() @ dbtab[b].float().transpose(1, 2)
+        dots = dots.masked_fill(col >= db_counts[b][:, None, None], -BIG)
+        d0[s:s + step] = dots.amax(-1)
+    zeros = torch.zeros_like(d0)
+    return d0, zeros.int(), zeros
+
+
+def two_nn_product_max(qtab: torch.Tensor, dbtab: torch.Tensor,
+                       db_counts: torch.Tensor, pi: torch.Tensor,
+                       pj: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`product_max_plain` of centered int8 tables; on CUDA by the `wgmma`
+    2-NN kernel with its top-2 epilogue replaced by one max a score."""
+    if qtab.device.type == "cpu":
+        return product_max_plain(qtab, dbtab, db_counts, pi, pj)
+    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
+    return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn_product_max")
+
+
+def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter):
+    """The int8 `wgmma` kernel: the 2-NN ("two_nn") or its product-only
+    ablation; the norms kernel first."""
     qtab, dbtab = qtab.contiguous(), dbtab.contiguous()
-    db_counts, pi, pj = db_counts.contiguous(), pi.contiguous(), pj.contiguous()
-    d0 = torch.empty((B, nq), dtype=torch.float32, device=qtab.device)
-    i0 = torch.empty((B, nq), dtype=torch.int32, device=qtab.device)
-    d1 = torch.empty((B, nq), dtype=torch.float32, device=qtab.device)
+    db_counts = db_counts.contiguous()
+    pi, pj = pi.contiguous(), pj.contiguous()
+    B, nq = pi.shape[0], qtab.shape[1]
+    d0, i0, d1 = _outputs(B, nq, qtab.device)
+    if B == 0:
+        return d0, i0, d1
+    norms = two_nn_norms(dbtab, db_counts)
+    lib = _load()
+    fn = (lib.two_nn_pairs_i8 if counter == "two_nn"
+          else lib.two_nn_product_max_i8)
+    with torch.cuda.device(qtab.device):
+        err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(),
+                 dbtab.shape[0], dbtab.shape[1], db_counts.data_ptr(),
+                 norms.data_ptr(), pi.data_ptr(), pj.data_ptr(), B,
+                 d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _launched(err, counter)
+    return d0, i0, d1
+
+
+def two_nn_pairs_mma(qtab: torch.Tensor, dbtab: torch.Tensor,
+                     db_counts: torch.Tensor, pi: torch.Tensor,
+                     pj: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`two_nn_pairs` for centered int8 tables on the first design's
+    `mma.sync` kernel; for timing and checks beside the `wgmma` kernel."""
+    if qtab.device.type == "cpu":
+        return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
+    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
+    return _launch_mma(qtab, dbtab, db_counts, pi, pj, "two_nn_mma")
+
+
+def _launch_mma(qtab, dbtab, db_counts, pi, pj, counter):
+    """The `mma.sync` template: int8 (`two_nn_pairs_i8_mma`) or f32."""
+    qtab, dbtab = qtab.contiguous(), dbtab.contiguous()
+    db_counts = db_counts.contiguous()
+    pi, pj = pi.contiguous(), pj.contiguous()
+    B, nq, nd = pi.shape[0], qtab.shape[1], dbtab.shape[1]
+    d0, i0, d1 = _outputs(B, nq, qtab.device)
     if B == 0:
         return d0, i0, d1
     lib = _load()
-    fn = lib.two_nn_pairs_i8 if dtype == torch.int8 else lib.two_nn_pairs_f32
+    fn = (lib.two_nn_pairs_i8_mma if qtab.dtype == torch.int8
+          else lib.two_nn_pairs_f32)
     with torch.cuda.device(qtab.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(), nd * 128,
                  db_counts.data_ptr(), pi.data_ptr(), pj.data_ptr(), B,
-                 d0.data_ptr(), i0.data_ptr(), d1.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"two_nn kernel launch failed: CUDA error {err}")
-    LAUNCHES["two_nn"] += 1
+                 d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _launched(err, counter)
     return d0, i0, d1

@@ -3,26 +3,33 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
-  1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc.
+  1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc, in
+               parallel; check that ptxas reports no spills for the int8
+               wgmma kernel.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
-               on the card: the 2-NN matcher at 64 images x 2048 keys (all
-               2016 pairs), 8 images x 4096 ragged keys, duplicated rows
-               (ties) and an f32 table; time kernel, plain version, a
-               library yardstick (f32 matmul + topk), and the bound.
+               on the card: the int8 2-NN (`wgmma`) and its norms kernel,
+               the first design's `mma.sync` kernel beside them, and the
+               f32 kernel, at 64 images x 2048 keys (all 2016 pairs), 8
+               images x 4096 ragged keys, duplicated rows (ties), an f32
+               table and garbage rows past the counts; time the `wgmma` and
+               `mma.sync` kernels in turns, the plain version, a library
+               yardstick (f32 matmul + topk), and the bound.
   3. main    — render a 24-view 1024x768 box room and run
                `bundler_sfm_tpu_torch.run_bundler` on CUDA (SIFT, matching on
-               the kernel, F/H verification, tracks); check its outputs and
-               the kernel launch count; compare the kernel with its plain
-               version at the main path's shapes; re-run verification on the
-               CPU with the same RANSAC draw and count differing pairs.
+               the kernels, F/H verification, tracks) with every launch count
+               zeroed; check its outputs and the launch counts; check that
+               the `mma.sync` kernel gives byte-identical matches; compare
+               and time the kernels at the main path's shapes; re-run
+               verification on the CPU with the same RANSAC draw and count
+               differing pairs.
   4. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) and
                mode bit-exact against its plain version at the probe's shape
                (276 pairs x 2048 keys), at ragged counts and on ties; run the
                probe entry point (`probes/probe_two_nn_variants.py`) with the
                launch counts zeroed, check every exact variant IDENTICAL to
-               two_nn and every count moved; time each kernel, its plain
-               version, a library yardstick and the bound at 2208 pairs x
-               2048^2.
+               two_nn and every count moved; time two_nn, the `mma.sync`
+               kernel, each variant kernel, its plain version, a library
+               yardstick and the bound at 2208 pairs x 2048^2.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
 power limit as nvidia-smi reports them.
@@ -120,12 +127,30 @@ def compare_outputs(got, want, what):
 
 
 def compare_two_nn(tab, counts, pi, pj, name):
-    """two_nn kernel vs its plain version on the same inputs."""
-    got = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
-    torch.cuda.synchronize()
-    return compare_outputs(
-        got, matching_cuda._two_nn_pairs_plain(tab, tab, counts, pi, pj),
-        f"[kernels] {name}: {len(pi)} pairs x {tab.shape[1]} keys {tab.dtype}")
+    """The 2-NN kernels vs the plain version on the same inputs: two_nn
+    (int8 `wgmma` or f32), and for int8 tables the `mma.sync` kernel and
+    the norms kernel (against its own plain version).  Bit-exact or raise;
+    returns two_nn's max |err| over finite distances (0)."""
+    label = f"{len(pi)} pairs x {tab.shape[1]} keys {tab.dtype}"
+    want = matching_cuda._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    kernels = [("two_nn", matching_cuda.two_nn_pairs)]
+    if tab.dtype == torch.int8:
+        kernels.append(("two_nn_mma", matching_cuda.two_nn_pairs_mma))
+        norms = matching_cuda.two_nn_norms(tab, counts)
+        torch.cuda.synchronize()
+        bad = int((norms != matching_cuda.two_nn_norms_plain(tab, counts))
+                  .sum())
+        log(f"[kernels] {name} two_nn_norms: {tab.shape[0]} x "
+            f"{tab.shape[1]} rows, mismatches {bad}")
+        check(bad == 0, f"two_nn_norms disagrees with its plain version: "
+              f"{name}")
+    errs = []
+    for kname, fn in kernels:
+        got = fn(tab, tab, counts, pi, pj)
+        torch.cuda.synchronize()
+        errs.append(compare_outputs(got, want, f"[kernels] {name} {kname}: "
+                                    f"{label}"))
+    return errs[0]
 
 
 def yardstick(tab, counts, pi, pj, chunk=64):
@@ -153,13 +178,44 @@ def two_nn_bound_ms(tab, counts, pi, pj):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_two_nn(tab, counts, pi, pj, reps):
-    k = cuda_ms(lambda: matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj),
-                reps)
-    p = cuda_ms(lambda: matching_cuda._two_nn_pairs_plain(
-        tab, tab, counts, pi, pj), max(1, reps // 10))
-    y = cuda_ms(lambda: yardstick(tab, counts, pi, pj), max(1, reps // 10))
-    return k, p, y
+def time_two_nn(tab, counts, pi, pj, reps, what):
+    """Times of the int8 2-NN at one shape, all in this call: the `wgmma`
+    wrapper (norms kernel + 2-NN kernel) and the `mma.sync` kernel in turns
+    (wgmma, mma, mma, wgmma; the means are kept), the norms kernel alone,
+    the plain version and the library yardstick; logged beside the bound.
+    Returns a dict of ms."""
+    def new():
+        return matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
+
+    def old():
+        return matching_cuda.two_nn_pairs_mma(tab, tab, counts, pi, pj)
+    turns = [cuda_ms(f, reps) for f in (new, old, old, new)]
+    t = {"ms": (turns[0] + turns[3]) / 2,
+         "ms_before": (turns[1] + turns[2]) / 2,
+         "norms_ms": cuda_ms(lambda: matching_cuda.two_nn_norms(tab, counts),
+                             reps),
+         "plain_ms": cuda_ms(lambda: matching_cuda._two_nn_pairs_plain(
+             tab, tab, counts, pi, pj), max(1, reps // 10)),
+         "library_ms": cuda_ms(lambda: yardstick(tab, counts, pi, pj),
+                               max(1, reps // 10))}
+    bound, by = two_nn_bound_ms(tab, counts, pi, pj)
+    t.update(bound_ms=bound, bound_by=by)
+    log(f"[kernels] {what}: two_nn (wgmma) {t['ms']:.4f} ms "
+        f"({turns[0]:.4f}, {turns[3]:.4f}; {100 * bound / t['ms']:.2f} % of "
+        f"the bound), mma.sync {t['ms_before']:.4f} ms ({turns[1]:.4f}, "
+        f"{turns[2]:.4f}; {100 * bound / t['ms_before']:.2f} %), speed-up "
+        f"{t['ms_before'] / t['ms']:.3f}x; norms kernel {t['norms_ms']:.4f} "
+        f"ms; plain {t['plain_ms']:.4f} ms, matmul+topk "
+        f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+    return t
+
+
+def norms_bound_ms(tab):
+    """The norms kernel moves the table once and writes one int32 per row
+    (padded to the ring tile); its 128 MAC per row are far below."""
+    kp = -(-tab.shape[1] // matching_cuda.NORM_TILE) * matching_cuda.NORM_TILE
+    nbytes = tab.numel() * tab.element_size() + 4 * tab.shape[0] * kp
+    return nbytes / HBM_BYTES_S * 1e3, "bytes"
 
 
 def phase_build():
@@ -168,12 +224,24 @@ def phase_build():
     sources = sorted(f for f in os.listdir(os.path.join(
         ROOT, "bundler_sfm_tpu_torch", "csrc")) if f.endswith(".cu"))
     check(sources == ["two_nn.cu", "two_nn_variants.cu"], sources)
-    with ThreadPoolExecutor(len(sources)) as pool:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), ThreadPoolExecutor(
+            len(sources)) as pool:
         paths = list(pool.map(
-            lambda s: matching_cuda.build(s, verbose=True), sources))
+            lambda s: matching_cuda.build(s, verbose=True, force=True),
+            sources))
+    print(buf.getvalue(), end="", flush=True)
     for p in paths:
         log(f"[build] {os.path.relpath(p, ROOT)}")
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.2f} s")
+    # ptxas prints each kernel's spills under "Function properties for":
+    # both instantiations of the wgmma kernel (2-NN, product-only).
+    spills = re.findall(r"Function properties for \S*two_nn_ws_kernel\S*\n"
+                        r"\s*(.*)\n", buf.getvalue())
+    check(len(spills) == 2 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in x for x in spills),
+        f"two_nn_ws_kernel spills or was not built now: {spills}")
+    log(f"[build] two_nn_ws_kernel (2 instantiations): {spills}")
 
 
 def phase_kernels():
@@ -182,12 +250,10 @@ def phase_kernels():
     table = DescriptorTable(make_descriptors(rng, 64, 2048), device="cuda")
     pi, pj = pair_tensors(all_pairs(64))
     compare_two_nn(table.table, table.counts, pi, pj, "(a) bench")
-    k, p, y = time_two_nn(table.table, table.counts, pi, pj, reps=20)
-    bound, by = two_nn_bound_ms(table.table, table.counts, pi, pj)
-    log(f"[kernels] (a) 2016 pairs x 2048^2: kernel {k:.4f} ms, plain "
-        f"{p:.4f} ms, matmul+topk {y:.4f} ms, bound {bound:.4f} ms ({by}: "
-        f"2*2016*2048^2*128 = {2 * 2016 * 2048**2 * 128:.3e} int8 ops at "
-        f"{INT8_TOPS:.3e}/s)")
+    time_two_nn(table.table, table.counts, pi, pj, 20,
+                f"(a) 2016 pairs x 2048^2 (2*2016*2048^2*128 = "
+                f"{2 * 2016 * 2048**2 * 128:.3e} int8 ops at "
+                f"{INT8_TOPS:.3e}/s)")
     # (b) 8 images x 4096 keys, ragged counts (incl. 1 key and none).
     sizes = [4096, 4000, 3001, 2048, 1000, 65, 1, 0]
     descs = [rng.integers(0, 256, (n, 128)).astype(np.uint8) for n in sizes]
@@ -214,6 +280,19 @@ def phase_kernels():
     table = DescriptorTable(descs, device="cuda")
     pi, pj = pair_tensors([(i, j) for i in range(4) for j in range(4)])
     compare_two_nn(table.table, table.counts, pi, pj, "(d) f32")
+    # (e) nonzero garbage in the rows past each count (counts 0 included):
+    # the plain version masks them; where a db has no valid row, i0 is 0.
+    sizes = [1024, 1000, 129, 1, 0, 0]
+    for dtype in (torch.int8, torch.float32):
+        tab = torch.from_numpy(rng.integers(-128, 128, (6, 1024, 128))
+                               ).to(dtype)
+        counts = torch.tensor(sizes, dtype=torch.int32)
+        tab[1, 600:1000] = tab[0, 0:400]
+        pi, pj = pair_tensors([(i, j) for i in range(6) for j in range(6)])
+        tab, counts = tab.cuda(), counts.cuda()
+        compare_two_nn(tab, counts, pi, pj, "(e) garbage past the count")
+        got = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
+        check(not got[1][pj >= 4].any(), "i0 != 0 for a db with no row")
 
 
 def read_scene(workdir):
@@ -374,9 +453,9 @@ def phase_main():
     try:
         get_telemetry().reset()
         torch.cuda.reset_peak_memory_stats()
-        matching_cuda.LAUNCHES["two_nn"] = 0
-        for k in matching_variants.LAUNCHES:
-            matching_variants.LAUNCHES[k] = 0
+        for counts in (matching_cuda.LAUNCHES, matching_variants.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
         buf = io.StringIO()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
@@ -384,7 +463,7 @@ def phase_main():
                                    "896", "--write_keys", "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = matching_cuda.LAUNCHES["two_nn"]
+        launches = dict(matching_cuda.LAUNCHES)
         variant_launches = sum(matching_variants.LAUNCHES.values())
     finally:
         os.chdir(cwd)
@@ -395,7 +474,10 @@ def phase_main():
         check(os.path.getsize(os.path.join(work, f)) > 0, f)
     n_tracks = int(re.search(r"\] (\d+) tracks", out).group(1))
     check(n_tracks > 0, "no tracks")
-    check(launches > 0, "two_nn kernel was not launched on the main path")
+    check(launches["two_nn"] > 0 and launches["two_nn_norms"] > 0,
+          f"a 2-NN kernel was not launched on the main path: {launches}")
+    check(launches["two_nn_mma"] == 0, "the mma.sync kernel ran on the "
+          "main path")
     stages = get_telemetry().stage_seconds
     entries, dims, key_xy, descs, matches = read_scene(work)
     log(f"[main] wall {wall:.2f} s; stage seconds "
@@ -405,25 +487,56 @@ def phase_main():
         f"({min(len(k) for k in key_xy)}..{max(len(k) for k in key_xy)} per "
         f"image), pairs {24 * 23 // 2}, matched pairs {len(matches)}, "
         f"matches {sum(len(m) for m in matches.values())}, tracks {n_tracks}, "
-        f"two_nn launches {launches}, variant kernel launches "
+        f"2-NN launches {json.dumps(launches)}, variant kernel launches "
         f"{variant_launches}")
+    check_mma_matches(descs, work)
 
-    # The kernel at the main path's shapes, against its plain version.
+    # The kernels at the main path's shapes, against their plain versions.
     table = DescriptorTable(descs, device="cuda")
     pi, pj = pair_tensors(all_pairs(len(descs)))
     err = compare_two_nn(table.table, table.counts, pi, pj, "main path")
-    k, p, y = time_two_nn(table.table, table.counts, pi, pj, reps=20)
-    bound, by = two_nn_bound_ms(table.table, table.counts, pi, pj)
-    log(f"[kernels] main path {len(pi)} pairs x {table.table.shape[1]} keys: "
-        f"kernel {k:.4f} ms, plain {p:.4f} ms, matmul+topk {y:.4f} ms, "
-        f"bound {bound:.4f} ms ({by})")
-    record = {"name": "two_nn", "route": "cuda", "source": TWO_NN_SOURCE,
-              "replaces": TWO_NN_REPLACES, "launches": launches,
-              "max_abs_err": err, "ms": k, "plain_ms": p, "bound_ms": bound,
-              "bound_by": by, "library_ms": y}
+    t = time_two_nn(table.table, table.counts, pi, pj, 20,
+                    f"main path {len(pi)} pairs x {table.table.shape[1]} keys")
+    nb, nby = norms_bound_ms(table.table)
+    records = [
+        {"name": "two_nn", "route": "cuda", "source": TWO_NN_SOURCE,
+         "replaces": TWO_NN_REPLACES, "launches": launches["two_nn"],
+         "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+         "library_ms": t["library_ms"], "ms_before": t["ms_before"],
+         "norms_launches": launches["two_nn_norms"]},
+        {"name": "two_nn_norms", "route": "cuda", "source": TWO_NN_SOURCE,
+         "replaces": TWO_NN_REPLACES, "launches": launches["two_nn_norms"],
+         "max_abs_err": 0.0, "ms": t["norms_ms"],
+         "plain_ms": cuda_ms(lambda: matching_cuda.two_nn_norms_plain(
+             table.table, table.counts), 20),
+         "bound_ms": nb, "bound_by": nby, "library_ms": None}]
     check_estimators_on_card()
     compare_verification(entries, dims, key_xy, matches, work)
-    return [record]
+    return records
+
+
+def check_mma_matches(descs, work):
+    """The main path's matching redone on the first design's `mma.sync`
+    kernel: matches.init.txt must come out byte-identical."""
+    from bundler_sfm_tpu_torch.io.matchfile import write_match_file
+    from bundler_sfm_tpu_torch.ops import matching
+    pairs = all_pairs(len(descs))
+    saved = matching.two_nn_pairs
+    matching.two_nn_pairs = matching_cuda.two_nn_pairs_mma
+    try:
+        m = DescriptorTable(descs, device="cuda").match_pairs(
+            pairs, min_matches=16)
+    finally:
+        matching.two_nn_pairs = saved
+    path = os.path.join(work, "matches.mma.txt")
+    write_match_file(path, m)
+    with open(path, "rb") as a, open(os.path.join(
+            work, "matches.init.txt"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"[main] matches.init.txt byte-identical with the mma.sync kernel's "
+        f"matches: {same}")
+    check(same, "the mma.sync kernel's matches differ from the main path's")
 
 
 # The TPU kernel each variant kernel replaces, by its wrapper's name.
@@ -500,6 +613,27 @@ def _ties_table(rng):
     return table.table, table.counts
 
 
+def split_two_nn(tab, counts, pi, pj, base, ragged):
+    """The wgmma kernel's time split: its product-only ablation (one max a
+    score in place of the top-2), held bit-exact against its plain version
+    at the probe shape and on ragged counts, then timed beside base."""
+    M = matching_cuda
+    for label, (t, c), a, b in (("probe", (tab, counts), pi, pj),
+                                ("ragged", ragged, *pair_tensors(
+                                    [(i, j) for i in range(5)
+                                     for j in range(5)]))):
+        got = M.two_nn_product_max(t, t, c, a, b)
+        torch.cuda.synchronize()
+        compare_outputs(got, M.product_max_plain(t, t, c, a, b),
+                        f"[variants] two_nn_product_max {label}: {len(a)} "
+                        f"pairs x {t.shape[1]} keys")
+    ms = cuda_ms(lambda: M.two_nn_product_max(tab, tab, counts, pi, pj), 10)
+    log(f"[variants] wgmma split at 2208 pairs x 2048^2: product + one max "
+        f"a score {ms:.4f} ms ({100 * base['bound_ms'] / ms:.2f} % of the "
+        f"bound), top-2 epilogue +{base['ms'] - ms:.4f} ms, whole "
+        f"{base['ms']:.4f} ms")
+
+
 def phase_variants():
     V = matching_variants
     P = probe_two_nn_variants
@@ -525,9 +659,9 @@ def phase_variants():
 
     # The probe path through its command-line entry point, with every
     # launch count zeroed just before it.
-    matching_cuda.LAUNCHES["two_nn"] = 0
-    for k in V.LAUNCHES:
-        V.LAUNCHES[k] = 0
+    for launch_counts in (matching_cuda.LAUNCHES, V.LAUNCHES):
+        for k in launch_counts:
+            launch_counts[k] = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = P.main(["276", "2048", "--device", "cuda"])
@@ -556,11 +690,11 @@ def phase_variants():
     bound, by = two_nn_bound_ms(tab, counts, pi, pj)
     ops = 2.0 * 128 * float((counts.long()[pi.long()]
                              * counts.long()[pj.long()]).sum())
-    base_ms = cuda_ms(lambda: matching_cuda.two_nn_pairs(
-        tab, tab, counts, pi, pj), 10)
     log(f"[variants] 2208 pairs x 2048^2: bound {bound:.4f} ms ({by}: "
-        f"{ops:.4e} int8 ops at {INT8_TOPS:.3e}/s); two_nn (base) "
-        f"{base_ms:.4f} ms")
+        f"{ops:.4e} int8 ops at {INT8_TOPS:.3e}/s)")
+    base = time_two_nn(tab, counts, pi, pj, 10,
+                       "probe shape (base), 2208 pairs x 2048^2")
+    split_two_nn(tab, counts, pi, pj, base, shapes["ragged"])
     records = []
     for v in rows:
         compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")

@@ -56,6 +56,131 @@ def test_kernel_matches_plain(cuda, dtype):
         assert torch.equal(g, w)
 
 
+def _all_pairs(n, device):
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    return idx.repeat_interleave(n), idx.repeat(n)
+
+
+def _mismatches(got, want):
+    return [int((g != w).sum()) for g, w in zip(got, want)]
+
+
+def _hold_int8(tab, counts, pi, pj, want=None):
+    """The wgmma kernel and the mma.sync kernel, each bit-exact against the
+    plain version (or `want`); the norms kernel against its plain version."""
+    want = want or MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    launches = dict(MC.LAUNCHES)
+    got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
+    mma = MC.two_nn_pairs_mma(tab, tab, counts, pi, pj)
+    norms = MC.two_nn_norms(tab, counts)
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES["two_nn"] == launches["two_nn"] + 1
+    assert MC.LAUNCHES["two_nn_norms"] == launches["two_nn_norms"] + 2
+    assert MC.LAUNCHES["two_nn_mma"] == launches["two_nn_mma"] + 1
+    assert torch.equal(norms, MC.two_nn_norms_plain(tab, counts))
+    assert _mismatches(got, want) == [0, 0, 0], "wgmma vs plain"
+    assert _mismatches(mma, want) == [0, 0, 0], "mma.sync vs plain"
+
+
+def test_extreme_descriptors(cuda):
+    """The largest |q.b| either way: all -128 against all +127 and the
+    reverse, and each against itself (the largest |e| the key holds)."""
+    tab = torch.empty((4, 256, 128), dtype=torch.int8)
+    tab[0], tab[1] = -128, 127
+    tab[2, :128], tab[2, 128:] = -128, 127
+    tab[3, :128], tab[3, 128:] = 127, -128
+    tab[3, 200] = 0
+    counts = torch.tensor([256, 256, 256, 201], dtype=torch.int32)
+    pi, pj = _all_pairs(4, cuda)
+    _hold_int8(tab.to(cuda), counts.to(cuda), pi, pj)
+
+
+def test_ragged_counts_4096(cuda):
+    """K = 4096 with counts that are not a multiple of the 128-row tile."""
+    rng = np.random.default_rng(5)
+    sizes = [4096, 4000, 3001, 65, 1, 0]
+    tab = _table(rng, sizes, torch.int8, 4096)
+    tab[2, :1000] = tab[0, 2000:3000]                # exact hits
+    pi, pj = _all_pairs(len(sizes), cuda)
+    _hold_int8(tab.to(cuda), torch.tensor(sizes, dtype=torch.int32,
+                                          device=cuda), pi, pj)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32],
+                         ids=["int8", "f32"])
+def test_garbage_rows_past_count(cuda, dtype):
+    """Rows past the count hold nonzero garbage, a count of 0 included:
+    every kernel bit-exact against the plain version, which masks them,
+    and i0 = 0, d0 = d1 = 3e38 where the db has no valid row."""
+    rng = np.random.default_rng(6)
+    sizes = [512, 300, 129, 1, 0, 0]
+    tab = _table(rng, sizes, dtype, 512)
+    for j, n in enumerate(sizes):
+        junk = rng.integers(1, 128, (512 - n, 128)) * rng.choice([-1, 1])
+        tab[j, n:] = torch.from_numpy(junk).to(dtype)
+    tab = tab.to(cuda)
+    counts = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    pi, pj = _all_pairs(len(sizes), cuda)
+    want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    empty = pj >= 4
+    assert not want[1][empty].any() and (want[0][empty] == MC.BIG).all()
+    kernels = [MC.two_nn_pairs]
+    if dtype == torch.int8:
+        kernels.append(MC.two_nn_pairs_mma)
+        _hold_int8(tab, counts, pi, pj, want=want)
+    for fn in kernels:
+        got = fn(tab, tab, counts, pi, pj)
+        torch.cuda.synchronize()
+        bad = _mismatches(got, want)
+        assert bad == [0, 0, 0], f"{fn.__name__}: mismatches d0, i0, d1 {bad}"
+
+
+def test_ties_and_repeated_rows(cuda):
+    """Duplicated db rows at higher indices, a db of one repeated row, and
+    rows equal across 128-row tile boundaries."""
+    rng = np.random.default_rng(7)
+    tab = _table(rng, [1024, 1024, 1024, 1024], torch.int8, 1024)
+    tab[2, 128:256] = tab[2, 0:128]
+    tab[2, 1023] = tab[2, 127]
+    tab[3, 500:1024] = tab[0, 0:524]
+    pi, pj = _all_pairs(4, cuda)
+    _hold_int8(tab.to(cuda), torch.tensor([1024, 1024, 1000, 1024],
+                                          dtype=torch.int32, device=cuda),
+               pi, pj)
+
+
+def test_many_waves(cuda):
+    """More work items (pair x 128 query rows) than the persistent grid has
+    blocks, in a random pair order with repeats."""
+    rng = np.random.default_rng(8)
+    sizes = [512, 500, 384, 200, 511, 1, 0, 512]
+    tab = _table(rng, sizes, torch.int8, 512)
+    p = torch.from_numpy(rng.integers(0, len(sizes), (2, 700))
+                         .astype(np.int32))
+    _hold_int8(tab.to(cuda), torch.tensor(sizes, dtype=torch.int32,
+                                          device=cuda),
+               p[0].contiguous().to(cuda), p[1].contiguous().to(cuda))
+
+
+def test_product_max_matches_plain(cuda):
+    """The wgmma kernel's product-only ablation against its plain version:
+    ragged counts (0 included), extreme rows, more items than blocks."""
+    rng = np.random.default_rng(9)
+    sizes = [1024, 1000, 129, 1, 0]
+    tab = _table(rng, sizes, torch.int8, 1024)
+    tab[2, :64] = -128
+    tab[3, 0] = 127
+    tab, counts = tab.to(cuda), torch.tensor(sizes, dtype=torch.int32,
+                                             device=cuda)
+    pi, pj = _all_pairs(len(sizes), cuda)
+    before = MC.LAUNCHES["two_nn_product_max"]
+    got = MC.two_nn_product_max(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES["two_nn_product_max"] == before + 1
+    want = MC.product_max_plain(tab, tab, counts, pi, pj)
+    assert _mismatches(got, want) == [0, 0, 0]
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     tab = torch.zeros((2, 128, 128), dtype=torch.int8, device=cuda)
     counts = torch.tensor([128, 128], dtype=torch.int32, device=cuda)
