@@ -1,0 +1,627 @@
+"""Bundle adjustment — Schur-complement Levenberg-Marquardt; port of the
+single-device path of `bundler_sfm_tpu/ops/ba.py`.
+
+The replacement for the reference's SBA stack (`lib/sba-1.5/sba_levmar.c`
+`sba_motstr_levmar_x`, driven by `run_sfm`, `lib/sfm-driver/sfm.c:592-1004`):
+
+- residuals: the Snavely model over a FLAT observation layout (obs_cam,
+  obs_pt, obs_xy), with closed-form Jacobian blocks A [O,2,9] (camera) and
+  B [O,2,3] (point);
+- normal equations: U_j = Σ AᵀA, V_i = Σ BᵀB, W_o = AᵀB, the blocks SBA
+  builds (`sba_levmar.c:1191-1324`);
+- Schur: Y_o = W_o V⁻¹; the reduced camera system
+  S = U − Σ_i Σ_{a,b ∈ views(i)} Y_a W_bᵀ.  A track never revisits an image
+  (`src/ComputeTracks.cpp:171`), so each (point, camera) pair holds at
+  most one observation and the double sum factorises: scattered into dense
+  [P·3, C·9] tables, S_off = −Ỹᵀ·W̃ is ONE dense f64 matrix product.  S is
+  factored by a dense Cholesky (`sba_Axb_Chol`) or solved by block-Jacobi
+  preconditioned CG (the Ceres ITERATIVE_SCHUR configuration);
+- LM: additive damping, mu0 = tau·max(diag), Nielsen's mu update; camera
+  parameters are damped in the scaled space q = s∘x (run_sfm packs f·0.001
+  and k·5.0, `sfm.c:634-635`).
+
+Camera = [c(3), w(3), f, k1, k2] with R = exp([w]x)·R0; w starts at 0 and
+is folded back into R after each run (`sfm.c:876-929`).
+
+Reductions are deterministic: per-point and per-camera sums are gathers
+through fixed [P, M] / [C, S] observation tables summed in a fixed order
+(no atomics), so two runs on the card give bit-identical results.  The LM
+loop runs on the host and reads one pair of flags (accept, done) per
+iteration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import jacfwd, vmap
+
+from bundler_sfm_tpu_torch.ops.linalg_small import inv3
+from bundler_sfm_tpu_torch.ops.rotations import rot_update
+from bundler_sfm_tpu_torch.utils import counter
+from bundler_sfm_tpu_torch.utils.device import resolve_device
+
+CNP = 9  # camera params: c(3) w(3) f k1 k2
+PNP = 3
+
+# Parameter scaling (run_sfm packs f·0.001 and k·5.0, sfm.c:634-635): LM
+# damps mu·I in the scaled space q = s∘x, which balances the focal and
+# distortion columns of JᵀJ against the pose columns.
+F_SCALE = 0.001
+K_SCALE = 5.0
+
+
+def _robust_weight(s, loss: str, b):
+    """IRLS weight rho'(s) for a squared residual norm s: 1 for "l2"; for
+    "huber" Ceres' HuberLoss(a) with b = a² (src/BundleCeres.cpp:124-125,
+    285): rho'(s) = min(1, sqrt(b/s))."""
+    if loss == "l2":
+        return torch.ones_like(s)
+    return torch.clamp(torch.sqrt(b / torch.clamp(s, min=1e-30)), max=1.0)
+
+
+def _robust_rho(s, loss: str, b):
+    if loss == "l2":
+        return s
+    return torch.where(s <= b, s,
+                       2.0 * torch.sqrt(b * torch.clamp(s, min=1e-30)) - b)
+
+
+def _robust_curvature(s, loss: str, b):
+    """rho''(s): Huber is 0 inside, −½·√b·s^(−3/2) beyond (never > 0, so
+    the Triggs correction's alpha term vanishes)."""
+    if loss == "l2":
+        return torch.zeros_like(s)
+    return torch.where(s <= b, 0.0,
+                       -0.5 * math.sqrt(b) * torch.clamp(s, min=1e-30) ** -1.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class BAProblem:
+    """A bundle-adjustment problem on one device, observations flat.
+
+    `pt_views` [P, M] and `cam_views` [C, S] list each point's / camera's
+    observation indices in input order, padded with O (a zero row appended
+    before every gather), so per-point and per-camera sums are fixed-order
+    reductions."""
+    R0: torch.Tensor               # [C,3,3] base rotations
+    cam0: torch.Tensor             # [C,9] initial params (c, w=0, f, k1, k2)
+    cam_mask: torch.Tensor         # [C,9] 1.0 = free, 0.0 = frozen
+    cam_constrained: torch.Tensor  # [C,9] 1.0 where a constraint is active
+    cam_constraints: torch.Tensor  # [C,9] target values
+    cam_weights: torch.Tensor      # [C,9] constraint weights
+    pts0: torch.Tensor             # [P,3]
+    obs_cam: torch.Tensor          # [O] int64
+    obs_pt: torch.Tensor           # [O] int64
+    obs_xy: torch.Tensor           # [O,2]
+    obs_valid: torch.Tensor        # [O] bool (False once removed)
+    cam_scale: torch.Tensor        # [9] per-parameter scale s
+    pt_views: torch.Tensor         # [P,M] int64 observation ids, pad O
+    cam_views: torch.Tensor        # [C,S] int64 observation ids, pad O
+
+    def _replace(self, **kw) -> "BAProblem":
+        return dataclasses.replace(self, **kw)
+
+
+class BAResult(NamedTuple):
+    cam: torch.Tensor              # [C,9] final params (w folded to 0)
+    R: torch.Tensor                # [C,3,3] final rotations
+    pts: torch.Tensor              # [P,3]
+    cost: torch.Tensor             # final 0.5·Σρ(r²)
+    initial_cost: torch.Tensor
+    iters: int
+    mu: torch.Tensor
+
+
+# --------------------------------------------------------------------------
+# Problem construction (host side)
+# --------------------------------------------------------------------------
+
+def _slot_within(obs_pt: np.ndarray) -> np.ndarray:
+    """k-th observation of its point, in input order."""
+    obs_pt = np.asarray(obs_pt, dtype=np.int64)
+    order = np.argsort(obs_pt, kind="stable")
+    counts = np.bincount(obs_pt[order]) if len(obs_pt) else np.zeros(0, int)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    out = np.empty(len(obs_pt), dtype=np.int64)
+    out[order] = np.arange(len(obs_pt)) - start[obs_pt[order]]
+    return out
+
+
+def _view_table(seg: np.ndarray, num_segments: int) -> np.ndarray:
+    """[num_segments, width] observation ids of each segment in input
+    order, padded with O = len(seg)."""
+    O = len(seg)
+    counts = np.bincount(seg, minlength=num_segments) if O else \
+        np.zeros(num_segments, np.int64)
+    width = max(1, int(counts.max()) if num_segments else 1)
+    table = np.full((num_segments, width), O, dtype=np.int64)
+    within = _slot_within(seg)
+    table[seg, within] = np.arange(O)
+    return table
+
+
+def build_cam_obs_table(obs_cam: np.ndarray, num_cams: int) -> np.ndarray:
+    """[C, S] observation ids per camera (input order), padded with O; the
+    per-camera reprojection statistics (`src/Bundle.cpp:659-850`) and
+    camera sums read observations through it."""
+    return _view_table(np.asarray(obs_cam, np.int64), num_cams)
+
+
+def build_problem(
+    R0: np.ndarray, cam0: np.ndarray, pts0: np.ndarray,
+    obs_cam: np.ndarray, obs_pt: np.ndarray, obs_xy: np.ndarray,
+    *,
+    est_focal: bool = True,
+    est_distortion: bool = True,
+    cam_constrained: Optional[np.ndarray] = None,
+    cam_constraints: Optional[np.ndarray] = None,
+    cam_weights: Optional[np.ndarray] = None,
+    device="cuda",
+) -> BAProblem:
+    """A BAProblem on `device` from host arrays (f64), with the focal /
+    distortion priors of `SetCameraConstraints` (`src/Bundle.cpp:921-988`).
+    Raises if a (point, camera) pair is observed twice: the dense Schur
+    tables hold one observation per pair."""
+    dev = resolve_device(device)
+    C, P = len(cam0), len(pts0)
+    obs_cam = np.asarray(obs_cam, dtype=np.int64)
+    obs_pt = np.asarray(obs_pt, dtype=np.int64)
+    if len(np.unique(obs_pt * max(C, 1) + obs_cam)) != len(obs_pt):
+        raise ValueError("a (point, camera) pair is observed more than once")
+    mask = np.ones((C, CNP))
+    if not est_focal:
+        mask[:, 6] = 0.0
+    if not est_distortion:
+        mask[:, 7:9] = 0.0
+
+    def arr(x, shape):
+        return np.zeros(shape) if x is None else np.asarray(x, np.float64)
+    pt_views = _view_table(obs_pt, P)
+    cam_views = build_cam_obs_table(obs_cam, C)
+
+    def T(x, dtype=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+    return BAProblem(
+        R0=T(R0), cam0=T(cam0), cam_mask=T(mask),
+        cam_constrained=T(arr(cam_constrained, (C, CNP))),
+        cam_constraints=T(arr(cam_constraints, (C, CNP))),
+        cam_weights=T(arr(cam_weights, (C, CNP))),
+        pts0=T(pts0), obs_cam=T(obs_cam, torch.int64),
+        obs_pt=T(obs_pt, torch.int64), obs_xy=T(obs_xy),
+        obs_valid=torch.ones(len(obs_cam), dtype=torch.bool, device=dev),
+        cam_scale=T(np.array([1, 1, 1, 1, 1, 1, F_SCALE, K_SCALE, K_SCALE])),
+        pt_views=T(pt_views, torch.int64), cam_views=T(cam_views, torch.int64))
+
+
+# --------------------------------------------------------------------------
+# Normal equations
+# --------------------------------------------------------------------------
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+
+
+def _point_sum(data, prob: BAProblem):
+    """Per-point sum of per-observation data [O, ...] -> [P, ...]."""
+    return _pad_row(data)[prob.pt_views].sum(1)
+
+
+def _cam_sum(data, prob: BAProblem):
+    """Per-camera sum of per-observation data [O, ...] -> [C, ...]."""
+    return _pad_row(data)[prob.cam_views].sum(1)
+
+
+def _point_any(flags, prob: BAProblem):
+    return _pad_row(flags)[prob.pt_views].any(1)
+
+
+_drot_dw = vmap(jacfwd(rot_update, argnums=1))
+
+
+def _predict_obs(cam, pts, R, prob: BAProblem):
+    """Snavely projection of every observation given per-camera rotations
+    R [C,3,3].  Returns pred [O,2] and p [O,3]."""
+    co = cam[prob.obs_cam]
+    Ro = R[prob.obs_cam]
+    v = pts[prob.obs_pt] - co[:, 0:3]
+    p = (Ro * v[:, None, :]).sum(2)
+    f = co[:, 6:7]
+    n = p[:, 0:2] / p[:, 2:3]
+    rsq = (n * n).sum(1, keepdim=True)
+    D = 1.0 + co[:, 7:8] * rsq + co[:, 8:9] * rsq * rsq
+    return -f * D * n, p
+
+
+def _residuals(cam, pts, prob: BAProblem):
+    R = rot_update(prob.R0, cam[:, 3:6])
+    pred, _ = _predict_obs(cam, pts, R, prob)
+    return torch.where(prob.obs_valid[:, None], pred - prob.obs_xy, 0.0)
+
+
+def _linearize_obs(cam, pts, prob: BAProblem):
+    """Residual r [O,2] and closed-form Jacobian blocks A [O,2,9] (camera)
+    and B [O,2,3] (point), exact at the current w (dR/dw by forward-mode
+    AD per camera), plus the scaled camera mask per observation."""
+    R = rot_update(prob.R0, cam[:, 3:6])
+    dRdw = _drot_dw(prob.R0, cam[:, 3:6])                 # [C,3,3,3]
+    oc = prob.obs_cam
+    co, Ro, dRo = cam[oc], R[oc], dRdw[oc]
+    ms = (prob.cam_mask / prob.cam_scale[None])[oc]
+    v = pts[prob.obs_pt] - co[:, 0:3]
+    p = (Ro * v[:, None, :]).sum(2)
+    f, k1, k2 = co[:, 6], co[:, 7], co[:, 8]
+    inv_z = 1.0 / p[:, 2]
+    n = p[:, 0:2] * inv_z[:, None]
+    rsq = (n * n).sum(1)
+    D = 1.0 + k1 * rsq + k2 * rsq * rsq
+    pred = -(f * D)[:, None] * n
+    zero = torch.zeros_like(inv_z)
+    dn_dp = torch.stack([
+        torch.stack([inv_z, zero, -n[:, 0] * inv_z], 1),
+        torch.stack([zero, inv_z, -n[:, 1] * inv_z], 1)], 1)  # [O,2,3]
+    drsq_dp = 2.0 * (n[:, :, None] * dn_dp).sum(1)
+    dD_dp = (k1 + 2.0 * k2 * rsq)[:, None] * drsq_dp
+    dpred_dp = -f[:, None, None] * (D[:, None, None] * dn_dp
+                                    + n[:, :, None] * dD_dp[:, None, :])
+    dp_dw = (dRo * v[:, None, :, None]).sum(2)                # [O,3,3]
+    B = (dpred_dp[:, :, :, None] * Ro[:, None, :, :]).sum(2)
+    A_w = (dpred_dp[:, :, :, None] * dp_dw[:, None, :, :]).sum(2)
+    A_f = -(D[:, None]) * n
+    A_k1 = -(f * rsq)[:, None] * n
+    A_k2 = -(f * rsq * rsq)[:, None] * n
+    A = torch.cat([-B, A_w, A_f[:, :, None], A_k1[:, :, None],
+                   A_k2[:, :, None]], 2)
+    m = prob.obs_valid[:, None]
+    return (torch.where(m, pred - prob.obs_xy, 0.0),
+            torch.where(m[:, :, None], A, 0.0),
+            torch.where(m[:, :, None], B, 0.0), ms)
+
+
+def _constraint_cost(cam, prob: BAProblem):
+    cw = prob.cam_weights * prob.cam_constrained * prob.cam_mask
+    return 0.5 * (cw * (cam - prob.cam_constraints) ** 2).sum()
+
+
+def compute_cost(cam, pts, prob: BAProblem, loss: str = "l2",
+                 huber_b: float = 625.0):
+    r = _residuals(cam, pts, prob)
+    cost = 0.5 * _robust_rho((r * r).sum(1), loss, huber_b).sum()
+    return cost + _constraint_cost(cam, prob)
+
+
+def build_normal_blocks(cam, pts, prob: BAProblem, fix_points: bool,
+                        loss: str = "l2", huber_b: float = 625.0):
+    """U [C,9,9], V [P,3,3], W [O,9,3], g_c [C,9], g_p [P,3], cost.
+
+    Camera quantities are in the scaled space q = cam_scale∘x; the camera
+    step the solve produces is δq (δx = δq / cam_scale).  Robust losses use
+    Ceres' Corrector (the full Triggs correction; for Huber, whose ρ'' ≤ 0,
+    it reduces to the √ρ' scaling)."""
+    inv_s = 1.0 / prob.cam_scale
+    r, A, B, ms = _linearize_obs(cam, pts, prob)
+    s = (r * r).sum(1)
+    cost = 0.5 * _robust_rho(s, loss, huber_b).sum()
+    if loss != "l2":
+        rho1 = _robust_weight(s, loss, huber_b)
+        rho2 = _robust_curvature(s, loss, huber_b)
+        sq1 = torch.sqrt(rho1)
+        pos = rho2 > 0.0
+        Dd = torch.clamp(
+            1.0 + 2.0 * s * rho2 / torch.clamp(rho1, min=1e-30), min=0.0)
+        alpha = torch.where(pos, 1.0 - torch.sqrt(Dd), 0.0)
+        r_scale = torch.where(
+            pos, sq1 / torch.clamp(1.0 - alpha, min=1e-30), sq1)
+        asn = (alpha / torch.clamp(s, min=1e-30))[:, None, None]
+        rtA = (r[:, :, None] * A).sum(1)
+        A = sq1[:, None, None] * (A - asn * r[:, :, None] * rtA[:, None, :])
+        rtB = (r[:, :, None] * B).sum(1)
+        B = sq1[:, None, None] * (B - asn * r[:, :, None] * rtB[:, None, :])
+        r = r * r_scale[:, None]
+    A = A * ms[:, None, :]
+    if fix_points:
+        B = B * 0.0
+    U = _cam_sum((A[:, :, :, None] * A[:, :, None, :]).sum(1), prob)
+    V = _point_sum((B[:, :, :, None] * B[:, :, None, :]).sum(1), prob)
+    W = (A[:, :, :, None] * B[:, :, None, :]).sum(1)
+    g_c = -_cam_sum((A * r[:, :, None]).sum(1), prob)
+    g_p = -_point_sum((B * r[:, :, None]).sum(1), prob)
+
+    # Camera constraints (sba.h:82-90) in q-space: 0.5·cw·(x−t)² =
+    # 0.5·(cw/s²)·(q−s·t)², so diag += cw/s², the gradient gains one 1/s.
+    cw = prob.cam_weights * prob.cam_constrained * prob.cam_mask
+    U = U + torch.diag_embed(cw * (inv_s * inv_s)[None])
+    g_c = g_c + cw * (prob.cam_constraints - cam) * inv_s[None]
+    return U, V, W, g_c, g_p, cost + _constraint_cost(cam, prob)
+
+
+# --------------------------------------------------------------------------
+# Reduced camera system
+# --------------------------------------------------------------------------
+
+def assemble_schur(U_aug, Y, W, g_c, g_p, prob: BAProblem):
+    """The dense reduced camera system S [C·9, C·9] and its rhs [C·9]:
+    S = blockdiag(U_aug) − Ỹᵀ·W̃ with Ỹ, W̃ the per-point dense camera tables
+    [P·3, C·9] (zero where a point is not observed), rhs = g_c −
+    Σ_obs Y_o g_p[pt(o)] per camera."""
+    C, P = U_aug.shape[0], g_p.shape[0]
+    rhs = g_c - _cam_sum((Y * g_p[prob.obs_pt][:, None, :]).sum(2), prob)
+
+    def table(X):
+        t = X.new_zeros(P, C, CNP, PNP)
+        t[prob.obs_pt, prob.obs_cam] = X
+        return t.permute(1, 2, 0, 3).reshape(C * CNP, P * PNP)
+    S = -(table(Y) @ table(W).T)
+    idx = torch.arange(C, device=S.device)
+    diag = torch.zeros(C, CNP, C, CNP, dtype=S.dtype, device=S.device)
+    diag[idx, :, idx, :] = U_aug
+    return S + diag.reshape(C * CNP, C * CNP), rhs.reshape(-1)
+
+
+def solve_schur(S, rhs):
+    """Dense Cholesky solve (`sba_Axb_Chol`, sba_levmar.c:1368).  A system
+    that is not positive definite gives NaN (as a failed factorization does
+    in the JAX package), so the LM step is rejected; no host sync."""
+    L, info = torch.linalg.cholesky_ex(S)
+    x = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+    return torch.where(info == 0, x, torch.nan)
+
+
+def solve_schur_cg(S, rhs, max_iters: int = 100, tol: float = 1e-8,
+                   check_every: int = 10):
+    """Preconditioned CG on S with the block-Jacobi (SCHUR_JACOBI)
+    preconditioner — Ceres' ITERATIVE_SCHUR path for > 200 cameras
+    (src/BundleCeres.cpp:132-134,369-379).  Iterations after convergence
+    leave the state unchanged; the host checks for convergence every
+    `check_every` iterations."""
+    C = S.shape[0] // CNP
+    idx = torch.arange(C, device=S.device)
+    blocks = S.reshape(C, CNP, C, CNP)[idx, :, idx, :]
+    Minv = torch.linalg.inv(
+        blocks + 1e-12 * torch.eye(CNP, dtype=S.dtype, device=S.device))
+
+    def precond(r):
+        return (Minv @ r.reshape(C, CNP, 1)).reshape(-1)
+    b2 = (rhs * rhs).sum()
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    p = z
+    rz = (r * z).sum()
+    for it in range(max_iters):
+        go = (r * r).sum() > tol * tol * b2
+        if it % check_every == 0:
+            counter("host_syncs")
+            if not bool(go):
+                break
+        Ap = S @ p
+        alpha = rz / torch.clamp((p * Ap).sum(), min=1e-300)
+        x1 = x + alpha * p
+        r1 = r - alpha * Ap
+        z1 = precond(r1)
+        rz1 = (r1 * z1).sum()
+        p1 = z1 + (rz1 / torch.clamp(rz, min=1e-300)) * p
+        x, r, z, p, rz = (torch.where(go, a, b) for a, b in
+                          ((x1, x), (r1, r), (z1, z), (p1, p), (rz1, rz)))
+    return x
+
+
+def back_substitute(Vinv, W, g_p, dcam, prob: BAProblem):
+    """dp_i = V_i⁻¹ (g_p_i − Σ_{o∈views(i)} W_oᵀ dcam[cam(o)])."""
+    wc = (W * dcam[prob.obs_cam][:, :, None]).sum(1)
+    x = g_p - _point_sum(wc, prob)
+    return (Vinv * x[:, None, :]).sum(2)
+
+
+# --------------------------------------------------------------------------
+# LM driver
+# --------------------------------------------------------------------------
+
+def _lm_loop(prob: BAProblem, max_iters: int, fix_points: bool, tau, eps1,
+             eps2, loss: str, huber_param, solver: str):
+    """The LM loop from prob.cam0 / pts0; returns (cam, pts, cost, cost0,
+    iters, mu) with w NOT yet folded into R.  The normal blocks are rebuilt
+    only after an accepted step (a rejected step leaves cam and pts, and so
+    the blocks, as they were)."""
+    dtype, dev = prob.cam0.dtype, prob.cam0.device
+    eyec = torch.eye(CNP, dtype=dtype, device=dev)
+    eyep = torch.eye(PNP, dtype=dtype, device=dev)
+    huber_b = huber_param * huber_param
+    inv_s = 1.0 / prob.cam_scale
+    frozen = torch.diag_embed(1.0 - prob.cam_mask)
+
+    def blocks(cam, pts):
+        return build_normal_blocks(cam, pts, prob, fix_points, loss=loss,
+                                   huber_b=huber_b)
+    U, V, W, g_c, g_p, cost0 = blocks(prob.cam0, prob.pts0)
+    maxdiag = torch.diagonal(U, dim1=-2, dim2=-1).max()
+    if V.shape[0]:
+        maxdiag = torch.maximum(maxdiag,
+                                torch.diagonal(V, dim1=-2, dim2=-1).max())
+    mu = tau * torch.clamp(maxdiag, min=1.0)
+    nu = torch.tensor(2.0, dtype=dtype, device=dev)
+    cam, pts, cost = prob.cam0, prob.pts0, cost0
+    it = 0
+    while it < max_iters:
+        Vinv = inv3(V + (mu + 1e-12) * eyep)
+        Y = (W[:, :, :, None] * Vinv[prob.obs_pt][:, None, :, :]).sum(2)
+        S, rhs = assemble_schur(U + frozen + mu * eyec, Y, W, g_c, g_p, prob)
+        dcam = solve_schur_cg(S, rhs) if solver == "cg" else \
+            solve_schur(S, rhs)
+        dcam = dcam.reshape(-1, CNP) * prob.cam_mask
+        dpts = torch.zeros_like(pts) if fix_points else \
+            back_substitute(Vinv, W, g_p, dcam, prob)
+        cam_new = cam + dcam * inv_s[None]
+        pts_new = pts + dpts
+        new_cost = compute_cost(cam_new, pts_new, prob, loss, huber_b)
+        pred = 0.5 * (dcam * (mu * dcam + g_c)).sum() + \
+            0.5 * (dpts * (mu * dpts + g_p)).sum()
+        rho = (cost - new_cost) / torch.clamp(pred, min=1e-300)
+        accept = new_cost < cost
+        cam = torch.where(accept, cam_new, cam)
+        pts = torch.where(accept, pts_new, pts)
+        cost = torch.where(accept, new_cost, cost)
+        mu = torch.where(accept, mu * torch.clamp(
+            1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0), mu * nu)
+        nu = torch.where(accept, 2.0, nu * 2.0)
+        gnorm = g_c.abs().max()
+        if g_p.shape[0]:
+            gnorm = torch.maximum(gnorm, g_p.abs().max())
+        q = cam * prob.cam_scale[None]
+        pnorm = torch.sqrt((q * q).sum() + (pts * pts).sum())
+        dnorm = torch.sqrt((dcam * dcam).sum() + (dpts * dpts).sum())
+        done = (gnorm < eps1) | (dnorm < eps2 * (pnorm + eps2)) | (mu > 1e30)
+        it += 1
+        counter("host_syncs")
+        accepted, finished = torch.stack([accept, done]).tolist()
+        if finished:
+            break
+        if accepted:
+            U, V, W, g_c, g_p, _ = blocks(cam, pts)
+    return cam, pts, cost, cost0, it, mu
+
+
+def _fold(R0, cam):
+    """Fold w into R (run_sfm's epilogue, sfm.c:876-929)."""
+    return rot_update(R0, cam[:, 3:6]), torch.cat(
+        [cam[:, :3], torch.zeros_like(cam[:, 3:6]), cam[:, 6:]], 1)
+
+
+def run_ba(prob: BAProblem, max_iters: int = 150, fix_points: bool = False,
+           tau: float = 1e-3, eps1: float = 1e-10, eps2: float = 1e-12,
+           loss: str = "l2", huber_param: float = 25.0,
+           solver: str = "cholesky") -> BAResult:
+    """Levenberg-Marquardt with Schur complement; mirrors run_sfm's SBA call
+    (MAX_ITERS=150 `sfm.c:814`, opts `sfm.c:705-714`).  loss="huber" with
+    solver="cg" is the Ceres backend's configuration."""
+    counter(f"ba_runs_{prob.cam0.device.type}")
+    cam, pts, cost, cost0, iters, mu = _lm_loop(
+        prob, max_iters, fix_points, tau, eps1, eps2, loss, huber_param,
+        solver)
+    counter("lm_iters", iters)
+    R, cam = _fold(prob.R0, cam)
+    return BAResult(cam=cam, R=R, pts=pts, cost=cost, initial_cost=cost0,
+                    iters=iters, mu=mu)
+
+
+# --------------------------------------------------------------------------
+# BA + outlier-removal loop (RunSFM's re-bundle loop)
+# --------------------------------------------------------------------------
+
+class BAOutlierResult(NamedTuple):
+    cam: torch.Tensor          # [C,9] final params (w folded)
+    R: torch.Tensor            # [C,3,3]
+    pts: torch.Tensor          # [P,3]
+    obs_valid: torch.Tensor    # [O] final observation liveness
+    pt_removed: torch.Tensor   # [P] True where the point was removed
+    passes: int                # number of BA passes run
+    iters: int                 # total LM iterations across passes
+    n_outliers: np.ndarray     # [max_passes] outlier points found per pass
+    stats: torch.Tensor        # [max_passes, C, 4]: nobs, mean, p80, thresh
+    hist: torch.Tensor         # [max_passes, C, 10] error-bin counts
+    hist_edges: torch.Tensor   # [max_passes, C, 2]: per-camera min/max
+    avg_dist: torch.Tensor     # mean reprojection error, final pass
+    too_few: bool              # live points dropped below min_points
+    cost: torch.Tensor         # final pass cost
+    initial_cost: torch.Tensor  # first pass initial cost
+
+
+def _pass_stats(prob: BAProblem, cam, pts, R, ov, outlier_factor,
+                min_thresh, max_thresh):
+    """Per-camera reprojection statistics on the live observations
+    (`src/Bundle.cpp:659-850`): distances, the p80 threshold clamped to
+    [min, max], mean, and the 10-bin histogram."""
+    dtype = cam.dtype
+    pred, _ = _predict_obs(cam, pts, R, prob)
+    d = torch.sqrt(((pred - prob.obs_xy) ** 2).sum(1))
+    vm = _pad_row(ov)[prob.cam_views]                        # [C,S]
+    dc = _pad_row(d)[prob.cam_views]
+    dmask = torch.where(vm, dc, torch.finfo(dtype).max)
+    dsort = torch.sort(dmask, 1).values
+    n = vm.sum(1)
+    top = torch.clamp(n - 1, min=0)
+    k = torch.minimum(torch.clamp(torch.round(0.8 * n.to(dtype)).long(),
+                                  min=0), top)
+    has = n > 0
+    p80 = torch.where(has, dsort.gather(1, k[:, None])[:, 0], 0.0)
+    thresh = torch.clamp(outlier_factor * p80, min_thresh, max_thresh)
+    mean = torch.where(has, torch.where(vm, dc, 0.0).sum(1)
+                       / torch.clamp(n, min=1), 0.0)
+    pr_min = torch.where(has, dsort[:, 0], 0.0)
+    pr_max = torch.where(has, dsort.gather(1, top[:, None])[:, 0], 0.0)
+    step = (pr_max - pr_min) / 10.0
+    edges = pr_min[:, None] + step[:, None] * torch.arange(
+        1, 11, dtype=dtype, device=cam.device)[None, :]
+    le = (dmask[:, :, None] <= edges[:, None, :]) & vm[:, :, None]
+    cum = le.sum(1)
+    cum[:, 9] = n
+    bins = torch.diff(cum, dim=1, prepend=torch.zeros_like(cum[:, :1]))
+    stats = torch.stack([n.to(dtype), mean, p80, thresh], 1)
+    return d, thresh, stats, bins, torch.stack([pr_min, pr_max], 1)
+
+
+def run_ba_outlier_loop(
+    prob: BAProblem, max_iters: int = 150, fix_points: bool = False,
+    tau: float = 1e-3, eps1: float = 1e-10, eps2: float = 1e-12,
+    loss: str = "l2", huber_param: float = 25.0, solver: str = "cholesky",
+    outlier_factor: float = 2.4, min_thresh: float = 8.0,
+    max_thresh: float = 16.0, min_outliers: int = 40, min_points: int = 8,
+    max_passes: int = 8, remove_outliers: bool = True,
+) -> BAOutlierResult:
+    """`RunSFM_SBA`'s outer loop (`src/Bundle.cpp:568-919`): BA, per-camera
+    reprojection stats, adaptive threshold 1.2·outlier_num_stddev·p80
+    clamped to [min_thresh, max_thresh], removal of every point with an
+    observation above it, and a re-bundle while more than `min_outliers`
+    points went.  The host reads the live-point and outlier
+    counts once per pass."""
+    dtype, dev = prob.cam0.dtype, prob.cam0.device
+    C, P = prob.cam0.shape[0], prob.pts0.shape[0]
+    cam, pts, R0c, ov = prob.cam0, prob.pts0, prob.R0, prob.obs_valid
+    removed = torch.zeros(P, dtype=torch.bool, device=dev)
+    stats_b = torch.zeros((max_passes, C, 4), dtype=dtype, device=dev)
+    hist_b = torch.zeros((max_passes, C, 10), dtype=torch.int64, device=dev)
+    edge_b = torch.zeros((max_passes, C, 2), dtype=dtype, device=dev)
+    nout_b = np.zeros(max_passes, np.int64)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    iters_tot, passes, n_out, too_few = 0, 0, 0, False
+    avg, cost_f, cost_i = zero, zero, zero
+    counter(f"ba_runs_{dev.type}")
+    while passes == 0 or (remove_outliers and passes < max_passes
+                          and n_out > min_outliers):
+        counter("host_syncs")
+        if int(_point_any(ov, prob).sum()) < min_points:
+            too_few = True
+            break
+        p = prob._replace(R0=R0c, cam0=cam, pts0=pts, obs_valid=ov)
+        cam1, pts1, cost, cost0, iters, _ = _lm_loop(
+            p, max_iters, fix_points, tau, eps1, eps2, loss, huber_param,
+            solver)
+        R1, cam1 = _fold(R0c, cam1)
+        d, thresh, stats, bins, edges = _pass_stats(
+            prob, cam1, pts1, R1, ov, outlier_factor, min_thresh, max_thresh)
+        bad_pt = _point_any(ov & (d > thresh[prob.obs_cam]), prob)
+        avg = torch.where(ov, d, 0.0).sum() / torch.clamp(ov.sum(), min=1)
+        if remove_outliers:
+            ov = ov & ~bad_pt[prob.obs_pt]
+            removed = removed | bad_pt
+        cam, pts, R0c = cam1, pts1, R1
+        stats_b[passes], hist_b[passes], edge_b[passes] = stats, bins, edges
+        counter("host_syncs")
+        n_out = int(bad_pt.sum())
+        nout_b[passes] = n_out
+        iters_tot += iters
+        cost_f = cost
+        if passes == 0:
+            cost_i = cost0
+        passes += 1
+    counter("lm_iters", iters_tot)
+    return BAOutlierResult(
+        cam=cam, R=R0c, pts=pts, obs_valid=ov, pt_removed=removed,
+        passes=passes, iters=iters_tot, n_outliers=nout_b, stats=stats_b,
+        hist=hist_b, hist_edges=edge_b, avg_dist=avg, too_few=too_few,
+        cost=cost_f, initial_cost=cost_i)

@@ -1,5 +1,6 @@
 """Small dense linear algebra, batched over leading dimensions — port of
-`bundler_sfm_tpu/ops/linalg_small.py` (`cholesky_solve`, `inv3`).
+`bundler_sfm_tpu/ops/linalg_small.py` (`cholesky_solve`, `inv3`, `solve3`,
+`lu_solve`, `qr3`).
 
 The systems solved here are symmetric positive definite by construction
 (Hartley-normalized normal equations with a ridge), so a pivot-free
@@ -70,3 +71,43 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     tiny = torch.finfo(A.dtype).tiny
     det = torch.where(det.abs() < tiny, torch.full_like(det, tiny), det)
     return adj / det[..., None, None]
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve general 3×3 systems A [..., 3, 3] x = b [..., 3] through the
+    adjugate inverse (the JAX package's Cramer form)."""
+    return (inv3(A) @ b[..., None])[..., 0]
+
+
+def lu_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve general A [..., n, n] X = B [..., n, k] with partial pivoting.
+    The JAX package unrolls this for the TPU's missing f64 LU; here it is
+    LAPACK / cuSOLVER's LU."""
+    return torch.linalg.solve(A, B)
+
+
+def qr3(A: torch.Tensor):
+    """QR of nonsingular 3×3 matrices [..., 3, 3] by modified Gram-Schmidt:
+    (Q, R) with R upper-triangular and diag(R) > 0 — the JAX package's sign
+    convention, which `rotations.rq3` relies on."""
+    a0, a1, a2 = A[..., :, 0], A[..., :, 1], A[..., :, 2]
+
+    def dot(x, y):
+        return (x * y).sum(-1)
+    r00 = torch.sqrt(dot(a0, a0))
+    q0 = a0 / r00[..., None]
+    r01 = dot(q0, a1)
+    u1 = a1 - r01[..., None] * q0
+    r11 = torch.sqrt(dot(u1, u1))
+    q1 = u1 / r11[..., None]
+    r02 = dot(q0, a2)
+    r12 = dot(q1, a2)
+    u2 = a2 - r02[..., None] * q0 - r12[..., None] * q1
+    r22 = torch.sqrt(dot(u2, u2))
+    q2 = u2 / r22[..., None]
+    Q = torch.stack([q0, q1, q2], -1)
+    z = torch.zeros_like(r00)
+    R = torch.stack([torch.stack([r00, r01, r02], -1),
+                     torch.stack([z, r11, r12], -1),
+                     torch.stack([z, z, r22], -1)], -2)
+    return Q, R

@@ -1,5 +1,6 @@
 """Small-matrix SVD built on symmetric eigendecomposition — port of
-`bundler_sfm_tpu/ops/svd_utils.py` (`eigh3x3`, `svd_small`).
+`bundler_sfm_tpu/ops/svd_utils.py` (`eigh3x3`, `svd_small`,
+`nullspace_rows`).
 
 The 3×3 case keeps the JAX package's closed form (Cardano eigenvalues,
 cross-product eigenvectors), so F-matrix rank projections round the same
@@ -88,3 +89,14 @@ def svd_small(A: torch.Tensor):
     s = torch.sqrt(torch.clamp(w, min=0.0))
     U = A @ V / torch.clamp(s[..., None, :], min=1e-30)
     return U, s, V.transpose(-1, -2)
+
+
+def nullspace_rows(A: torch.Tensor, k: int) -> torch.Tensor:
+    """The k right-singular vectors of A [..., m, n] with the SMALLEST
+    singular values, as rows [..., k, n], from the eigenvectors of AᵀA
+    (ascending).  Where those singular values are (near) zero the returned
+    rows are one orthonormal basis of the null space; which one depends on
+    the eigensolver, so callers must use only the space they span."""
+    AtA = A.transpose(-1, -2) @ A
+    _, V = torch.linalg.eigh(AtA)
+    return V[..., :k].transpose(-1, -2)

@@ -1,0 +1,865 @@
+"""Incremental reconstruction driver — port of the single-device
+`bundle_adjust_fast` path of `bundler_sfm_tpu/pipeline/incremental.py`, the
+`BundleAdjustFast` state machine (`src/BundleFast.cpp:37-526`).
+
+  pick initial pair  (`BundlePickInitialPair`, src/Bundle.cpp:1578-1701)
+  setup initial pair (`SetupInitialCameraPair`, src/Bundle.cpp:1704-1884)
+  run_sfm            (`RunSFM_SBA` + outlier loop, src/Bundle.cpp:568-919)
+  while images remain:
+    find candidates  (`FindCamerasWithNMatches`)
+    register batch   (`BundleInitializeImage`, src/Bundle.cpp:2994-3270)
+    triangulate      (`BundleAdjustAddAllNewPoints`, src/BundleAdd.cpp:193-427)
+    run_sfm + prune  (`RemoveBadPointsAndCameras`, src/Bundle.cpp:4190-4261)
+    dump round outputs
+
+The 5-point RANSAC, two-view and N-view triangulation, resection RANSAC,
+camera refinement and bundle adjustment run as tensor programs on
+`scene.device` in f64; the host keeps the bookkeeping (which image joins
+when, which keys belong to which point) in numpy, as the JAX package does.
+
+The 5-point and resection draws come from `sampler(stage, seed, n_valid,
+num_rounds, sample_size)` -> int64 [B, num_rounds, sample_size] for the B
+problems with n_valid [B] correspondences; `stage` is "fivepoint" (seed + 101)
+or "resection" (seed + 131·round).  The default, `StageSampler`, draws from a
+`torch.Generator` seeded with the stage's seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from bundler_sfm_tpu_torch.io.bundlefile import (
+    BundleCamera, BundleFile, BundlePoint, write_bundle_file,
+)
+from bundler_sfm_tpu_torch.io.plyfile import write_points_ply
+from bundler_sfm_tpu_torch.ops.ba import (
+    CNP, _slot_within, build_problem, run_ba_outlier_loop,
+)
+from bundler_sfm_tpu_torch.ops.essential import pose_to_center
+from bundler_sfm_tpu_torch.ops.fivepoint import estimate_pose_5point
+from bundler_sfm_tpu_torch.ops.lm import camera_refine_trim_batch
+from bundler_sfm_tpu_torch.ops.ransac import sample_indices
+from bundler_sfm_tpu_torch.ops.resection import find_and_verify_camera
+from bundler_sfm_tpu_torch.ops.triangulate import (
+    triangulate_tracks_pixels, triangulate_two_view,
+)
+from bundler_sfm_tpu_torch.pipeline.scene import Scene
+from bundler_sfm_tpu_torch.pipeline.tracks import matches_from_tracks
+from bundler_sfm_tpu_torch.utils import (
+    counter, get_telemetry, resolve_device, stage,
+)
+
+ADD_REPROJECTION_ERROR = 16.0    # src/BundleAdd.cpp:44
+INITIAL_DEPTH = 3.0              # src/Bundle.cpp:1776
+# Seed offsets of the 5-point draw and of each registration round's
+# resection draw (the JAX package's PRNGKey(seed + 101), seed + 131·round).
+FIVEPOINT_SEED_OFFSET = 101
+RESECTION_SEED_STRIDE = 131
+# Bound on [lanes, rounds, correspondences] entries per resection batch.
+_RESECT_ELEMS = 1 << 26
+
+
+class StageSampler:
+    """Default RANSAC draw of the 5-point and resection stages: distinct
+    valid indices from a `torch.Generator` on `device`, seeded with the
+    stage's seed at each call (so a run is reproducible per device)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def __call__(self, stage_name, seed, n_valid, num_rounds, sample_size):
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        return sample_indices(g, num_rounds, sample_size,
+                              n_valid.to(self.device), int(n_valid.max()))
+
+
+@dataclasses.dataclass
+class Reconstruction:
+    """Mutable reconstruction state (the arrays BundleAdjustFast carries)."""
+    added_order: List[int]                    # cam slot -> image idx
+    cam_R: List[np.ndarray]                   # per slot [3,3]
+    cam_params: List[np.ndarray]              # per slot [9] (c,0,f,k1,k2)
+    points: List[np.ndarray]                  # [3] each
+    colors: List[np.ndarray]
+    pt_views: List[List[Tuple[int, int]]]     # (cam_slot, key_idx)
+    track_extra: np.ndarray                   # [T] -> point idx / -1
+    key_extra: List[Dict[int, int]]           # img -> {key: pt | -1 | -2}
+
+    @property
+    def num_cameras(self):
+        return len(self.added_order)
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def _device(scene: Scene) -> torch.device:
+    return resolve_device(scene.device)
+
+
+def _T(x, dev, dtype=torch.float64):
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# Initial pair
+# --------------------------------------------------------------------------
+
+def pick_initial_pair(scene: Scene, use_init_focal_only: bool
+                      ) -> Tuple[int, int]:
+    """`BundlePickInitialPair` (src/Bundle.cpp:1578-1701): most track-matches
+    among pairs whose homography fits badly (score = 1/inlier_ratio > 2);
+    shared-track counts from one sparse incidence self-product, pairs in
+    row-major order."""
+    cfg = scene.config
+    if cfg.initial_pair[0] >= 0 and cfg.initial_pair[1] >= 0:
+        return cfg.initial_pair
+    n = scene.num_images
+    SCORE_THRESHOLD = 2.0
+    MATCH_THRESHOLD, MIN_SCORE, MIN_MATCHES = 32, 1.0e-1, 80
+    best = (-1, -1, 0, 0.0)      # i, j, matches, score
+    best2 = (-1, -1, 0, 0.0)
+    from scipy import sparse
+    eligible = np.ones(n, bool)
+    for i in range(n):
+        if scene.ignore_in_bundle[i]:
+            eligible[i] = False
+        elif use_init_focal_only and cfg.use_focal_estimate \
+                and not scene.has_init_focal(i):
+            eligible[i] = False
+    rows = np.concatenate([
+        np.full(len(scene.visible_points[i]), i, np.int64)
+        for i in range(n)]) if n else np.zeros(0, np.int64)
+    cols = np.concatenate([
+        np.asarray(scene.visible_points[i], np.int64)
+        for i in range(n)]) if n else np.zeros(0, np.int64)
+    T = int(cols.max()) + 1 if len(cols) else 1
+    V = sparse.csr_matrix(
+        (np.ones(len(rows), np.int32), (rows, cols)), shape=(n, T))
+    counts = (V @ V.T).toarray()
+    counts[~eligible] = 0
+    counts[:, ~eligible] = 0
+    ii, jj = np.nonzero(np.triu(counts, 1) > MATCH_THRESHOLD)
+    for i, j in zip(ii.tolist(), jj.tolist()):
+        num_matches = int(counts[i, j])
+        ti = scene.transforms.get((i, j))
+        ratio = ti.inlier_ratio if ti else 0.0
+        score = MIN_SCORE if ratio == 0.0 else 1.0 / ratio
+        if num_matches > best[2] and score > SCORE_THRESHOLD:
+            best = (i, j, num_matches, score)
+        if num_matches > MIN_MATCHES and score > best2[3]:
+            best2 = (i, j, num_matches, score)
+    if best[0] != -1:
+        return best[0], best[1]
+    if best2[0] != -1:
+        return best2[0], best2[1]
+    if use_init_focal_only:
+        return pick_initial_pair(scene, False)
+    return 0, 1
+
+
+def _pair_focal(scene: Scene, img: int) -> float:
+    cfg = scene.config
+    if not cfg.fixed_focal_length and scene.has_init_focal(img):
+        return scene.init_focal(img)
+    return cfg.init_focal_length
+
+
+def setup_initial_pair(scene: Scene, i_best: int, j_best: int,
+                       seed: int = 0, sampler: Callable = None
+                       ) -> Reconstruction:
+    """`SetupInitialCameraPair` (src/Bundle.cpp:1704-1884): 5-point RANSAC
+    (512 rounds at 0.25·fmatrix_threshold, `EstimateRelativePose2`,
+    src/RelativePose.cpp:216-223), then the pair's matches triangulated and
+    gated at projection_estimation_threshold px."""
+    cfg = scene.config
+    dev = _device(scene)
+    sampler = sampler or StageSampler(dev)
+    f0, f1 = _pair_focal(scene, i_best), _pair_focal(scene, j_best)
+    R0, c0 = np.eye(3), np.zeros(3)
+    R1, c1 = np.eye(3), np.zeros(3)
+    pair_matches = matches_from_tracks(scene.tracks, i_best, j_best)
+    n_m = len(pair_matches)
+    x1 = _T(scene.key_xy[i_best][pair_matches[:, 0]], dev)
+    x2 = _T(scene.key_xy[j_best][pair_matches[:, 1]], dev)
+
+    solved = False
+    # A 5-point sample needs five matches; with fewer the pair falls back
+    # to the reference's fixed-depth initialization.
+    if cfg.factor_essential and scene.has_init_focal(i_best) and \
+            scene.has_init_focal(j_best) and not cfg.use_constraints \
+            and n_m >= 5:
+        with stage("init_5pt"):
+            samples = sampler("fivepoint", seed + FIVEPOINT_SEED_OFFSET,
+                              torch.tensor([n_m]), cfg.fivepoint_rounds, 5)
+            R, t, cnt, ok = estimate_pose_5point(
+                samples[0].to(dev), x1, x2, n_m, f0, f1,
+                0.25 * cfg.fmatrix_threshold)
+            ok = bool(ok)
+        if ok:
+            R1 = _np(R)
+            c1 = _np(pose_to_center(R, t))
+            solved = True
+            log(f"[SetupInitialCameraPair] 5pt-init: {int(cnt)}/{n_m} inliers")
+
+    recon = Reconstruction(
+        added_order=[i_best, j_best], cam_R=[R0, R1],
+        cam_params=[np.concatenate([c0, np.zeros(3), [f0], np.zeros(2)]),
+                    np.concatenate([c1, np.zeros(3), [f1], np.zeros(2)])],
+        points=[], colors=[], pt_views=[],
+        track_extra=np.full(len(scene.tracks), -1, dtype=np.int64),
+        key_extra=[dict() for _ in range(scene.num_images)])
+
+    if solved and n_m:
+        with stage("init_triangulate"):
+            Xs, errs = triangulate_two_view(
+                -x1 / f0, -x2 / f1, _T(R0, dev), _T(-R0 @ c0, dev),
+                _T(R1, dev), _T(-R1 @ c1, dev))
+            Xs = _np(Xs)
+            # The gate is on the PIXEL error: scale the normalized rms by
+            # the mean focal.
+            errs = _np(errs) * 0.5 * (f0 + f1)
+    for mi, (k1, k2) in enumerate(pair_matches):
+        if not solved:
+            p = scene.key_xy[i_best][k1]
+            X = np.array([(p[0] / cfg.init_focal_length) * INITIAL_DEPTH,
+                          (p[1] / cfg.init_focal_length) * INITIAL_DEPTH,
+                          INITIAL_DEPTH + c0[2]])
+        else:
+            if errs[mi] > cfg.projection_estimation_threshold:
+                continue
+            X = Xs[mi]
+        pt_idx = len(recon.points)
+        recon.points.append(X)
+        recon.colors.append(scene.color_of_key(i_best, int(k1)))
+        recon.key_extra[i_best][int(k1)] = pt_idx
+        recon.key_extra[j_best][int(k2)] = pt_idx
+        tr = scene.key_track[i_best].get(int(k1))
+        if tr is not None:
+            recon.track_extra[tr] = pt_idx
+        recon.pt_views.append([(0, int(k1)), (1, int(k2))])
+    log(f"[SetupInitialCameraPair] {len(recon.points)} initial points")
+    return recon
+
+
+# --------------------------------------------------------------------------
+# Bundle adjustment with the outlier loop
+# --------------------------------------------------------------------------
+
+def _gather_problem(recon: Reconstruction, scene: Scene):
+    """vmask/projections marshaling (src/Bundle.cpp:597-637): only points
+    with live views enter BA.  Returns (live point ids, (obs_cam, obs_pt,
+    obs_xy))."""
+    counts = np.fromiter(map(len, recon.pt_views), dtype=np.int64,
+                         count=len(recon.pt_views))
+    live = np.nonzero(counts > 0)[0]
+    total = int(counts[live].sum())
+    flat = np.fromiter(
+        itertools.chain.from_iterable(
+            itertools.chain.from_iterable(recon.pt_views[p] for p in live)),
+        dtype=np.int64, count=2 * total).reshape(-1, 2)
+    obs_cam = flat[:, 0]
+    keys = flat[:, 1]
+    obs_pt = np.repeat(np.arange(len(live), dtype=np.int64), counts[live])
+    img_of_obs = np.asarray(recon.added_order, dtype=np.int64)[obs_cam]
+    obs_xy = np.empty((total, 2), dtype=np.float64)
+    for img in np.unique(img_of_obs):
+        sel = img_of_obs == img
+        obs_xy[sel] = scene.key_xy[img][keys[sel]]
+    return [int(p) for p in live], (obs_cam, obs_pt, obs_xy)
+
+
+def _cap_slot_views(obs_cam, obs_pt, obs_xy, num_points,
+                    waste_factor: float = 4.0, min_cap: int = 32):
+    """The JAX package's per-round decimation of very long tracks: when
+    num_points·(longest track) exceeds waste_factor·O, points with more
+    views than cap = max(min_cap, ceil(waste_factor·O / num_points))
+    (rounded up to 4) keep exactly `cap` evenly spaced views for this BA
+    round.  It changes which observations enter BA, so the port keeps it
+    for parity; it never fires below 33 views per track."""
+    counts = np.bincount(obs_pt, minlength=num_points)
+    M = int(counts.max()) if len(obs_pt) else 1
+    O = len(obs_pt)
+    if M <= min_cap or num_points * M <= waste_factor * O:
+        return obs_cam, obs_pt, obs_xy
+    cap = max(min_cap, int(np.ceil(waste_factor * O / num_points)))
+    cap = -(-min(cap, M) // 4) * 4
+    if cap >= M:
+        return obs_cam, obs_pt, obs_xy
+    within = _slot_within(obs_pt)
+    cnt = counts[obs_pt]
+    keep = (cnt <= cap) | (((within + 1) * cap) // cnt
+                           > (within * cap) // cnt)
+    get_telemetry().add("ba_views_capped", float(np.sum(~keep)))
+    return obs_cam[keep], obs_pt[keep], obs_xy[keep]
+
+
+def run_sfm(recon: Reconstruction, scene: Scene,
+            remove_outliers: bool = True, fix_points: bool = False,
+            verbose: bool = True) -> float:
+    """`RunSFM_SBA` with the >40-outlier re-bundle loop
+    (src/Bundle.cpp:568-919) on `scene.device`: the problem is marshaled
+    once per call of the outlier loop, and the removal bookkeeping applied
+    once; the host re-enters only if the loop hit its pass cap with
+    outliers still above the floor.  Returns the final mean reprojection
+    error (inf when too few points remain)."""
+    cfg = scene.config
+    dev = _device(scene)
+    MIN_POINTS, MIN_OUTLIERS = cfg.sfm_min_points, cfg.sfm_min_outliers
+    MAX_PASSES = 8
+    while True:
+        live, (obs_cam, obs_pt, obs_xy) = _gather_problem(recon, scene)
+        if len(live) < MIN_POINTS:
+            log("[RunSFM] Too few points remaining, exiting!")
+            return float("inf")
+        obs_cam, obs_pt, obs_xy = _cap_slot_views(obs_cam, obs_pt, obs_xy,
+                                                  len(live))
+        C = recon.num_cameras
+        # Focal / distortion priors (SetCameraConstraints, src/Bundle.cpp:
+        # 921-988); the Ceres backend scales them by each camera's
+        # visibility count (src/BundleCeres.cpp:300-323).
+        num_vis = np.bincount(obs_cam, minlength=C)
+        cc = np.zeros((C, CNP)); ct = np.zeros((C, CNP)); cw = np.zeros((C, CNP))
+        for s in range(C):
+            img = recon.added_order[s]
+            if cfg.constrain_focal and scene.has_init_focal(img):
+                cc[s, 6] = 1.0
+                ct[s, 6] = scene.init_focal(img)
+                cw[s, 6] = (cfg.constrain_focal_weight * num_vis[s]
+                            if cfg.use_ceres else cfg.constrain_focal_weight)
+            if cfg.estimate_distortion:
+                cc[s, 7:9] = 1.0
+                cw[s, 7:9] = (1e-4 * cfg.distortion_weight * num_vis[s]
+                              if cfg.use_ceres else cfg.distortion_weight)
+        solver, loss = "cholesky", "l2"
+        if cfg.use_ceres:
+            solver = "cholesky" if C <= cfg.ceres_dense_max_cameras else "cg"
+            loss = "huber"
+        prob = build_problem(
+            np.stack(recon.cam_R), np.stack(recon.cam_params),
+            np.stack([recon.points[p] for p in live]), obs_cam, obs_pt,
+            obs_xy, est_focal=not cfg.fixed_focal_length,
+            est_distortion=cfg.estimate_distortion,
+            cam_constrained=cc, cam_constraints=ct, cam_weights=cw,
+            device=dev)
+        with stage("ba"):
+            res = run_ba_outlier_loop(
+                prob, max_iters=cfg.sfm_max_iters, fix_points=fix_points,
+                tau=cfg.sfm_mu0_tau, eps1=cfg.sfm_eps1, eps2=cfg.sfm_eps2,
+                loss=loss, huber_param=cfg.ceres_huber_param, solver=solver,
+                outlier_factor=1.2 * cfg.outlier_num_stddev,
+                min_thresh=cfg.min_proj_error_threshold,
+                max_thresh=cfg.max_proj_error_threshold,
+                min_outliers=MIN_OUTLIERS, min_points=MIN_POINTS,
+                max_passes=MAX_PASSES, remove_outliers=remove_outliers)
+            cam, Rf, pts = _np(res.cam), _np(res.R), _np(res.pts)
+            removed = _np(res.pt_removed)
+        counter("ba_observations", float(len(obs_cam)) * float(res.iters))
+        for s in range(C):
+            recon.cam_params[s] = cam[s]
+            recon.cam_R[s] = Rf[s]
+        for k, p in enumerate(live):
+            recon.points[p] = pts[k]
+
+        if verbose:
+            stats, hist = _np(res.stats), _np(res.hist)
+            edges2 = _np(res.hist_edges)
+            for pi in range(res.passes):
+                for s in range(C):
+                    n, mean, p80, thresh = stats[pi, s]
+                    if n <= 0:
+                        continue
+                    log(f"[RunSFM] cam {s}: {int(n)} obs, mean "
+                        f"{mean:.3f}, p80 {p80:.3f}, thresh {thresh:.3f}")
+                    # 10-bin error histogram (src/Bundle.cpp:823-846).
+                    pr_min, pr_max = edges2[pi, s]
+                    step = (pr_max - pr_min) / 10.0
+                    for b in range(10):
+                        hi = pr_min + step * (b + 1)
+                        log(f"   E[{hi - step:0.3e}--{hi:0.3e}]: "
+                            f"{int(hist[pi, s, b])} "
+                            f"[{hist[pi, s, b] / n:0.3f}]")
+                if remove_outliers:
+                    log(f"[RunSFM] Removing {int(res.n_outliers[pi])} "
+                        f"outliers (pass {pi + 1})")
+            log(f"[RunSFM] {res.passes} passes, {res.iters} LM iters, "
+                f"cost {float(res.initial_cost):.1f} -> "
+                f"{float(res.cost):.1f}")
+        avg_dist = float(res.avg_dist)
+        if not remove_outliers:
+            return avg_dist
+        for k in np.nonzero(removed)[0]:
+            p = live[k]
+            for (slot, key) in recon.pt_views[p]:
+                recon.key_extra[recon.added_order[slot]][key] = -2
+            recon.pt_views[p] = []
+            recon.colors[p] = np.array([0.0, 0.0, 255.0])
+        if res.too_few:
+            log("[RunSFM] Too few points remaining, exiting!")
+            return float("inf")
+        if res.passes < MAX_PASSES or \
+                int(res.n_outliers[res.passes - 1]) <= MIN_OUTLIERS:
+            return avg_dist
+
+
+# --------------------------------------------------------------------------
+# Camera registration
+# --------------------------------------------------------------------------
+
+def find_candidate_images(recon: Reconstruction, scene: Scene
+                          ) -> Dict[int, int]:
+    """#existing 3D points seen by each unregistered image
+    (`FindCamerasWithNMatches`, src/Bundle.cpp:1437-1570)."""
+    counts: Dict[int, int] = {}
+    registered = set(recon.added_order)
+    for i in range(scene.num_images):
+        if i in registered or scene.ignore_in_bundle[i]:
+            continue
+        if scene.config.only_bundle_init_focal and not scene.has_init_focal(i):
+            continue
+        cnt = 0
+        for tr in scene.visible_points[i]:
+            pt = recon.track_extra[tr]
+            if pt >= 0 and len(recon.pt_views[pt]) > 0:
+                cnt += 1
+        counts[i] = cnt
+    return counts
+
+
+def _resect(samples, X, x, nv, thr, weak_thr):
+    """find_and_verify_camera over candidate lanes, in chunks that bound
+    the [lanes, rounds, correspondences] scoring tensors."""
+    B, pad = X.shape[0], X.shape[1]
+    ch = max(1, _RESECT_ELEMS // max(samples.shape[1] * pad, 1))
+    parts = [find_and_verify_camera(samples[s:s + ch], X[s:s + ch],
+                                    x[s:s + ch], nv[s:s + ch], thr, weak_thr)
+             for s in range(0, B, ch)]
+    return type(parts[0])(*(torch.cat(f) for f in zip(*parts)))
+
+
+def bundle_initialize_images(recon: Reconstruction, scene: Scene,
+                             imgs: Sequence[int], seed: int,
+                             sampler: Callable = None) -> List[int]:
+    """`BundleInitializeImage` for one registration round's candidates as
+    one batched resection RANSAC and one lockstep refine-and-trim program
+    (the reference registers them one at a time, src/BundleFast.cpp:
+    300-336).  Returns the images that registered (cameras appended in that
+    order); failures are the caller's to mark ignored."""
+    cfg = scene.config
+    dev = _device(scene)
+    sampler = sampler or StageSampler(dev)
+    cands = []
+    for img in imgs:
+        pts3, projs, pt_idx, keys = [], [], [], []
+        for tr, key in zip(scene.visible_points[img],
+                           scene.visible_keys[img]):
+            pt = recon.track_extra[tr]
+            if pt < 0 or len(recon.pt_views[pt]) == 0:
+                continue
+            pts3.append(recon.points[pt])
+            projs.append(scene.key_xy[img][key])
+            pt_idx.append(pt)
+            keys.append(key)
+        if len(pts3) < cfg.min_max_matches:
+            log(f"[BundleInitializeImage] {img}: too few matches")
+            continue
+        cands.append(dict(img=img, pts3=np.stack(pts3),
+                          projs=np.stack(projs), pt_idx=pt_idx, keys=keys))
+    if not cands:
+        return []
+
+    B = len(cands)
+    pad = max(len(c["pts3"]) for c in cands)
+    Xp = np.zeros((B, pad, 3))
+    xp = np.zeros((B, pad, 2))
+    nv = np.zeros(B, np.int64)
+    for b, c in enumerate(cands):
+        n = len(c["pts3"])
+        Xp[b, :n] = c["pts3"]
+        xp[b, :n] = c["projs"]
+        nv[b] = n
+    X_d, x_d, nv_d = _T(Xp, dev), _T(xp, dev), _T(nv, dev, torch.int64)
+    with stage("resection"):
+        samples = sampler("resection", seed, torch.from_numpy(nv),
+                          cfg.projection_rounds, 6).to(dev)
+        ver = _resect(samples, X_d, x_d, nv_d,
+                      cfg.projection_estimation_threshold,
+                      16.0 * cfg.projection_estimation_threshold)
+        ok, Ks, Rs, ts, weak = (_np(v) for v in (
+            ver.ok, ver.K, ver.R, ver.t, ver.inliers_weak))
+
+    # Per-image focal initialization (src/Bundle.cpp:3131-3172).
+    live = []
+    cam0 = np.zeros((B, CNP))
+    R0 = np.tile(np.eye(3), (B, 1, 1))
+    fcs = np.zeros(B)
+    fws = np.zeros(B)
+    for b, c in enumerate(cands):
+        img = c["img"]
+        if not ok[b]:
+            log(f"[BundleInitializeImage] {img}: pose estimation failed")
+            continue
+        if not weak[b, :nv[b]].any():
+            continue
+        K, R, t = Ks[b], Rs[b], ts[b]
+        if cfg.fixed_focal_length:
+            f_new = cfg.init_focal_length
+        elif cfg.use_focal_estimate and scene.has_init_focal(img):
+            f_init = scene.init_focal(img)
+            f_obs = 0.5 * (K[0, 0] + K[1, 1])
+            ratio = f_init / f_obs if f_init > f_obs else f_obs / f_init
+            f_new = f_init if (ratio < 1.4 or cfg.trust_focal_estimate) \
+                else f_obs
+        elif scene.has_init_focal(img) and cfg.use_focal_estimate:
+            f_new = scene.init_focal(img)
+        else:
+            f_new = 0.5 * (K[0, 0] + K[1, 1])
+        cam0[b, 0:3] = -R.T @ t
+        cam0[b, 6] = f_new
+        R0[b] = R
+        if cfg.constrain_focal and scene.has_init_focal(img):
+            fcs[b] = scene.init_focal(img)
+            fws[b] = cfg.constrain_focal_weight
+        live.append(b)
+    if not live:
+        return []
+
+    # Refine and trim (first pass focal-fixed, then refine + p95 trim until
+    # stable) over the live lanes at once.
+    L = np.asarray(live)
+    with stage("refine_camera"):
+        cam, R, masks = camera_refine_trim_batch(
+            _T(cam0[L], dev), _T(R0[L], dev), X_d[L], x_d[L],
+            _T(weak[L], dev, torch.bool), not cfg.fixed_focal_length,
+            cfg.estimate_distortion, _T(fcs[L], dev), _T(fws[L], dev),
+            cfg.distortion_weight, 50, 1e-3, cfg.outlier_num_stddev,
+            cfg.min_proj_error_threshold, cfg.max_proj_error_threshold)
+        cam, R, masks = _np(cam), _np(R), _np(masks)
+
+    registered = []
+    for li, b in enumerate(live):
+        c = cands[b]
+        img = c["img"]
+        inl = np.nonzero(masks[li, :nv[b]])[0]
+        width = scene.dims[img][0]
+        if len(inl) < 8 or cam[li, 6] < 0.1 * width:
+            log(f"[BundleInitializeImage] {img}: bad camera "
+                f"({len(inl)} inliers, f={cam[li, 6]:.1f})")
+            continue
+        cam_slot = recon.num_cameras
+        for i in inl:
+            recon.key_extra[img][c["keys"][i]] = c["pt_idx"][i]
+            recon.pt_views[c["pt_idx"][i]].append((cam_slot, c["keys"][i]))
+        recon.added_order.append(img)
+        recon.cam_R.append(R[li])
+        recon.cam_params.append(cam[li])
+        counter("images_registered")
+        log(f"[BundleInitializeImage] {img}: registered with {len(inl)} "
+            f"points, f={cam[li, 6]:.2f}")
+        registered.append(img)
+    return registered
+
+
+# --------------------------------------------------------------------------
+# Point addition and pruning
+# --------------------------------------------------------------------------
+
+def add_all_new_points(recon: Reconstruction, scene: Scene) -> int:
+    """`BundleAdjustAddAllNewPoints` (src/BundleAdd.cpp:193-427): sub-tracks
+    visible in >= 2 registered cameras, gated by ray angle >= 2° (host, f32
+    dots as in the JAX package), triangulated on the device, gated by
+    reprojection <= 16 px and cheirality."""
+    cfg = scene.config
+    dev = _device(scene)
+    cand: Dict[int, List[Tuple[int, int]]] = {}
+    for slot, img in enumerate(recon.added_order):
+        for tr, key in zip(scene.visible_points[img],
+                           scene.visible_keys[img]):
+            if recon.track_extra[tr] != -1:
+                continue          # already a point
+            if recon.key_extra[img].get(key, -1) != -1:
+                continue          # outlier (-2) or already connected
+            cand.setdefault(tr, []).append((slot, key))
+    tracks = [(tr, views) for tr, views in cand.items()
+              if len(views) >= max(2, cfg.min_track_views)]
+    if not tracks:
+        return 0
+
+    T = len(tracks)
+    M = max(len(v) for _, v in tracks)
+    counts = np.fromiter((len(v) for _, v in tracks), dtype=np.int64,
+                         count=T)
+    total = int(counts.sum())
+    flat = np.fromiter(
+        itertools.chain.from_iterable(
+            itertools.chain.from_iterable(v for _, v in tracks)),
+        dtype=np.int64, count=2 * total).reshape(-1, 2)
+    slots, keys = flat[:, 0], flat[:, 1]
+    ti_f = np.repeat(np.arange(T), counts)
+    vi_f = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+    cam_arr = np.stack(recon.cam_params)
+    R_arr = np.stack(recon.cam_R)
+    added = np.asarray(recon.added_order, dtype=np.int64)
+    xy = np.zeros((T, M, 2))
+    fs = np.ones((T, M))
+    ks = np.zeros((T, M, 2))
+    Rs = np.broadcast_to(np.eye(3), (T, M, 3, 3)).copy()
+    cs = np.zeros((T, M, 3))
+    mask = np.zeros((T, M), dtype=bool)
+    img_f = added[slots]
+    xy_f = np.empty((total, 2))
+    for img in np.unique(img_f):
+        sel = img_f == img
+        xy_f[sel] = scene.key_xy[img][keys[sel]]
+    xy[ti_f, vi_f] = xy_f
+    fs[ti_f, vi_f] = cam_arr[slots, 6]
+    ks[ti_f, vi_f] = cam_arr[slots, 7:9]
+    Rs[ti_f, vi_f] = R_arr[slots]
+    cs[ti_f, vi_f] = cam_arr[slots, 0:3]
+    mask[ti_f, vi_f] = True
+
+    # Ray-angle conditioning (src/BundleAdd.cpp:272-337): max pairwise
+    # angle >= ray_angle_threshold ⟺ min pairwise dot of unit rays <= cos.
+    v = np.concatenate([xy / fs[..., None], -np.ones((T, M, 1))], axis=2)
+    rays = np.einsum("tmi,tmij->tmj", v, Rs)
+    rays = np.where(mask[..., None], rays, 0.0)
+    norms = np.linalg.norm(rays, axis=2, keepdims=True)
+    norms[norms == 0] = 1.0
+    rn = rays / norms
+    dots = np.einsum("tmi,tni->tmn", rn.astype(np.float32),
+                     rn.astype(np.float32))
+    pair_mask = mask[:, :, None] & mask[:, None, :]
+    min_dot = np.where(pair_mask, dots, 2.0).min(axis=(1, 2))
+    cos_thr = max(np.cos(np.radians(cfg.ray_angle_threshold)), -1 + 1e-8)
+    conditioned = min_dot <= cos_thr
+
+    if cfg.panorama_mode:
+        raise NotImplementedError("panorama_mode is not ported")
+    with stage("triangulate"):
+        X, err = triangulate_tracks_pixels(
+            _T(xy, dev), _T(fs, dev), _T(ks, dev), _T(Rs, dev), _T(cs, dev),
+            _T(mask, dev, torch.bool))
+        X, err = _np(X), _np(err)
+
+    # Cheirality for every view (src/BundleAdd.cpp:359-378).
+    q = np.einsum("tmij,tmj->tmi", Rs, X[:, None, :] - cs)
+    in_front = np.where(mask, q[:, :, 2] < 0.0, True).all(axis=1)
+    good = conditioned & np.isfinite(err) & \
+        (err <= ADD_REPROJECTION_ERROR) & in_front
+    n_added = 0
+    for ti, (tr, views) in enumerate(tracks):
+        if not good[ti]:
+            continue
+        pt_idx = len(recon.points)
+        recon.points.append(X[ti])
+        img0 = recon.added_order[views[0][0]]
+        recon.colors.append(scene.color_of_key(img0, views[0][1]))
+        recon.pt_views.append(list(views))
+        recon.track_extra[tr] = pt_idx
+        for (slot, key) in views:
+            recon.key_extra[recon.added_order[slot]][key] = pt_idx
+        n_added += 1
+    log(f"[AddAllNewPoints] Added {n_added} / {T} candidate tracks "
+        f"(ill-conditioned {int((~conditioned).sum())}, "
+        f"high-reproj {int((err > ADD_REPROJECTION_ERROR).sum())}, "
+        f"behind {int((~in_front).sum())})")
+    return n_added
+
+
+def remove_bad_points(recon: Reconstruction, scene: Scene) -> int:
+    """`RemoveBadPointsAndCameras` (src/Bundle.cpp:4190-4261): drop points
+    whose max pairwise ray angle (point->camera-center rays) is below
+    0.5·ray_angle_threshold (host, f32 dots as in the JAX package)."""
+    cfg = scene.config
+    P = len(recon.points)
+    counts = np.fromiter(map(len, recon.pt_views), dtype=np.int64, count=P)
+    live = np.nonzero(counts > 0)[0]
+    if len(live) == 0:
+        log("[RemoveBadPointsAndCameras] Pruned 0 points")
+        return 0
+    M = int(counts[live].max())
+    total = int(counts[live].sum())
+    flat_slots = np.fromiter(
+        itertools.chain.from_iterable(
+            (v[0] for v in recon.pt_views[p]) for p in live),
+        dtype=np.int64, count=total)
+    li = np.repeat(np.arange(len(live)), counts[live])
+    vi = np.arange(total) - np.repeat(
+        np.cumsum(counts[live]) - counts[live], counts[live])
+    cam_c = np.stack(recon.cam_params)[:, 0:3]
+    pos = np.stack([recon.points[p] for p in live])
+    rays_f = pos[li] - cam_c[flat_slots]
+    n = np.linalg.norm(rays_f, axis=1, keepdims=True)
+    valid_f = n[:, 0] > 0
+    rays_f = np.divide(rays_f, n, out=np.zeros_like(rays_f), where=n > 0)
+    rays = np.zeros((len(live), M, 3))
+    vmask = np.zeros((len(live), M), bool)
+    rays[li, vi] = rays_f
+    vmask[li, vi] = valid_f
+    min_dot = np.full(len(live), 2.0, np.float32)
+    rays = rays.astype(np.float32)
+    iu = np.triu_indices(M, 1)
+    step = max(1, int(4e7 // max(M * M, 1)))
+    for s in range(0, len(live), step):
+        r = rays[s:s + step]
+        vm = vmask[s:s + step]
+        dots = np.einsum("lmi,lni->lmn", r, r)
+        pair_ok = vm[:, :, None] & vm[:, None, :]
+        if M > 1:
+            d = np.where(pair_ok, dots, 2.0)[:, iu[0], iu[1]]
+            min_dot[s:s + step] = d.min(axis=1)
+    cos_thr = min(np.cos(np.radians(0.5 * cfg.ray_angle_threshold)),
+                  1.0 - 1e-8)
+    bad = live[min_dot > cos_thr]
+    for p in bad:
+        for (slot, key) in recon.pt_views[p]:
+            recon.key_extra[recon.added_order[slot]][key] = -1
+        recon.pt_views[p] = []
+        recon.colors[p] = np.array([0.0, 0.0, 255.0])
+    log(f"[RemoveBadPointsAndCameras] Pruned {len(bad)} points")
+    return len(bad)
+
+
+# --------------------------------------------------------------------------
+# Output
+# --------------------------------------------------------------------------
+
+def to_bundle_file(recon: Reconstruction, scene: Scene) -> BundleFile:
+    """Final scene -> BundleFile (DumpOutputFile, src/BundleIO.cpp:730-875)."""
+    cams = []
+    slot_of = {img: s for s, img in enumerate(recon.added_order)}
+    for i in range(scene.num_images):
+        s = slot_of.get(i)
+        if s is None:
+            cams.append(BundleCamera(f=0.0, k1=0.0, k2=0.0,
+                                     R=np.zeros((3, 3)), t=np.zeros(3)))
+        else:
+            cp = recon.cam_params[s]
+            R = recon.cam_R[s]
+            cams.append(BundleCamera(f=float(cp[6]), k1=float(cp[7]),
+                                     k2=float(cp[8]), R=R.copy(),
+                                     t=-R @ cp[0:3]))
+    pts = []
+    for p in range(len(recon.points)):
+        views = recon.pt_views[p]
+        if len(views) == 0:
+            continue
+        v = np.zeros((len(views), 4))
+        for k, (slot, key) in enumerate(views):
+            img = recon.added_order[slot]
+            v[k] = [img, key, scene.key_xy[img][key][0],
+                    scene.key_xy[img][key][1]]
+        pts.append(BundlePoint(pos=recon.points[p].copy(),
+                               color=recon.colors[p].copy(), views=v))
+    return BundleFile(cameras=cams, points=pts)
+
+
+def dump_round(recon: Reconstruction, scene: Scene, out_dir: str,
+               round_id: int) -> None:
+    """bundle_NNN.out (with output_all) and pointsNNN.ply of one round."""
+    cfg = scene.config
+    os.makedirs(out_dir, exist_ok=True)
+    if cfg.output_all and cfg.bundle_output_base:
+        path = os.path.join(out_dir,
+                            f"{cfg.bundle_output_base}{round_id:03d}.out")
+        write_bundle_file(path, to_bundle_file(recon, scene))
+    live = [p for p in range(len(recon.points)) if recon.pt_views[p]]
+    if live:
+        write_points_ply(
+            os.path.join(out_dir, f"points{round_id:03d}.ply"),
+            np.stack([recon.points[p] for p in live]),
+            np.stack([recon.colors[p] for p in live]),
+            np.stack(recon.cam_R),
+            np.stack([c[0:3] for c in recon.cam_params]))
+
+
+# --------------------------------------------------------------------------
+# Main driver
+# --------------------------------------------------------------------------
+
+def bundle_adjust_fast(scene: Scene, out_dir: Optional[str] = None,
+                       seed: int = 0, sampler: Callable = None
+                       ) -> Reconstruction:
+    """The full incremental loop (`BundleAdjustFast`,
+    src/BundleFast.cpp:37-526) on `scene.device`; writes the round outputs
+    and `bundle.out` into `out_dir` when given."""
+    with stage("total", verbose=True):
+        recon = _bundle_adjust_fast(scene, out_dir, seed, sampler)
+    rep = get_telemetry().report()
+    log("[Telemetry] stage seconds: " + ", ".join(
+        f"{k}={v:.1f}" for k, v in sorted(
+            rep["stages_s"].items(), key=lambda kv: -kv[1])))
+    return recon
+
+
+def _bundle_adjust_fast(scene: Scene, out_dir, seed, sampler):
+    cfg = scene.config
+    if cfg.fix_necker or cfg.estimate_ignored or cfg.num_devices > 1:
+        raise NotImplementedError(
+            "fix_necker, estimate_ignored and num_devices > 1 are not "
+            "ported")
+    sampler = sampler or StageSampler(_device(scene))
+    with stage("init_pair"):
+        i_best, j_best = pick_initial_pair(scene, True)
+        log(f"[BundleAdjust] Initial pair: {i_best}, {j_best}")
+        recon = setup_initial_pair(scene, i_best, j_best, seed=seed,
+                                   sampler=sampler)
+    run_sfm(recon, scene)
+    if out_dir:
+        dump_round(recon, scene, out_dir, recon.num_cameras)
+
+    round_id = 0
+    while recon.num_cameras < scene.num_images:
+        counts = find_candidate_images(recon, scene)
+        if not counts:
+            break
+        max_matches = max(counts.values())
+        if max_matches < cfg.min_max_matches:
+            log(f"[BundleAdjust] No more connections (max {max_matches})")
+            break
+        n_needed = int(round(0.75 * max_matches))
+        if cfg.num_matches_add_camera > 0:
+            n_needed = min(n_needed, cfg.num_matches_add_camera)
+        batch_imgs = [i for i, c in counts.items() if c >= n_needed]
+        log(f"[BundleAdjustFast] Registering {len(batch_imgs)} images "
+            f"(>= {n_needed} matches)")
+        with stage("register"):
+            registered = bundle_initialize_images(
+                recon, scene, batch_imgs,
+                seed=seed + RESECTION_SEED_STRIDE * round_id,
+                sampler=sampler)
+        for img in batch_imgs:
+            if img not in registered:
+                scene.ignore_in_bundle[img] = True
+        if not registered:
+            round_id += 1
+            continue
+        if not cfg.skip_add_points:
+            with stage("add_points"):
+                add_all_new_points(recon, scene)
+        if not cfg.skip_full_bundle:
+            run_sfm(recon, scene)
+            with stage("prune"):
+                remove_bad_points(recon, scene)
+        if out_dir:
+            dump_round(recon, scene, out_dir, recon.num_cameras)
+        round_id += 1
+
+    if out_dir and cfg.bundle_output_file:
+        write_bundle_file(os.path.join(out_dir, cfg.bundle_output_file),
+                          to_bundle_file(recon, scene))
+    log(f"[BundleAdjust] Done: {recon.num_cameras} cameras, "
+        f"{sum(1 for v in recon.pt_views if v)} points")
+    return recon

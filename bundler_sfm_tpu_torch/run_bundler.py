@@ -6,16 +6,20 @@ in-process on the device:
 
     python -m bundler_sfm_tpu_torch.run_bundler <image_dir>
         [--init_focal F | --no_exif] [--window N] [--max_keys N]
-        [--device cuda|cpu]
+        [--out DIR] [--seed S] [--device cuda|cpu]
 
 Stages:
   1. list.txt — EXIF focal extraction (bin/extract_focal.pl port)
   2. SIFT    — DoG-SIFT, batched per image shape
   3. match   — all-pairs exact 2-NN on the hand-written kernel
   4. verify  — F / H RANSAC, symmetric matches, tracks
-Reconstruction (`bundle_adjust_fast`) is not ported yet.  Artifacts
-(list.txt, .key.gz, matches.init.txt, pairwise_scores.txt) are written in
-the reference's formats into the working directory.
+  5. bundle  — incremental reconstruction (`bundle_adjust_fast`: initial
+               pair, batched resection, Schur-LM bundle adjustment with the
+               outlier loop), f64 on the device
+Artifacts (list.txt, .key.gz, matches.init.txt, pairwise_scores.txt) are
+written in the reference's formats into the working directory; the
+reconstruction (bundle.out, bundle_NNN.out and pointsNNN.ply per round)
+into --out (default `bundle`).
 """
 
 from __future__ import annotations
@@ -43,9 +47,10 @@ def main(argv=None) -> int:
     p.add_argument("--write_keys", action="store_true",
                    help="also write .key.gz files")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default="bundle",
+                   help="output directory of the reconstruction")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the SIFT, matching and "
-                        "verification stages")
+                   help="torch device of every stage")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
 
     from PIL import Image
@@ -59,6 +64,7 @@ def main(argv=None) -> int:
     from bundler_sfm_tpu_torch.io.listfile import ImageEntry, write_list_file
     from bundler_sfm_tpu_torch.io.matchfile import write_match_file
     from bundler_sfm_tpu_torch.ops.matching import DescriptorTable
+    from bundler_sfm_tpu_torch.pipeline.incremental import bundle_adjust_fast
     from bundler_sfm_tpu_torch.pipeline.scene import Scene
     from bundler_sfm_tpu_torch.pipeline.verify import (
         compute_geometric_constraints,
@@ -138,8 +144,10 @@ def main(argv=None) -> int:
                                   scores_path="pairwise_scores.txt")
     print(f"[RunBundler] {len(scene.tracks)} tracks "
           f"({time.time()-t0:.1f}s)")
-    print("[RunBundler] reconstruction (bundle_adjust_fast) is not ported "
-          "yet; it arrives in the next slice of the port")
+
+    # 5. Reconstruction (f64 on every device).
+    bundle_adjust_fast(scene, out_dir=args.out, seed=args.seed)
+    print(f"[RunBundler] output in {args.out}/bundle.out")
     return 0
 
 

@@ -15,13 +15,21 @@ Phases (any failure raises, so the exit code is non-zero):
                `mma.sync` kernels in turns, the plain version, a library
                yardstick (f32 matmul + topk), and the bound.
   3. main    — render a 24-view 1024x768 box room and run
-               `bundler_sfm_tpu_torch.run_bundler` on CUDA (SIFT, matching on
-               the kernels, F/H verification, tracks) with every launch count
-               zeroed; check its outputs and the launch counts; check that
-               the `mma.sync` kernel gives byte-identical matches; compare
-               and time the kernels at the main path's shapes; re-run
-               verification on the CPU with the same RANSAC draw and count
-               differing pairs.
+               `bundler_sfm_tpu_torch.run_bundler --out bundle` on CUDA (SIFT,
+               matching on the kernels, F/H verification, tracks, and the
+               reconstruction: initial pair, resection, Schur-LM bundle
+               adjustment with the outlier loop) with every launch count
+               zeroed; check its outputs and the launch counts (the BA's
+               `ba_runs_cuda` count too); hold bundle.out against gt.json
+               (similarity-aligned centre error < 0.02, mean reprojection
+               error < 1 px, at least as many cameras as the JAX package
+               registers on the CPU from the same scene); run the
+               reconstruction again on CUDA from the same scene (bundle.out
+               byte-identical) and on the CPU with the same draw (the same
+               camera count); check that the `mma.sync` kernel gives
+               byte-identical matches; compare and time the kernels at the
+               main path's shapes; re-run verification on the CPU with the
+               same RANSAC draw and count differing pairs.
   4. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) and
                mode bit-exact against its plain version at the probe's shape
                (276 pairs x 2048 keys), at ragged counts and on ties; run the
@@ -32,10 +40,13 @@ Phases (any failure raises, so the exit code is non-zero):
                yardstick and the bound at 2208 pairs x 2048^2.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
-power limit as nvidia-smi reports them.
+power limit as nvidia-smi reports them.  `--dump-scene PATH` also writes
+the main path's verified scene (the reconstruction's input) as a pickle of
+numpy / Python state, so the JAX package can reconstruct the same scene.
 """
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -63,6 +74,11 @@ TWO_NN_SOURCE = "bundler_sfm_tpu_torch/csrc/two_nn.cu"
 TWO_NN_REPLACES = "bundler_sfm_tpu/ops/matching_pallas.py:193"
 VARIANTS_SOURCE = "bundler_sfm_tpu_torch/csrc/two_nn_variants.cu"
 PROBE = "benchmarks/probes/probe_pallas_variants.py"
+# Cameras the JAX package's bundle_adjust_fast registers on the CPU (f64)
+# from the main path's verified scene, dumped with --dump-scene and
+# reconstructed by `python -m tests.test_torch_jax_reference` (PERF.md
+# section 5); the port must register at least as many.
+JAX_CPU_CAMERAS = 24
 
 
 def log(*a):
@@ -439,7 +455,166 @@ def check_estimators_on_card():
     check(masks and worst["H"] < 1e-9 and worst["F"] < 1e-6, worst)
 
 
-def phase_main():
+def capture_stage5():
+    """Wrap `bundle_adjust_fast` so the main path's call keeps a copy of
+    the scene it starts from, its wall time and its peak device memory."""
+    from bundler_sfm_tpu_torch.pipeline import incremental
+    real = incremental.bundle_adjust_fast
+    box = {}
+
+    def wrapped(scene, out_dir=None, seed=0, sampler=None):
+        box["scene"], box["seed"] = copy.deepcopy(scene), seed
+        torch.cuda.synchronize()
+        box["front_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        recon = real(scene, out_dir=out_dir, seed=seed, sampler=sampler)
+        torch.cuda.synchronize()
+        box["wall"] = time.time() - t0
+        box["peak"] = torch.cuda.max_memory_allocated()
+        return recon
+    return incremental, real, wrapped, box
+
+
+def similarity_error(A, B):
+    """Horn/Umeyama alignment B ≈ s·R·A + t; the residual rms over the rms
+    spread of B (tests/test_pipeline.py's relative centre error)."""
+    muA, muB = A.mean(0), B.mean(0)
+    A0, B0 = A - muA, B - muB
+    U, S, Vt = np.linalg.svd(B0.T @ A0)
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = (S * np.diag(D)).sum() / (A0 ** 2).sum()
+    res = B0 - s * A0 @ R.T
+    return float(np.sqrt((res ** 2).sum(1).mean())
+                 / max(np.sqrt((B0 ** 2).sum(1).mean()), 1e-12))
+
+
+def bundle_quality(path, gt):
+    """Registered cameras, points, observations, mean reprojection error
+    (px, Snavely model with distortion) and the relative centre error
+    against gt.json, from a bundle.out."""
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    b = read_bundle_file(path)
+    reg = [i for i, c in enumerate(b.cameras) if c.registered]
+    views = [v for p in b.points for v in p.views]
+    pos = np.concatenate([np.repeat(p.pos[None], len(p.views), 0)
+                          for p in b.points]) if b.points else np.zeros((0, 3))
+    views = np.array(views).reshape(-1, 4)
+    img = views[:, 0].astype(int)
+    R = np.stack([c.R for c in b.cameras])[img]
+    t = np.stack([c.t for c in b.cameras])[img]
+    fk = np.array([[c.f, c.k1, c.k2] for c in b.cameras])[img]
+    q = (R @ pos[..., None])[..., 0] + t
+    u = -q[:, :2] / q[:, 2:3]
+    r2 = (u * u).sum(1, keepdims=True)
+    pred = fk[:, :1] * (1 + fk[:, 1:2] * r2 + fk[:, 2:3] * r2 * r2) * u
+    err = np.sqrt(((pred - views[:, 2:4]) ** 2).sum(1))
+    centers = np.stack([b.cameras[i].center for i in reg])
+    ate = similarity_error(centers, np.array(gt["centers"])[reg])
+    return dict(cameras=len(reg), points=len(b.points), observations=len(err),
+                reproj_px=float(err.mean()), ate=ate, order=reg,
+                centers=centers)
+
+
+def stage5_checks(work, imgs, box, stages, counters, rc_ok):
+    """Quality of the main path's bundle.out, a second CUDA run from the
+    same scene (byte-identical bundle.out) and a CPU run with the same
+    draw (the same camera count).  Returns the failed checks, which main()
+    raises once every phase has run."""
+    failures = []
+
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+    from bundler_sfm_tpu_torch.pipeline.incremental import (
+        StageSampler, bundle_adjust_fast,
+    )
+    with open(os.path.join(imgs, "gt.json")) as f:
+        gt = json.load(f)
+    out = os.path.join(work, "bundle")
+    check(rc_ok and os.path.exists(os.path.join(out, "bundle.out")),
+          "bundle/bundle.out was not written")
+    plys = sorted(f for f in os.listdir(out) if f.endswith(".ply"))
+    check(len(plys) > 0, "no round PLY was written")
+    check(counters.get("ba_runs_cuda", 0) > 0, "the BA did not run on CUDA")
+    q = bundle_quality(os.path.join(out, "bundle.out"), gt)
+    ba_s = stages.get("ba", 0.0)
+    rec = {"cameras": q["cameras"], "points": q["points"],
+           "observations": q["observations"], "reproj_px": q["reproj_px"],
+           "ate": q["ate"], "stage_s": {k: stages.get(k, 0.0) for k in (
+               "init_pair", "init_5pt", "init_triangulate", "ba", "register",
+               "resection", "refine_camera", "add_points", "triangulate",
+               "prune", "total")},
+           "stage5_wall_s": box["wall"],
+           "lm_iters": int(counters.get("lm_iters", 0)),
+           "host_syncs": int(counters.get("host_syncs", 0)),
+           "ba_runs_cuda": int(counters.get("ba_runs_cuda", 0)),
+           "obs_iters_per_s": counters.get("ba_observations", 0.0)
+           / max(ba_s, 1e-9),
+           "peak_mem_gib": box["peak"] / 2 ** 30, "plys": len(plys)}
+    log("[main] stage5 " + json.dumps(rec))
+    check_later(q["ate"] < 0.02, f"relative centre error {q['ate']} >= 0.02")
+    check_later(q["reproj_px"] < 1.0,
+                f"mean reprojection error {q['reproj_px']} px >= 1")
+    check_later(q["cameras"] >= JAX_CPU_CAMERAS,
+                f"{q['cameras']} cameras < {JAX_CPU_CAMERAS} (JAX, CPU)")
+
+    buf = io.StringIO()
+    runs = {}
+    for name, device in (("cuda-again", "cuda"), ("cpu", "cpu")):
+        scene = copy.deepcopy(box["scene"])
+        scene.device = device
+        path = os.path.join(work, f"bundle_{name}")
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            bundle_adjust_fast(scene, out_dir=path, seed=box["seed"],
+                               sampler=StageSampler("cuda"))
+        runs[name] = bundle_quality(os.path.join(path, "bundle.out"), gt)
+        log(f"[main] stage 5 on {name} from the same scene: "
+            f"{time.time() - t0:.2f} s, {runs[name]['cameras']} cameras, "
+            f"{runs[name]['points']} points, reprojection "
+            f"{runs[name]['reproj_px']:.4f} px, centre error "
+            f"{runs[name]['ate']:.6f}")
+    with open(os.path.join(out, "bundle.out"), "rb") as a, open(os.path.join(
+            work, "bundle_cuda-again", "bundle.out"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"[main] bundle.out of two CUDA runs byte-identical: {same}")
+    check_later(same, "two CUDA runs of stage 5 wrote different bundle.out")
+    c = runs["cpu"]
+    common = [i for i in q["order"] if i in c["order"]]
+    dc = [float(np.abs(q["centers"][q["order"].index(i)]
+                       - c["centers"][c["order"].index(i)]).max())
+          for i in common]
+    log(f"[main] CPU vs CUDA: cameras {c['cameras']} vs {q['cameras']}, "
+        f"points {c['points']} vs {q['points']} (differ by "
+        f"{c['points'] - q['points']}), largest centre difference "
+        f"{max(dc) if dc else float('nan'):.3e} over {len(common)} cameras")
+    check_later(c["cameras"] == q["cameras"],
+                "the CPU run registered another number of cameras")
+    return failures
+
+
+def dump_scene(scene, path):
+    """The verified scene as numpy / Python state (pickle)."""
+    import pickle
+    state = dict(
+        entries=[(e.name, bool(e.fisheye), float(e.init_focal))
+                 for e in scene.entries],
+        dims=scene.dims, key_xy=scene.key_xy, key_color=scene.key_color,
+        transforms={k: (v.num_inliers, v.inlier_ratio)
+                    for k, v in scene.transforms.items()},
+        tracks=scene.tracks, visible_points=scene.visible_points,
+        visible_keys=scene.visible_keys, key_track=scene.key_track)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+    log(f"[main] scene written to {path}")
+
+
+def phase_main(dump=None):
     from bundler_sfm_tpu_torch import run_bundler
     from bundler_sfm_tpu_torch.utils import get_telemetry
     from bundler_sfm_tpu_torch.utils.render_scene import render_box_room
@@ -450,22 +625,28 @@ def phase_main():
     log(f"[main] rendered 24 views 1024x768 in {time.time() - t0:.1f} s")
     cwd = os.getcwd()
     os.chdir(work)
+    incremental, real_baf, wrapped, box = capture_stage5()
     try:
         get_telemetry().reset()
         torch.cuda.reset_peak_memory_stats()
         for counts in (matching_cuda.LAUNCHES, matching_variants.LAUNCHES):
             for k in counts:
                 counts[k] = 0
+        incremental.bundle_adjust_fast = wrapped
         buf = io.StringIO()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
             rc = run_bundler.main([imgs, "--max_keys", "4096", "--init_focal",
-                                   "896", "--write_keys", "--device", "cuda"])
+                                   "896", "--write_keys", "--device", "cuda",
+                                   "--out", "bundle"])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(matching_cuda.LAUNCHES)
         variant_launches = sum(matching_variants.LAUNCHES.values())
+        stages = dict(get_telemetry().stage_seconds)
+        counters = dict(get_telemetry().counters)
     finally:
+        incremental.bundle_adjust_fast = real_baf
         os.chdir(cwd)
     out = buf.getvalue()
     print(out, end="", flush=True)
@@ -478,11 +659,15 @@ def phase_main():
           f"a 2-NN kernel was not launched on the main path: {launches}")
     check(launches["two_nn_mma"] == 0, "the mma.sync kernel ran on the "
           "main path")
-    stages = get_telemetry().stage_seconds
     entries, dims, key_xy, descs, matches = read_scene(work)
     log(f"[main] wall {wall:.2f} s; stage seconds "
         + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[main] peak device memory: front end "
+        f"{box['front_peak'] / 2**30:.2f} GiB, reconstruction "
+        f"{box['peak'] / 2**30:.2f} GiB")
+    if dump:
+        dump_scene(box["scene"], dump)
+    failures = stage5_checks(work, imgs, box, stages, counters, rc == 0)
     log(f"[main] keys {sum(len(k) for k in key_xy)} "
         f"({min(len(k) for k in key_xy)}..{max(len(k) for k in key_xy)} per "
         f"image), pairs {24 * 23 // 2}, matched pairs {len(matches)}, "
@@ -513,7 +698,7 @@ def phase_main():
          "bound_ms": nb, "bound_by": nby, "library_ms": None}]
     check_estimators_on_card()
     compare_verification(entries, dims, key_xy, matches, work)
-    return records
+    return records, failures
 
 
 def check_mma_matches(descs, work):
@@ -717,14 +902,21 @@ def phase_variants():
     return records
 
 
-def main():
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description="smoke test of the port on one "
+                                "NVIDIA GPU")
+    p.add_argument("--dump-scene", default=None,
+                   help="also write the main path's verified scene here")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     phase_build()
     phase_kernels()
-    kernels = phase_main()
+    kernels, failures = phase_main(args.dump_scene)
     kernels += phase_variants()
+    check(not failures, f"stage-5 checks failed: {failures}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

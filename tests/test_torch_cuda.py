@@ -295,3 +295,85 @@ def test_sift_cuda_agrees_with_cpu(cuda):
             hits += 1
             assert np.abs(gd[near].astype(int) - cd[k].astype(int)).max(1).min() <= 1
     assert hits >= 0.97 * len(ci)
+
+
+def _ba_problem(device, C=5, P=300, seed=0):
+    from tests.synthetic import Scene, random_rotation
+    from bundler_sfm_tpu_torch.convert import ba_problem_from_numpy
+    rng = np.random.default_rng(seed)
+    sc = Scene(rng, num_cams=C, num_pts=P, noise=0.4, k1=-0.03)
+    R0 = np.stack([random_rotation(rng, 0.02) @ sc.R[i] for i in range(C)])
+    cam0 = np.zeros((C, 9))
+    cam0[:, 0:3] = sc.centers + rng.normal(size=(C, 3)) * 0.02
+    cam0[:, 6] = sc.f
+    keep = rng.random((C, P)) < 0.8
+    oc, op = np.nonzero(keep)
+    oxy = np.stack([sc.obs[c][p] for c, p in zip(oc, op)])
+    pts0 = sc.points + rng.normal(size=sc.points.shape) * 0.03
+    return ba_problem_from_numpy(R0, cam0, pts0, oc, op, oxy,
+                                 device=device)
+
+
+@pytest.mark.parametrize("max_iters", [8, 150])
+def test_run_ba_cuda_matches_cpu(cuda, max_iters):
+    """f64 BA on the card against the CPU from the same problem: cameras
+    and points within 1e-9 of the largest entry (capped: same count)."""
+    from bundler_sfm_tpu_torch.ops import ba as T
+    from bundler_sfm_tpu_torch.utils import get_telemetry
+    before = get_telemetry().counters.get("ba_runs_cuda", 0)
+    g = T.run_ba(_ba_problem(cuda), max_iters=max_iters)
+    c = T.run_ba(_ba_problem("cpu"), max_iters=max_iters)
+    assert get_telemetry().counters["ba_runs_cuda"] == before + 1
+    if max_iters == 8:
+        assert g.iters == c.iters == 8
+    for a, b in ((g.cam, c.cam), (g.R, c.R), (g.pts, c.pts)):
+        a = a.cpu().numpy()
+        assert np.abs(a - b.numpy()).max() <= 1e-9 * np.abs(b.numpy()).max()
+
+
+def test_run_ba_cuda_deterministic(cuda):
+    """Two runs of the BA + outlier loop on the card are bit-identical."""
+    from bundler_sfm_tpu_torch.ops import ba as T
+    runs = [T.run_ba_outlier_loop(_ba_problem(cuda), max_iters=60,
+                                  min_outliers=2) for _ in range(2)]
+    for f in ("cam", "R", "pts", "obs_valid", "stats"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+    assert runs[0].iters == runs[1].iters
+
+
+def test_bundle_adjust_fast_cuda_writes_bundle(cuda, tmp_path):
+    """The whole reconstruction on the card from a synthetic 6-view scene
+    (verification included): bundle.out with 6 registered cameras, and
+    the BA ran on CUDA."""
+    from tests.synthetic import Scene as SynScene
+    from bundler_sfm_tpu_torch.config import default_pipeline_config
+    from bundler_sfm_tpu_torch.convert import scene_from_numpy
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    from bundler_sfm_tpu_torch.io.listfile import ImageEntry
+    from bundler_sfm_tpu_torch.pipeline.incremental import bundle_adjust_fast
+    from bundler_sfm_tpu_torch.pipeline.verify import (
+        compute_geometric_constraints,
+    )
+    from bundler_sfm_tpu_torch.utils import get_telemetry
+    rng = np.random.default_rng(0)
+    syn = SynScene(rng, num_cams=6, num_pts=250, f=700.0, noise=0.3)
+    key_xy, keymap = [], []
+    for c in range(6):
+        coords = np.concatenate([syn.obs[c], rng.uniform(-300, 300, (40, 2))])
+        perm = rng.permutation(len(coords))
+        key_xy.append(coords[perm])
+        keymap.append(np.argsort(perm)[:250])
+    matches = {(i, j): np.stack([keymap[i], keymap[j]], 1).astype(np.int32)
+               for i in range(6) for j in range(i + 1, 6)}
+    cfg = default_pipeline_config(fmatrix_rounds=512, homography_rounds=128,
+                                  projection_rounds=1024, sfm_max_iters=60)
+    scene = scene_from_numpy([ImageEntry(f"img{c}.jpg", init_focal=700.0)
+                              for c in range(6)], [(1024, 768)] * 6,
+                             key_xy, matches, cfg, device=cuda)
+    compute_geometric_constraints(scene, seed=3)
+    before = get_telemetry().counters.get("ba_runs_cuda", 0)
+    recon = bundle_adjust_fast(scene, out_dir=str(tmp_path), seed=5)
+    assert get_telemetry().counters["ba_runs_cuda"] > before
+    bf = read_bundle_file(str(tmp_path / "bundle.out"))
+    assert recon.num_cameras == bf.num_registered == 6
+    assert len(bf.points) > 150

@@ -49,7 +49,9 @@ def test_import_leaves_jax_out():
         "ops.matching_cuda", "ops.matching_variants", "ops.fmatrix",
         "ops.homography", "probes.probe_two_nn_variants",
         "pipeline.verify", "pipeline.tracks", "io.constraints", "io.exif",
-        "utils.render_scene")]
+        "utils.render_scene", "ops.ba", "ops.lm", "ops.fivepoint",
+        "ops.resection", "ops.triangulate", "ops.essential",
+        "pipeline.incremental", "io.bundlefile", "io.plyfile")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
@@ -66,10 +68,14 @@ def test_import_leaves_jax_out():
 def _entry_points(tmp_path):
     from bundler_sfm_tpu_torch import run_bundler
     from bundler_sfm_tpu_torch.config import BundlerConfig
-    from bundler_sfm_tpu_torch.convert import scene_from_numpy
+    from bundler_sfm_tpu_torch.convert import (
+        ba_problem_from_numpy, scene_from_numpy,
+    )
     from bundler_sfm_tpu_torch.features.sift import extract_sift_batch
     from bundler_sfm_tpu_torch.io.listfile import ImageEntry
     from bundler_sfm_tpu_torch.ops.matching import DescriptorTable, match_pair
+    from bundler_sfm_tpu_torch.pipeline.incremental import bundle_adjust_fast
+    from bundler_sfm_tpu_torch.pipeline.scene import Scene
     from bundler_sfm_tpu_torch.probes import probe_two_nn_variants
     d = np.zeros((4, 128), np.uint8)
     img = np.zeros((64, 64), np.float32)
@@ -85,12 +91,20 @@ def _entry_points(tmp_path):
         "run_bundler": lambda: run_bundler.main([str(tmp_path)]),
         "probe_two_nn_variants": lambda: probe_two_nn_variants.main(["4",
                                                                      "256"]),
+        "ba_problem_from_numpy": lambda: ba_problem_from_numpy(
+            np.eye(3)[None], np.zeros((1, 9)), np.zeros((1, 3)), [0], [0],
+            np.zeros((1, 2))),
+        "bundle_adjust_fast": lambda: bundle_adjust_fast(Scene(
+            config=BundlerConfig(), entries=[ImageEntry("a.jpg")] * 2,
+            dims=[(64, 64)] * 2, key_xy=[np.zeros((0, 2))] * 2)),
     }
 
 
 @pytest.mark.parametrize("name", ["DescriptorTable", "match_pair",
                                   "extract_sift_batch", "scene_from_numpy",
-                                  "run_bundler", "probe_two_nn_variants"])
+                                  "run_bundler", "probe_two_nn_variants",
+                                  "ba_problem_from_numpy",
+                                  "bundle_adjust_fast"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, the default device raises instead of falling back."""
     if torch.cuda.is_available():

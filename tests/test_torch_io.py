@@ -8,19 +8,23 @@ import pytest
 from PIL import Image
 
 from bundler_sfm_tpu.config import default_pipeline_config as jax_config
+from bundler_sfm_tpu.io import bundlefile as J_bundlefile
 from bundler_sfm_tpu.io import constraints as J_constraints
 from bundler_sfm_tpu.io import exif as J_exif
 from bundler_sfm_tpu.io import keyfile as J_keyfile
 from bundler_sfm_tpu.io import listfile as J_listfile
 from bundler_sfm_tpu.io import matchfile as J_matchfile
+from bundler_sfm_tpu.io import plyfile as J_plyfile
 from bundler_sfm_tpu.pipeline import scene as J_scene
 from bundler_sfm_tpu.pipeline import tracks as J_tracks
 from bundler_sfm_tpu_torch.config import default_pipeline_config as port_config
+from bundler_sfm_tpu_torch.io import bundlefile as T_bundlefile
 from bundler_sfm_tpu_torch.io import constraints as T_constraints
 from bundler_sfm_tpu_torch.io import exif as T_exif
 from bundler_sfm_tpu_torch.io import keyfile as T_keyfile
 from bundler_sfm_tpu_torch.io import listfile as T_listfile
 from bundler_sfm_tpu_torch.io import matchfile as T_matchfile
+from bundler_sfm_tpu_torch.io import plyfile as T_plyfile
 from bundler_sfm_tpu_torch.pipeline import scene as T_scene
 from bundler_sfm_tpu_torch.pipeline import tracks as T_tracks
 
@@ -175,3 +179,54 @@ def test_exif_focal_identical(tmp_path, tags):
     b = T_exif.extract_focal_pixels(path)
     assert a == b
     assert (a > 0) == bool(tags and (0x920A in tags or 0xA405 in tags))
+
+
+def _bundle(M, rng):
+    """A bundle of 5 images (image 2 unregistered) and 40 points with 0-4
+    views each, as objects of module M."""
+    cams = []
+    for i in range(5):
+        if i == 2:
+            cams.append(M.BundleCamera(0.0, 0.0, 0.0, np.zeros((3, 3)),
+                                       np.zeros(3)))
+            continue
+        cams.append(M.BundleCamera(float(rng.uniform(500, 900)),
+                                   float(rng.normal() * 0.1),
+                                   float(rng.normal() * 0.01),
+                                   rng.normal(size=(3, 3)),
+                                   rng.normal(size=3)))
+    pts = []
+    for _ in range(40):
+        nv = int(rng.integers(0, 5))
+        views = np.stack([rng.integers(0, 5, nv), rng.integers(0, 900, nv),
+                          rng.uniform(-400, 400, nv),
+                          rng.uniform(-300, 300, nv)], 1)
+        pts.append(M.BundlePoint(rng.normal(size=3) * 10,
+                                 rng.integers(0, 256, 3).astype(float), views))
+    return M.BundleFile(cams, pts)
+
+
+def test_bundle_file_identical(tmp_path):
+    jb = _bundle(J_bundlefile, np.random.default_rng(5))
+    tb = _bundle(T_bundlefile, np.random.default_rng(5))
+    a, b = _write_both(tmp_path, "bundle.out",
+                       lambda p: J_bundlefile.write_bundle_file(p, jb),
+                       lambda p: T_bundlefile.write_bundle_file(p, tb))
+    assert a == b and len(a) > 0
+    back = T_bundlefile.read_bundle_file(str(tmp_path / "jax_bundle.out"))
+    assert back.num_registered == jb.num_registered == 4
+    assert len(back.points) == sum(len(p.views) > 0 for p in jb.points)
+
+
+def test_points_ply_identical(tmp_path, rng):
+    pts = rng.normal(size=(30, 3)) * 5
+    colors = rng.integers(0, 256, (30, 3)).astype(float)
+    colors[::7] = [0, 0, 255]                  # removed points are skipped
+    Rs = np.stack([np.linalg.qr(rng.normal(size=(3, 3)))[0]
+                   for _ in range(3)])
+    cs = rng.normal(size=(3, 3))
+    a, b = _write_both(
+        tmp_path, "points.ply",
+        lambda p: J_plyfile.write_points_ply(p, pts, colors, Rs, cs),
+        lambda p: T_plyfile.write_points_ply(p, pts, colors, Rs, cs))
+    assert a == b and b"element vertex 31" in a

@@ -129,6 +129,10 @@ def test_run_bundler_cli_writes_reference_files(collection, jax_run,
     for f in ["matches.init.txt", "pairwise_scores.txt"] + [
             os.path.basename(p)[:-4] + ".key.gz" for p in collection]:
         assert (tmp_path / f).stat().st_size > 0, f
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    bundle = read_bundle_file(str(tmp_path / "bundle" / "bundle.out"))
+    assert len(bundle.cameras) == len(collection)
+    assert bundle.num_registered >= 2 and len(bundle.points) > 0
 
 
 def test_sift_agrees(jax_run):
