@@ -87,6 +87,6 @@ def ba_problem_from_numpy(R0, cam0, pts0, obs_cam, obs_pt, obs_xy,
     `ops.ba.build_problem` takes (flat observations in input order);
     `options` are build_problem's keywords that both packages share
     (est_focal, est_distortion, cam_constrained, cam_constraints,
-    cam_weights)."""
+    cam_weights, pt_constrained, pt_constraints, pt_weight)."""
     return build_problem(R0, cam0, pts0, obs_cam, obs_pt, obs_xy,
                          device=device, **options)

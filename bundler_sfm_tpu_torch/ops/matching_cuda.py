@@ -22,7 +22,8 @@ the source note for the arithmetic).
 
 Wrappers, each counting its kernel launches in `LAUNCHES`:
   two_nn_pairs     the matcher.  int8: `two_nn_norms` then the `wgmma`
-                   kernel ("two_nn"); f32: the bf16 `mma.sync` kernel.
+                   kernel ("two_nn"); f32: the bf16 `mma.sync` kernel
+                   ("two_nn_f32").
   two_nn_norms     |b|²·256 + row % 128 per table row, poisoned past the
                    count: the int8 kernel's per-column constants.
   two_nn_pairs_mma the first int8 design, for comparison only.
@@ -59,10 +60,11 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma` or the
-# f32 kernel), "two_nn_norms", "two_nn_mma" (the first int8 design) and
+# Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma`
+# kernel), "two_nn_f32" (the f32 instantiation of the `mma.sync` kernel),
+# "two_nn_norms", "two_nn_mma" (the first int8 design) and
 # "two_nn_product_max" (the `wgmma` kernel's product-only ablation).
-LAUNCHES = {"two_nn": 0, "two_nn_norms": 0, "two_nn_mma": 0,
+LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_norms": 0, "two_nn_mma": 0,
             "two_nn_product_max": 0}
 
 _lib = None
@@ -276,7 +278,7 @@ def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
     _check_tables(qtab, dbtab, db_counts, pi, pj,
                   (torch.int8, torch.float32))
     if qtab.dtype == torch.float32:
-        return _launch_mma(qtab, dbtab, db_counts, pi, pj, "two_nn")
+        return _launch_mma(qtab, dbtab, db_counts, pi, pj, "two_nn_f32")
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn")
 
 

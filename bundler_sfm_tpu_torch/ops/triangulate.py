@@ -79,6 +79,13 @@ def triangulate_track(pv, Rs, ts, mask, num_polish: int = 5):
     return X, torch.sqrt(err)
 
 
+def triangulate_tracks(pv, Rs, ts, mask, num_polish: int = 5):
+    """Tracks [T, M] of negated normalized views with w2c cameras (the JAX
+    package's vmapped `triangulate_track`, used by `RefinePoints`); returns
+    (X [T, 3], rms normalized error [T])."""
+    return triangulate_track(pv, Rs, ts, mask, num_polish)
+
+
 def triangulate_tracks_pixels(xy, fs, ks, Rs, centers, mask,
                               num_polish: int = 5):
     """N-view triangulation from PIXEL observations and full cameras.

@@ -4,8 +4,8 @@ package's `build_problem` on the same arrays), on `tests/synthetic.py`
 scenes with ragged views (15% of observations dropped).
 
 Tolerances:
-  * `run_ba` capped at 8 LM iterations (every case still converging): the
-    same iteration count, cameras and points within 1e-8 of the largest
+  * `run_ba` capped at 8 LM iterations (every case still converging, point
+    anchors included): the same iteration count, cameras and points within 1e-8 of the largest
     entry, costs within 1e-9 relative;
   * `run_ba` to convergence: cameras and points within 1e-8, final costs
     within 1e-10 relative.  The iteration at which LM stops is NOT held:
@@ -85,11 +85,22 @@ def _constrained(host):
     return dict(cam_constrained=cc, cam_constraints=ct, cam_weights=cw)
 
 
-@pytest.mark.parametrize("case", list(CASES) + ["constraints"])
+def _anchored(host):
+    """Every 7th point anchored 0.05 off its start, weight 10."""
+    P = len(host["pts0"])
+    flags = (np.arange(P) % 7 == 0).astype(float)
+    return dict(pt_constrained=flags, pt_constraints=host["pts0"] + 0.05,
+                pt_weight=10.0)
+
+
+@pytest.mark.parametrize("case", list(CASES) + ["constraints",
+                                                "point-constraints"])
 def test_run_ba_capped(case, rng):
     host = host_problem(rng, k1=-0.03)
     if case == "constraints":
         opts, run = _constrained(host), dict()
+    elif case == "point-constraints":
+        opts, run = _anchored(host), dict()
     else:
         opts, run = CASES[case]
     jp, tp = both(host, **opts)
@@ -141,6 +152,30 @@ def test_outlier_loop(rng):
     np.testing.assert_array_equal(np.asarray(jr.hist)[:tr.passes],
                                   tr.hist.numpy()[:tr.passes])
     close(float(jr.avg_dist), float(tr.avg_dist), 1e-9)
+
+
+def test_outlier_loop_keeps_anchored_points(rng):
+    """Half of the corrupted points anchored (weight 1e3): the JAX package
+    and the port keep exactly those and remove the same others."""
+    host = host_problem(rng, C=4, P=160, noise=0.5)
+    bad = rng.choice(160, 10, replace=False)
+    sel = np.isin(host["obs_pt"], bad)
+    host["obs_xy"][sel] += rng.uniform(40, 90, (sel.sum(), 2))
+    flags = np.zeros(160)
+    flags[bad[:5]] = 1.0
+    jp, tp = both(host, est_distortion=False, pt_constrained=flags,
+                  pt_constraints=host["pts0"], pt_weight=1e3)
+    cam_obs, cam_mask = J.build_cam_obs_table(host["obs_cam"],
+                                              host["obs_pt"], 4)
+    kw = dict(max_iters=60, min_outliers=2, min_points=8, max_passes=4)
+    jr = J.run_ba_outlier_loop(jp, jnp.asarray(cam_obs),
+                               jnp.asarray(cam_mask), **kw)
+    tr = T.run_ba_outlier_loop(tp, **kw)
+    assert int(jr.passes) == tr.passes >= 2
+    removed = tr.pt_removed.numpy()
+    np.testing.assert_array_equal(np.asarray(jr.pt_removed)[:160], removed)
+    assert not removed[bad[:5]].any() and removed[bad[5:]].all()
+    check_result(jr, tr, 4, 160)
 
 
 def test_outlier_loop_without_removal_is_run_ba(rng):

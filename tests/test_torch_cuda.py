@@ -47,10 +47,11 @@ def test_kernel_matches_plain(cuda, dtype):
     n = len(sizes)
     pi = torch.arange(n, dtype=torch.int32, device=cuda).repeat_interleave(n)
     pj = torch.arange(n, dtype=torch.int32, device=cuda).repeat(n)
-    before = MC.LAUNCHES["two_nn"]
+    key = "two_nn" if dtype == torch.int8 else "two_nn_f32"
+    before = MC.LAUNCHES[key]
     got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
     torch.cuda.synchronize()
-    assert MC.LAUNCHES["two_nn"] == before + 1
+    assert MC.LAUNCHES[key] == before + 1
     want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -377,3 +378,92 @@ def test_bundle_adjust_fast_cuda_writes_bundle(cuda, tmp_path):
     bf = read_bundle_file(str(tmp_path / "bundle.out"))
     assert recon.num_cameras == bf.num_registered == 6
     assert len(bf.points) > 150
+
+
+def test_keymatch_match_full_cuda_matches_cpu(cuda, tmp_path):
+    """keymatch.match_full on the card (through the 2-NN kernel) equals its
+    CPU run, with a window radius too."""
+    from bundler_sfm_tpu_torch.io.keyfile import write_key_file
+    from bundler_sfm_tpu_torch.keymatch import match_full
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, (600, 128))
+    paths = []
+    for i in range(6):
+        n = 600 - 50 * i
+        desc = np.clip(base[:n] + rng.integers(-9, 10, (n, 128)), 0, 255)
+        info = rng.uniform(0, 500, (n, 4))
+        paths.append(str(tmp_path / f"k{i}.key"))
+        write_key_file(paths[-1], info, desc[rng.permutation(n)])
+    for window in (-1, 2):
+        before = MC.LAUNCHES["two_nn"]
+        g = match_full(paths, window_radius=window, device=cuda)
+        assert MC.LAUNCHES["two_nn"] > before
+        c = match_full(paths, window_radius=window, device="cpu")
+        assert list(g) == list(c) and len(g) >= 5
+        for k in g:
+            assert np.array_equal(g[k], c[k])
+
+
+def _registration_problem(rng, held=3):
+    """A BundleFile of 3 cameras around 300 points with a descriptor per
+    point, and a 4th camera's keys (point projections + 100 distractors)
+    with noisy copies of those descriptors."""
+    from bundler_sfm_tpu_torch.io.bundlefile import (
+        BundleCamera, BundleFile, BundlePoint,
+    )
+    from tests.synthetic import Scene
+    sc = Scene(rng, num_cams=held + 1, num_pts=300, f=700.0, noise=0.2)
+    cams = [BundleCamera(f=sc.f, k1=0.0, k2=0.0, R=sc.R[i],
+                         t=-sc.R[i] @ sc.centers[i]) for i in range(held)]
+    pdesc = rng.integers(0, 256, (300, 128))
+    pts = [BundlePoint(pos=sc.points[p], color=np.zeros(3),
+                       views=np.array([[c, p, *sc.obs[c][p]]
+                                       for c in range(held)]))
+           for p in range(300)]
+    xy = np.concatenate([sc.obs[held], rng.uniform(-400, 400, (100, 2))])
+    desc = np.concatenate([np.clip(pdesc + rng.integers(-3, 4, pdesc.shape),
+                                   0, 255), rng.integers(0, 256, (100, 128))])
+    return (BundleFile(cameras=cams, points=pts), pdesc.astype(np.uint8),
+            desc.astype(np.uint8), xy)
+
+
+def test_register_image_cuda(cuda):
+    """register_image on the card launches the 2-NN kernel and agrees with
+    its CPU run from the same draw: same matches and inliers, camera within
+    1e-6."""
+    from bundler_sfm_tpu_torch.pipeline.incremental import StageSampler
+    from bundler_sfm_tpu_torch.pipeline.register import register_image
+    bundle, pdesc, desc, xy = _registration_problem(np.random.default_rng(0))
+    before = MC.LAUNCHES["two_nn"]
+    g = register_image(bundle, pdesc, desc, xy, seed=3, device=cuda,
+                       sampler=StageSampler("cpu"))
+    assert MC.LAUNCHES["two_nn"] > before
+    c = register_image(bundle, pdesc, desc, xy, seed=3, device="cpu",
+                       sampler=StageSampler("cpu"))
+    assert g is not None and c is not None and g["num_inliers"] > 250
+    assert np.array_equal(g["matches"], c["matches"])
+    assert np.array_equal(g["inlier_idx"], c["inlier_idx"])
+    assert np.abs(g["R"] - c["R"]).max() < 1e-6
+    assert np.abs(g["center"] - c["center"]).max() < \
+        1e-6 * np.abs(c["center"]).max()
+    assert g["f"] == pytest.approx(c["f"], rel=1e-6)
+
+
+def test_run_ba_point_constraints_cuda_deterministic(cuda):
+    """The BA + outlier loop with point anchors on the card: two runs
+    bit-identical, anchored points kept."""
+    from bundler_sfm_tpu_torch.ops import ba as T
+    p = _ba_problem(cuda)
+    P = p.pts0.shape[0]
+    flags = np.zeros(P)
+    flags[::25] = 1.0
+    anchors = p.pts0.cpu().numpy() + 0.2
+    p = p._replace(pt_constrained=torch.as_tensor(flags, device=cuda),
+                   pt_constraints=torch.as_tensor(anchors, device=cuda),
+                   pt_weight=1e6)
+    runs = [T.run_ba_outlier_loop(p, max_iters=60, min_outliers=2)
+            for _ in range(2)]
+    for f in ("cam", "R", "pts", "obs_valid", "pt_removed", "stats"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+    assert not runs[0].pt_removed[torch.as_tensor(flags > 0, device=cuda)
+                                  ].any()

@@ -51,7 +51,9 @@ def test_import_leaves_jax_out():
         "pipeline.verify", "pipeline.tracks", "io.constraints", "io.exif",
         "utils.render_scene", "ops.ba", "ops.lm", "ops.fivepoint",
         "ops.resection", "ops.triangulate", "ops.essential",
-        "pipeline.incremental", "io.bundlefile", "io.plyfile")]
+        "pipeline.incremental", "io.bundlefile", "io.plyfile", "bundler",
+        "keymatch", "keymatchsingle", "creatematchscript", "io.intrinsics",
+        "export.process", "pipeline.resume", "pipeline.register")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
@@ -66,21 +68,24 @@ def test_import_leaves_jax_out():
 
 
 def _entry_points(tmp_path):
-    from bundler_sfm_tpu_torch import run_bundler
+    from bundler_sfm_tpu_torch import bundler, keymatch, run_bundler
     from bundler_sfm_tpu_torch.config import BundlerConfig
     from bundler_sfm_tpu_torch.convert import (
         ba_problem_from_numpy, scene_from_numpy,
     )
     from bundler_sfm_tpu_torch.features.sift import extract_sift_batch
+    from bundler_sfm_tpu_torch.io.bundlefile import BundleFile
     from bundler_sfm_tpu_torch.io.listfile import ImageEntry
     from bundler_sfm_tpu_torch.ops.matching import DescriptorTable, match_pair
     from bundler_sfm_tpu_torch.pipeline.incremental import bundle_adjust_fast
+    from bundler_sfm_tpu_torch.pipeline.register import register_image
     from bundler_sfm_tpu_torch.pipeline.scene import Scene
     from bundler_sfm_tpu_torch.probes import probe_two_nn_variants
     d = np.zeros((4, 128), np.uint8)
     img = np.zeros((64, 64), np.float32)
     from PIL import Image
     Image.fromarray(img.astype(np.uint8)).save(tmp_path / "a.jpg")
+    (tmp_path / "list.txt").write_text("a.jpg\na.jpg\n")
     return {
         "DescriptorTable": lambda: DescriptorTable([d, d]),
         "match_pair": lambda: match_pair(d, d),
@@ -97,6 +102,11 @@ def _entry_points(tmp_path):
         "bundle_adjust_fast": lambda: bundle_adjust_fast(Scene(
             config=BundlerConfig(), entries=[ImageEntry("a.jpg")] * 2,
             dims=[(64, 64)] * 2, key_xy=[np.zeros((0, 2))] * 2)),
+        "keymatch.match_full": lambda: keymatch.match_full(["a.key",
+                                                            "b.key"]),
+        "bundler.main": lambda: bundler.main(["list.txt", "--run_bundle"]),
+        "register_image": lambda: register_image(
+            BundleFile(cameras=[], points=[]), d, d, np.zeros((4, 2))),
     }
 
 
@@ -104,9 +114,12 @@ def _entry_points(tmp_path):
                                   "extract_sift_batch", "scene_from_numpy",
                                   "run_bundler", "probe_two_nn_variants",
                                   "ba_problem_from_numpy",
-                                  "bundle_adjust_fast"])
+                                  "bundle_adjust_fast", "keymatch.match_full",
+                                  "bundler.main", "register_image"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
-    """Without a card, the default device raises instead of falling back."""
+    """Without a card, the default device raises instead of falling back
+    (each entry point runs on the CPU only when asked: see the other
+    tests)."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the check is for hosts without it")
     monkeypatch.chdir(tmp_path)
@@ -120,3 +133,18 @@ def test_two_nn_pairs_rejects_non_cuda_accelerators():
     c = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         two_nn_pairs(t, t, c, c, c)
+
+
+def test_new_entry_points_run_on_cpu_when_asked(tmp_path, monkeypatch):
+    """keymatch.match_full, bundler.main and register_image given the CPU
+    run there (no card needed)."""
+    from bundler_sfm_tpu_torch import bundler, keymatch
+    from bundler_sfm_tpu_torch.io.bundlefile import BundleFile
+    from bundler_sfm_tpu_torch.pipeline.register import register_image
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "list.txt").write_text("a.jpg\nb.jpg\n")
+    d = np.zeros((4, 128), np.uint8)
+    assert keymatch.match_full(["a.key", "b.key"], device="cpu") == {}
+    assert bundler.main(["list.txt", "--device", "cpu"]) == 0
+    assert register_image(BundleFile(cameras=[], points=[]), d, d,
+                          np.zeros((4, 2)), device="cpu") is None

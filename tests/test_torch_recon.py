@@ -44,19 +44,21 @@ VERIFY_SEED, BUNDLE_SEED = 3, 5
 
 class JaxStageReplay(JaxReplaySampler):
     """JaxReplaySampler extended to the reconstruction's draws, with the
-    JAX package's padding: the 5-point draw over `_bucket(n, 64)` entries
-    from PRNGKey(seed); each resection lane from split(PRNGKey(seed),
-    _bucket(B, 4))[b] over `_bucket(max n, 64)` entries."""
+    JAX package's padding: the 5-point draw and the one-image resection
+    draw ("resection_one": `bundle_initialize_image`, `register_image`) over
+    `_bucket(n, 64)` entries from PRNGKey(seed); each lane of a batched
+    resection round from split(PRNGKey(seed), _bucket(B, 4))[b] over
+    `_bucket(max n, 64)` entries."""
 
     def __call__(self, stage, *args):
-        if stage not in ("fivepoint", "resection"):
+        if stage not in ("fivepoint", "resection", "resection_one"):
             return super().__call__(stage, *args)
         seed, n_valid, num_rounds, k = args
         nv = [int(n) for n in n_valid]
         pad = J_inc._bucket(max(nv), 64)
         key = jax.random.PRNGKey(seed)
-        keys = [key] if stage == "fivepoint" else \
-            jax.random.split(key, J_inc._bucket(len(nv), 4))
+        keys = jax.random.split(key, J_inc._bucket(len(nv), 4)) \
+            if stage == "resection" else [key]
         import torch
         return torch.stack([torch.from_numpy(np.asarray(sample_indices(
             kb, num_rounds, k, jnp.int32(n), pad))).long()
