@@ -13,9 +13,9 @@ options, recursive `--options_file`) and `OnInit` (`:747-1046`).  Usage:
 
 The option table is the JAX package's plus `--device`.  Options whose
 modules are not ported yet stop at parse time with a message naming the
-module: --estimate_up_vector_szeliski, --compute_covariance,
---output_relposes, --fisheye, --optimize_for_fisheye and --num_devices
-other than 1.
+module: --compute_covariance, --fisheye and --num_devices other than 1.
+--optimize_for_fisheye is carried into the config, where nothing reads it,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 
 from bundler_sfm_tpu_torch.config import BundlerConfig
 from bundler_sfm_tpu_torch.export import process as ops
+from bundler_sfm_tpu_torch.export.scene_geometry import estimate_axes
 from bundler_sfm_tpu_torch.io.bundlefile import (
     read_bundle_file, write_bundle_file,
 )
@@ -199,16 +200,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 # Options whose code paths need modules not ported yet, with those modules.
 UNPORTED = (
-    ("estimate_up_vector_szeliski",
-     "export/scene_geometry.py and ops/plane.py"),
     ("compute_covariance",
-     "pipeline/two_frame.py, ops/homography_decompose.py and "
-     "ops/fmatrix.py refine_fmatrix_nonlinear / estimate_ematrix"),
-    ("output_relposes",
-     "pipeline/two_frame.py, ops/homography_decompose.py and "
-     "ops/fmatrix.py refine_fmatrix_nonlinear / estimate_ematrix"),
+     "pipeline/two_frame.py camera_covariance / scene_covariance / "
+     "write_covariance_file"),
     ("fisheye", "ops/fisheye.py"),
-    ("optimize_for_fisheye", "ops/fisheye.py"),
 )
 
 
@@ -296,6 +291,7 @@ def scene_from_args(args) -> Scene:
         point_constraint_file=args.point_constraint_file,
         point_constraint_weight=args.point_constraint_weight,
         use_angular_score=args.use_angular_score,
+        optimize_for_fisheye=args.optimize_for_fisheye,
         construct_max_connectivity=args.construct_max_connectivity,
         estimate_ignored=args.estimate_ignored,
         skip_full_bundle=args.skip_full_bundle,
@@ -436,6 +432,12 @@ def _bundle_surgery(args, scene) -> int:
         bundle = ops.rotate_cameras_roll(bundle, degs)
     if args.reposition_scene:
         bundle = ops.reposition_scene(bundle)
+    if args.estimate_up_vector_szeliski:
+        # The axes are computed for their failure modes only (an --up_image
+        # out of range raises), as in the JAX package.
+        if args.up_image >= 0:
+            estimate_axes(bundle, up_image=args.up_image)
+        bundle = ops.transform_scene_canonical(bundle)
     if args.write_tracks:
         views = [[(int(v[0]), int(v[1])) for v in np.atleast_2d(p.views)]
                  for p in bundle.points]
@@ -482,7 +484,8 @@ def main(argv: Optional[List[str]] = None, sampler: Callable = None) -> int:
     # Pure bundle-surgery mode (ProcessBundle.cpp ops on a loaded bundle).
     surgery = (args.scale_focal != 1.0 or args.zero_distortion_params or
                args.prune_bad_points or args.compress_list or
-               args.reposition_scene or args.scale_focal_file or
+               args.reposition_scene or args.estimate_up_vector_szeliski or
+               args.output_relposes or args.scale_focal_file or
                args.rotate_cameras or args.write_tracks)
     if args.bundle and surgery and not (args.run_bundle or
                                         args.rerun_bundle):

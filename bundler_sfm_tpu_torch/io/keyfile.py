@@ -84,9 +84,14 @@ def read_key_file(path: str) -> Tuple[np.ndarray, np.ndarray]:
     if path.endswith((".bin", ".bin.gz")):
         return _parse_key_bin(data)
     # Prefer the native single-pass tokenizer (native/keyio.cc, ~50x).
+    # A file it cannot tokenize (e.g. descriptors written `12.0`) falls
+    # through to the numpy parser, as in the JAX package.
     from bundler_sfm_tpu_torch import native
     if native.available():
-        return native.parse_key_bytes(data)
+        try:
+            return native.parse_key_bytes(data)
+        except ValueError:
+            pass
     # Otherwise: one vectorized pass over whitespace-separated tokens.
     vals = np.array(data.split(), dtype=np.float64)
     n = int(vals[0])

@@ -2,8 +2,10 @@
 `bundler`'s option table and --options_file expansion, `keymatch` and
 `keymatchsingle` outputs, `creatematchscript`, `io/intrinsics` and the
 `export/process` bundle-surgery operations (also through `bundler --bundle`
-surgery mode).  Files are held byte-identical; options the port does not
-carry yet must stop the parser with a non-zero exit naming the module."""
+surgery mode, --estimate_up_vector_szeliski, --output_relposes and
+--optimize_for_fisheye included).  Files are held byte-identical; options
+the port does not carry yet must stop the parser with a non-zero exit
+naming the module."""
 
 import io
 import os
@@ -65,11 +67,8 @@ def test_options_file_recursion(tmp_path):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["--estimate_up_vector_szeliski"], "scene_geometry"),
     (["--compute_covariance"], "two_frame"),
-    (["--output_relposes", "relposes.txt"], "two_frame"),
     (["--fisheye", "fisheye.txt"], "ops/fisheye.py"),
-    (["--optimize_for_fisheye"], "ops/fisheye.py"),
     (["--num_devices", "4"], "multi-device"),
     (["--num_devices", "0"], "multi-device"),
 ])
@@ -231,3 +230,47 @@ def test_bundler_surgery_mode_identical(tmp_path, monkeypatch):
     for n in names:
         assert (tmp_path / "t" / n).read_bytes() == \
             (tmp_path / "j" / n).read_bytes(), n
+
+
+@pytest.mark.parametrize("extra", [
+    ["--estimate_up_vector_szeliski"],
+    ["--estimate_up_vector_szeliski", "--up_image", "1"],
+    ["--output_relposes", "relposes.txt"],
+    ["--optimize_for_fisheye", "--reposition_scene"],
+], ids=["up_vector", "up_vector_up_image", "output_relposes",
+        "optimize_for_fisheye"])
+def test_bundler_surgery_options_identical(extra, tmp_path, monkeypatch):
+    """`bundler --bundle in.out` with the options the JAX package runs in
+    surgery mode: both exit 0 and write byte-identical
+    bundle.processed.out (and nothing else)."""
+    J_bf.write_bundle_file(str(tmp_path / "in.out"), _toy_bundle(J_bf))
+    (tmp_path / "list.txt").write_text("".join(f"img{i}.jpg\n"
+                                               for i in range(4)))
+    monkeypatch.chdir(tmp_path)
+    argv = ["list.txt", "--bundle", "in.out"] + extra
+    assert J_bundler.main(argv + ["--output_dir", "j"]) == 0
+    assert T_bundler.main(argv + ["--output_dir", "t", "--device", "cpu"]) == 0
+    assert os.listdir("j") == os.listdir("t") == ["bundle.processed.out"]
+    want = (tmp_path / "j" / "bundle.processed.out").read_bytes()
+    assert (tmp_path / "t" / "bundle.processed.out").read_bytes() == want
+    changed = want != (tmp_path / "in.out").read_bytes()
+    assert changed == (extra[0] != "--output_relposes")
+
+
+def test_estimate_up_vector_keeps_failure_modes(tmp_path, monkeypatch):
+    """An --up_image past the cameras raises in both packages, and the port
+    carries --optimize_for_fisheye into its config as the JAX package does
+    (nothing reads it); with no --bundle and no --run_bundle both exit 0."""
+    J_bf.write_bundle_file(str(tmp_path / "in.out"), _toy_bundle(J_bf))
+    (tmp_path / "list.txt").write_text("img0.jpg\n")
+    monkeypatch.chdir(tmp_path)
+    argv = ["list.txt", "--bundle", "in.out", "--estimate_up_vector_szeliski",
+            "--up_image", "9"]
+    for main, dev in ((J_bundler.main, []), (T_bundler.main, ["--device",
+                                                              "cpu"])):
+        with pytest.raises(IndexError):
+            main(argv + dev)
+        assert main(["list.txt", "--optimize_for_fisheye"] + dev) == 0
+    args = T_bundler.parse_with_options_file(
+        ["list.txt", "--optimize_for_fisheye", "--device", "cpu"])
+    assert T_bundler.scene_from_args(args).config.optimize_for_fisheye

@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
         "ops.resection", "ops.triangulate", "ops.essential",
         "pipeline.incremental", "io.bundlefile", "io.plyfile", "bundler",
         "keymatch", "keymatchsingle", "creatematchscript", "io.intrinsics",
-        "export.process", "pipeline.resume", "pipeline.register")]
+        "export.process", "export.scene_geometry", "pipeline.resume",
+        "pipeline.register")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"

@@ -87,6 +87,29 @@ def test_key_file_identical(tmp_path, rng, suffix):
     np.testing.assert_array_equal(jd, td)
 
 
+def test_key_file_float_descriptors(tmp_path, rng):
+    """A key file whose descriptors are written `v.0`: the native tokenizer
+    refuses it, and both packages fall back to their numpy parser and read
+    the same [n, 4] / [n, 128] arrays."""
+    from bundler_sfm_tpu_torch import native
+    info, desc = _keys(rng, 3)
+    lines = [f"{len(info)} 128"]
+    for (x, y, s, o), d in zip(info, desc):
+        lines.append(f"{y:.2f} {x:.2f} {s:.3f} {o:.3f}")
+        lines.append(" ".join(f"{v}.0" for v in d))
+    path = tmp_path / "float.key"
+    path.write_text("\n".join(lines) + "\n")
+    if native.available():
+        with pytest.raises(ValueError):
+            native.parse_key_bytes(path.read_bytes())
+    ji, jd = J_keyfile.read_key_file(str(path))
+    ti, td = T_keyfile.read_key_file(str(path))
+    assert ti.shape == (3, 4) and td.shape == (3, 128)
+    np.testing.assert_array_equal(ji, ti)
+    np.testing.assert_array_equal(jd, td)
+    np.testing.assert_array_equal(td, desc)
+
+
 def _scenes(rng):
     """The same transforms and tracks in a scene of each package."""
     n = 4
