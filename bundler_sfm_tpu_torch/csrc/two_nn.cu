@@ -78,117 +78,21 @@
 
 #include <type_traits>
 
+#include "wgmma_ring.cuh"
+
 namespace {
 
+using namespace wsk;
+
 constexpr int DIM = 128;          // descriptor length
-constexpr float BIG = 3.0e38f;
 
 // ------------------------------------------------- int8 wgmma kernel ----
 
-constexpr int NT = 128;                      // db rows per ring stage (wgmma N)
 constexpr int QT_WS = 128;                   // query rows per work item
 constexpr int STAGES = 4;
-constexpr int WG = 128;                      // threads per warpgroup
 constexpr int WS_THREADS = 3 * WG;           // 2 consumer warpgroups + producer
 constexpr int TILE_BYTES = NT * DIM;
-constexpr int NORM_BYTES = NT * 4;
-constexpr int KEY_POISON = 0x7fffffff;       // key of a row past the count
-constexpr int E_POISON = KEY_POISON >> 8;    // its distance part
 constexpr int SMEM_WS = 1024 + STAGES * (TILE_BYTES + NORM_BYTES) + 2 * STAGES * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map,
-                                              int row, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 B, 8-row groups 1024 B apart (SBO), LBO unused.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// Keep the compiler from moving accumulator registers across async wgmma.
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-template <int SCALE_D>
-__device__ __forceinline__ void wgmma_k32(int (&d)[64], const uint32_t (&a)[4],
-                                          uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
-}
 
 // One 64x128 int32 product tile: the warpgroup's A (registers) against the
 // 128 db rows of ring stage `b_addr`, four k32 steps of 32 bytes each.
@@ -201,71 +105,6 @@ __device__ __forceinline__ void issue_tile(int (&d)[64], const uint32_t (&a)[4][
   wgmma_k32<1>(d, a[2], desc_sw128(b_addr + 64));
   wgmma_k32<1>(d, a[3], desc_sw128(b_addr + 96));
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait(int (&d)[64]) {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-  fence_acc(d);
-}
-
-// Fold two keys of distinct columns into a top-2 (b0 <= b1): the second
-// smallest of two sorted pairs is min(max(b0, lo), b1, hi).
-__device__ __forceinline__ void fold2(int ka, int kb, int& b0, int& b1) {
-  const int lo = min(ka, kb);
-  const int hi = max(ka, kb);
-  b1 = min(min(max(b0, lo), b1), hi);
-  b0 = min(b0, lo);
-}
-
-// Merge a tile's top-2 keys into the running (e0, i0, e1); the running
-// entry has the lower columns, so it wins ties.
-__device__ __forceinline__ void merge_tile(int b0, int b1, int col0, int& e0,
-                                           int& i0, int& e1) {
-  const int t0 = b0 >> 8;
-  const int t1 = b1 >> 8;
-  const bool lt = t0 < e0;
-  e1 = lt ? min(e0, t1) : min(e1, t0);
-  i0 = lt ? col0 + (b0 & 255) : i0;
-  e0 = lt ? t0 : e0;
-}
-
-__device__ __forceinline__ int key(int c, int acc) {
-  // c - 512 * acc, wrapping: only a poisoned column of a last tile can leave
-  // int32, and its key is replaced.
-  return static_cast<int>(static_cast<uint32_t>(c) -
-                          512u * static_cast<uint32_t>(acc));
-}
-
-// Tile-local top-2 of this thread's 2 rows x 32 columns, merged into the
-// running state.  Thread (warp w, lane 4g+t) holds rows 16w+g (acc[4i],
-// acc[4i+1]) and 16w+g+8 (acc[4i+2], acc[4i+3]) at columns 8i+2t, 8i+2t+1.
-template <bool LAST>
-__device__ __forceinline__ void epilogue(const int (&acc)[64], const int* cst,
-                                         int t, int col0, int& e0lo, int& i0lo,
-                                         int& e1lo, int& e0hi, int& i0hi,
-                                         int& e1hi) {
-  int b0lo = KEY_POISON, b1lo = KEY_POISON, b0hi = KEY_POISON, b1hi = KEY_POISON;
-#pragma unroll
-  for (int i = 0; i < NT / 8; ++i) {
-    const int2 c = *reinterpret_cast<const int2*>(cst + 8 * i + 2 * t);
-    int k0 = key(c.x, acc[4 * i]);
-    int k1 = key(c.y, acc[4 * i + 1]);
-    int k2 = key(c.x, acc[4 * i + 2]);
-    int k3 = key(c.y, acc[4 * i + 3]);
-    if (LAST) {
-      const int fx = c.x == KEY_POISON ? KEY_POISON : INT32_MIN;
-      const int fy = c.y == KEY_POISON ? KEY_POISON : INT32_MIN;
-      k0 = max(k0, fx);
-      k1 = max(k1, fy);
-      k2 = max(k2, fx);
-      k3 = max(k3, fy);
-    }
-    fold2(k0, k1, b0lo, b1lo);
-    fold2(k2, k3, b0hi, b1hi);
-  }
-  merge_tile(b0lo, b1lo, col0, e0lo, i0lo, e1lo);
-  merge_tile(b0hi, b1hi, col0, e0hi, i0hi, e1hi);
 }
 
 // The product-only ablation (two_nn_product_max_i8): the row max of q.b
@@ -289,24 +128,8 @@ __device__ __forceinline__ void max_epilogue(const int (&acc)[64], const int* cs
   }
 }
 
-__device__ __forceinline__ void merge_lanes(int& e0, int& i0, int& e1,
-                                            int lane_mask) {
-  const int o0 = __shfl_xor_sync(0xffffffffu, e0, lane_mask);
-  const int oi = __shfl_xor_sync(0xffffffffu, i0, lane_mask);
-  const int o1 = __shfl_xor_sync(0xffffffffu, e1, lane_mask);
-  const bool other = (o0 < e0) || (o0 == e0 && oi < i0);
-  const int n1 = other ? min(e0, o1) : min(o0, e1);
-  e0 = other ? o0 : e0;
-  i0 = other ? oi : i0;
-  e1 = n1;
-}
-
 __device__ __forceinline__ int dp4a_sq(uint32_t v, int acc) {
   return __dp4a(static_cast<int>(v), static_cast<int>(v), acc);
-}
-
-__device__ __forceinline__ float to_dist(int qsq, int e) {
-  return e >= E_POISON ? BIG : static_cast<float>(qsq + e);
 }
 
 // TOP2: the exact 2-NN; else the product-only ablation (row max of q.b,
@@ -351,8 +174,8 @@ two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
           const int s = seq % STAGES;
           mbar_wait(empty + 8 * s, ((seq / STAGES) & 1) ^ 1);
           mbar_expect_tx(full + 8 * s, TILE_BYTES + NORM_BYTES);
-          tma_load_rows(tiles + s * TILE_BYTES, &db_map, dj * nd + n * NT,
-                        full + 8 * s);
+          tma_load_2d(tiles + s * TILE_BYTES, &db_map, 0, dj * nd + n * NT,
+                      full + 8 * s);
           bulk_load(norm_u + s * NORM_BYTES,
                     norms + static_cast<long long>(dj) * kp + n * NT,
                     NORM_BYTES, full + 8 * s);
@@ -510,31 +333,6 @@ two_nn_norms_kernel(const int8_t* __restrict__ tab, int n_img, int nd, int kp,
   s += __shfl_xor_sync(0xffffffffu, s, 2);
   s += __shfl_xor_sync(0xffffffffu, s, 4);
   if (live && part == 0) out[row] = r < counts[j] ? s * 256 + r % NT : KEY_POISON;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // ------------------------------------ mma.sync template (i8_mma, f32) ----
@@ -798,17 +596,10 @@ int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
   if (num_pairs == 0 || nq == 0) return 0;
   if (reinterpret_cast<uintptr_t>(dbtab) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map;
-  const cuuint64_t dims[2] = {DIM, static_cast<cuuint64_t>(n_img) * nd};
-  const cuuint64_t strides[1] = {DIM};
-  const cuuint32_t box[2] = {DIM, NT};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(dbtab),
-             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_rows(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, dbtab, DIM,
+                   static_cast<long long>(n_img) * nd, DIM, DIM))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       two_nn_ws_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,

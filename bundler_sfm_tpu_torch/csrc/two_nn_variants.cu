@@ -19,56 +19,97 @@
 //                          "top1" the nearest neighbour only (d1 = 0).
 //
 // For pair b, the query rows are table[pi[b]] (all K of them) and the db rows
-// table[pj[b]], of which the first counts[pj[b]] are valid.  Max form: with
-// bsq = |b|^2, poisoned to 3e38 for rows at or past the count, the score is
-// m = f32(dot) - 0.5*bsq, the nearest row is the first argmax of m, and the
-// distances are d = |q|^2 - 2m, taken once per query row at the end.  Every
-// value is a half-integer below 2^23 (products <= 128^2, dot sums < 2^24, the
-// bf16 products of int8 values exact in f32), so the exact variants are
-// bit-identical to two_nn.cu's int32 distances, d1 = 3e38 and i0 = 0 where
-// fewer than two db rows are valid included: a poisoned score is -1.5e38 for
-// every dot, and |q|^2 + 3e38 rounds to 3e38.
+// table[pj[b]], of which the first counts[pj[b]] are valid.  The TPU kernels
+// work in max form (m = f32(dot) - 0.5*|b|^2, poisoned past the count; the
+// nearest row is the first argmax of m; d = |q|^2 - 2m).  Every value there
+// is a half-integer below 2^23, so the exact variants equal the int32
+// distances of two_nn.cu bit for bit, d1 = 3e38 and i0 = 0 where fewer than
+// two db rows are valid included, and ties go to the lowest db index
+// (_tile_top2; the 512-row fold keeps the running entry, _merge_top2).
 //
-// Ties go to the lowest db index, as _tile_top2 takes them: each lane sees its
-// columns in increasing order and replaces its best only on a strictly larger
-// score (an equal one becomes the runner-up); lanes are merged on (score,
-// index).  The 512-row fold keeps the running entry on ties (_merge_top2).
+// Two designs live here.
 //
-// What TQ means here.  On the TPU, TQ rows of queries meet the whole db in one
-// [TQ, K] f32 score tile in VMEM.  Here no score tile exists in memory (128 x
-// 2048 x 4 B = 1 MB would not fit in 227 KB of shared memory): scores live in
-// mma accumulators and are folded into per-row registers at once.  TQ is the
-// number of query rows that share one 64-row db tile staged in shared memory,
-// i.e. how often a db row is reloaded from L2 (K/TQ times per pair).
+// 1. Warp-specialised (variant_ws_kernel): every oneblock int8 instantiation,
+//    oneblock bf16 at TQ 128 and blockmerge -- what the probe path launches.
+//    PR 3's machinery of two_nn.cu (wgmma_ring.cuh), generalised to TQ:
+//    a persistent grid walks (pair, query tile of TQ rows) items; a producer
+//    thread keeps a 4-stage TMA + mbarrier ring of 128-row db tiles
+//    (128-byte swizzle) and their column constants full; two consumer
+//    warpgroups of 64*MT query rows each (MT = TQ/128 m64 tiles) issue
+//    wgmma m64n128 with B read from the ring stage, so every staged db tile
+//    serves all TQ query rows before it is released.  At TQ 128 each
+//    warpgroup's A fragments stay in registers for the item; at TQ >= 256
+//    the query tile is loaded once per item into swizzled shared memory by
+//    TMA and wgmma reads A through a shared-memory descriptor, so nothing is
+//    reloaded through registers per db tile.  The producer puts the next
+//    item's first db tiles into the ring before it waits for the query
+//    buffer to be released.  A per-call pre-pass (prepass_kernel) writes
+//    the column constants c = |b|^2*256 + row%128 (KEY_POISON past the
+//    count) and |q|^2 once.  The epilogue is two_nn.cu's: packed (distance,
+//    column) int32 keys, one IMAD and three min/max a score into a
+//    tile-local top-2, merged into the running (e0, i0, e1) once per tile;
+//    the epilogue of product n runs while product n+1's wgmma flies (two
+//    accumulator sets; with MT > 1 the products run m-tile by m-tile, so
+//    m-tile mt's epilogue overlaps m-tile mt+1's wgmma), and setmaxnreg
+//    moves registers from the producer to the consumers.  Only a pair's last
+//    tile can hold rows past the count; its keys of poisoned columns are
+//    raised to KEY_POISON.
+//    The bf16 dot: wgmma m64n128k16.f32.bf16.bf16.  The ring needs bf16 B,
+//    and TMA cannot convert, so the pre-pass also writes a bf16 copy of the
+//    table once per call (12.6 MB at 24 x 2048 rows, a few microseconds of
+//    bytes; it stands in for the TPU kernel's in-VMEM astype(bf16),
+//    probe_pallas_variants.py:71, :121).  A converter warpgroup between an
+//    int8 and a bf16 ring would save those bytes but take registers and
+//    issue slots from the consumers, whose epilogue bounds the kernel.  At
+//    TQ 128 the query fragments are converted to bf16 once per item (32
+//    registers); blockmerge reads its 256 bf16 query rows (64 KB) from
+//    shared memory.  The f32 accumulators hold exact integers (|q.b| <=
+//    2^21, products of int8 values exact in bf16 and f32); acc_bits turns
+//    one into its int32 value with one FADD, and the pre-pass adds the
+//    matching offset to the bf16 column constants, so the key is the same.
+//    Blockmerge: TQ = 256, BD = 512.  A 512-row block does not fit in one
+//    key (the column has 8 bits), so the tile-local keys fold into a block
+//    state (e0, i0, e1) over four 128-row tiles, and the block state folds
+//    into the running one at each 512-row boundary, ties keeping the
+//    running entry; the four lanes of a row are merged once at the end.
+//    Bound on an H100: 2*128*K^2 tensor-core operations per pair (1979 TOP/s
+//    int8, 989 TFLOP/s bf16).  What bounds this design is its epilogue, as
+//    in two_nn.cu: 4 integer instructions a score (5 with the bf16 FADD)
+//    against one m64n128k32 wgmma (64 tensor clocks) per 8192 scores.
 //
-// Where the query rows live.  A 16-row m-tile costs 16 registers per thread
-// of A fragments with the int8 dot (32 with bf16).  At TQ = 1024, holding all
-// of them in registers would take 32 warps with 2 m-tiles each, inside 64
-// registers per thread, which leaves no room for the bf16 fragments (64
-// registers) and the six registers of top-2 state per m-tile.  So the block
+// 2. The first design (variant_kernel, mma.sync), kept as the yardstick:
+//    two_nn_oneblock_mma, two_nn_blockmerge_bf16_mma, and the ablations
+//    (next in the redesign queue).  Oneblock bf16 at TQ 256..1024 is launched
+//    by no path (a bf16 query tile of 1024 rows, 256 KB, does not fit beside
+//    a ring), so two_nn_oneblock_mma serves those three.  Its notes follow.
+//
+// What TQ means in the first design.  On the TPU, TQ rows of queries meet
+// the whole db in one [TQ, K] f32 score tile in VMEM.  Here no score tile
+// exists in memory: scores live in mma accumulators and are folded into
+// per-row registers at once.  TQ is the number of query rows that share one
+// 64-row db tile staged in shared memory (K/TQ reloads per pair).  The block
 // has 8 warps at every TQ, the query tile is staged once in shared memory as
-// int8 (TQ x 144 B, 147 KB at TQ = 1024), and each warp owns TQ/128 m-tiles
-// whose top-2 state stays in registers; a warp reloads an m-tile's A
-// fragments from shared memory once per db tile (16 loads per 32 mma with
-// int8) and converts int8 to bf16 there for the bf16 dot.  At TQ = 128 the
-// one m-tile's fragments are loaded once and stay in registers.
-//
-// Bound on an H100: 2*128*K^2 int8 tensor-core operations per pair (1979 TOP/s
-// dense; bf16 at 989 TFLOP/s), the table read once and 12 B per query row
-// written once (bytes are ~1 % of the time).  The epilogue is the other wall:
-// every one of the K^2 scores per pair costs a convert, a subtract, a compare
-// and three selects on the CUDA cores (~2 ms at 2208 pairs x 2048^2 at perfect
-// issue, against 1.2 ms of int8 tensor-core time).  The design keeps the
-// epilogue branch-free with the poison in the norm (no validity test per
-// score), skips db tiles past the count (all-poisoned tiles cannot change the
-// result), and merges lanes once per row.  The ablations remove pieces of that
-// epilogue to measure them.  mma.sync, not wgmma or TMA: those come later.
+// int8 (TQ x 144 B), and each warp owns TQ/128 m-tiles whose top-2 state
+// stays in registers; a warp reloads an m-tile's A fragments from shared
+// memory once per db tile and converts int8 to bf16 there for the bf16 dot.
+// What held it back (measured, PERF.md): each of 8 warps loads its own B
+// fragments from shared memory with 32-bit loads (256 B per m16n8k32
+// against 128 B per clock), the A reloads at TQ > 128, db staging that
+// overlaps nothing and recomputes |b|^2 K/TQ times per pair, and ~6
+// instructions a score of top-2 in f32 max form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
+#include "wgmma_ring.cuh"
+
 namespace {
+
+using namespace wsk;
 
 constexpr int DIM = 128;              // descriptor length
 constexpr int WARPS = 8;
@@ -76,7 +117,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int DT = 64;                // db rows per staged shared-memory tile
 constexpr int BD = 512;               // db rows per block of the blockmerge fold
 constexpr int Q_ROW = DIM + 16;       // staged int8 query row (+16: conflict-free)
-constexpr float BIG = 3.0e38f;
 constexpr float HALF_POISON = 0.5f * BIG;
 
 enum Mode { TOP2 = 0, TOP1 = 1, MAX = 2 };
@@ -436,6 +476,477 @@ int launch_oneblock(const Args& x, int tq) {
   }
 }
 
+
+// ------------------------------------------- warp-specialised design ----
+
+constexpr int WS_THREADS = 3 * WG;   // two consumer warpgroups + a producer
+constexpr int STAGES = 4;            // ring depth
+constexpr int BOX_BYTES = 128 * NT;  // one 128-byte-wide TMA box of 128 rows
+
+template <int TQ, bool BF16_>
+struct Ws {
+  static constexpr bool BF16 = BF16_;
+  static constexpr int MT = TQ / 128;           // m64 tiles per consumer warpgroup
+  static constexpr bool A_SMEM = TQ > 128;      // else A in registers
+  static constexpr int HALVES = BF16 ? 2 : 1;   // 128-byte boxes per table row
+  static constexpr int KSTEPS = BF16 ? 8 : 4;   // k16 (bf16) or k32 (int8) steps
+  static constexpr int A_REGS = A_SMEM ? 1 : KSTEPS;
+  static constexpr int TILE_BYTES = HALVES * BOX_BYTES;          // 128 rows
+  static constexpr int Q_BYTES = A_SMEM ? (TQ / NT) * TILE_BYTES : 0;
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * (TILE_BYTES + NORM_BYTES) + (2 * STAGES + 2) * 8;
+  using Acc = typename std::conditional<BF16, float, int>::type;
+};
+
+// int8 x int8, A from shared memory.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_k32_ss(int (&d)[64], uint64_t a_desc,
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WSK_ACC
+      ", %64, %65, p;\n}\n"
+      : WSK_D64(WSK_R)
+      : "l"(a_desc), "l"(b_desc), "r"(SCALE_D));
+}
+
+// bf16 x bf16 -> f32, A in registers (the m16n8k16 layout per warp).
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_k16_rs(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WSK_ACC
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WSK_D64(WSK_F)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(SCALE_D));
+}
+
+// bf16 x bf16 -> f32, A from shared memory.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_k16_ss(float (&d)[64], uint64_t a_desc,
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WSK_ACC
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WSK_D64(WSK_F)
+      : "l"(a_desc), "l"(b_desc), "r"(SCALE_D));
+}
+
+// Byte address of k-step kk in a block of 128-byte-wide boxes: steps 0-3
+// read the first box (the whole int8 row), steps 4-7 the second (bf16).
+__device__ __forceinline__ uint32_t kstep_addr(uint32_t base, int kk) {
+  return base + (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+}
+
+// One 64x128 product: A (registers, or the m64 tile at a_base) against the
+// 128 db rows of the ring stage at b_base, accumulated over the row.
+template <class C>
+__device__ __forceinline__ void issue_product(typename C::Acc (&d)[64],
+                                              const uint32_t (&a)[C::A_REGS][4],
+                                              uint32_t a_base, uint32_t b_base) {
+  fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < C::KSTEPS; ++kk) {
+    const uint64_t bd = desc_sw128(kstep_addr(b_base, kk));
+    if constexpr (C::A_SMEM) {
+      const uint64_t ad = desc_sw128(kstep_addr(a_base, kk));
+      if constexpr (C::BF16) {
+        if (kk == 0) wgmma_k16_ss<0>(d, ad, bd);
+        else wgmma_k16_ss<1>(d, ad, bd);
+      } else {
+        if (kk == 0) wgmma_k32_ss<0>(d, ad, bd);
+        else wgmma_k32_ss<1>(d, ad, bd);
+      }
+    } else if constexpr (C::BF16) {
+      if (kk == 0) wgmma_k16_rs<0>(d, a[kk], bd);
+      else wgmma_k16_rs<1>(d, a[kk], bd);
+    } else {
+      if (kk == 0) wgmma_k32<0>(d, a[kk], bd);
+      else wgmma_k32<1>(d, a[kk], bd);
+    }
+  }
+  wgmma_commit();
+}
+
+// A fragments of rows `row` and `row` + 8 (a warp's 16-row slice; `row`
+// points at row g of it), lane t: int8 as stored (m16n8k32 layout) or
+// converted to bf16 pairs (m16n8k16 layout).
+template <class C>
+__device__ __forceinline__ void load_a(uint32_t (&a)[C::A_REGS][4],
+                                       const int8_t* row, int t) {
+  const unsigned char* lo = reinterpret_cast<const unsigned char*>(row);
+  const unsigned char* hi = lo + 8 * DIM;
+#pragma unroll
+  for (int kk = 0; kk < C::KSTEPS; ++kk) {
+    if constexpr (C::BF16) {
+      const int c = kk * 16 + 2 * t;
+      a[kk][0] = Bf16Dot::cvt2(lo + c);
+      a[kk][1] = Bf16Dot::cvt2(hi + c);
+      a[kk][2] = Bf16Dot::cvt2(lo + c + 8);
+      a[kk][3] = Bf16Dot::cvt2(hi + c + 8);
+    } else {
+      const int c = kk * 32 + 4 * t;
+      a[kk][0] = ld32(lo + c);
+      a[kk][1] = ld32(hi + c);
+      a[kk][2] = ld32(lo + c + 16);
+      a[kk][3] = ld32(hi + c + 16);
+    }
+  }
+}
+
+// Fold a 512-row block's top-2 into the running one (_merge_top2 in min
+// form): ties keep the running entry, whose columns are lower.
+__device__ __forceinline__ void fold_running(int& e0, int& i0, int& e1, int f0,
+                                             int fi, int f1) {
+  const bool lt = f0 < e0;
+  e1 = lt ? min(e0, f1) : min(e1, f0);
+  i0 = lt ? fi : i0;
+  e0 = lt ? f0 : e0;
+}
+
+template <int N, class T>
+__device__ __forceinline__ T& pick(T& a, T& b) {
+  if constexpr (N == 0) return a;
+  else return b;
+}
+
+template <class F, int... I>
+__device__ __forceinline__ void static_for_impl(F&& f,
+                                                std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>()), ...);
+}
+
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>());
+}
+
+template <int TQ, bool BF16, bool MERGE>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+variant_ws_kernel(const __grid_constant__ CUtensorMap map,
+                  const int8_t* __restrict__ table, int K,
+                  const int* __restrict__ counts, const int* __restrict__ norms,
+                  const int* __restrict__ qsq, const int* __restrict__ pi,
+                  const int* __restrict__ pj, int num_items,
+                  float* __restrict__ d0_out, int* __restrict__ i0_out,
+                  float* __restrict__ d1_out) {
+  using C = Ws<TQ, BF16>;
+  using Acc = typename C::Acc;
+  constexpr int MT = C::MT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t q_buf = smem_u32(smem);          // the item's query tile
+  const uint32_t tiles = q_buf + C::Q_BYTES;      // the ring of db tiles
+  const int* norm_s =
+      reinterpret_cast<const int*>(smem + C::Q_BYTES + STAGES * C::TILE_BYTES);
+  const uint32_t norm_u = tiles + STAGES * C::TILE_BYTES;
+  const uint32_t full = norm_u + STAGES * NORM_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+  const uint32_t qfull = empty + STAGES * 8;
+  const uint32_t qempty = qfull + 8;
+  const int q_tiles = K / TQ;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 2 * WG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * WG) {
+    // Producer warpgroup: one thread walks every item's tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * WG) {
+      int seq = 0, k = 0;
+      for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
+        const int b = item / q_tiles;
+        const int dj = pj[b];
+        const int n_tiles = (counts[dj] + NT - 1) / NT;
+        auto load_tile = [&](int n) {
+          const int s = seq % STAGES;
+          mbar_wait(empty + 8 * s, ((seq / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, C::TILE_BYTES + NORM_BYTES);
+          for (int h = 0; h < C::HALVES; ++h)
+            tma_load_2d(tiles + s * C::TILE_BYTES + h * BOX_BYTES, &map,
+                        h * (DIM / C::HALVES), dj * K + n * NT, full + 8 * s);
+          bulk_load(norm_u + s * NORM_BYTES,
+                    norms + static_cast<long long>(dj) * K + n * NT,
+                    NORM_BYTES, full + 8 * s);
+          ++seq;
+        };
+        int n = 0;
+        if constexpr (C::A_SMEM) {
+          // This item's first db tiles go into the ring while the consumers
+          // finish the last item; its query tile waits for them to let go.
+          for (; n < n_tiles && n < STAGES; ++n) load_tile(n);
+          mbar_wait(qempty, (k & 1) ^ 1);
+          mbar_expect_tx(qfull, C::Q_BYTES);
+          const int row0 = pi[b] * K + (item % q_tiles) * TQ;
+          for (int rb = 0; rb < TQ / NT; ++rb)
+            for (int h = 0; h < C::HALVES; ++h)
+              tma_load_2d(q_buf + rb * C::TILE_BYTES + h * BOX_BYTES, &map,
+                          h * (DIM / C::HALVES), row0 + rb * NT, qfull);
+        }
+        for (; n < n_tiles; ++n) load_tile(n);
+      }
+    }
+  } else {
+    // Consumer warpgroups: 64 * MT query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / WG;
+    const int warp = (threadIdx.x % WG) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    Acc acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0;
+    uint32_t a[C::A_REGS][4];
+    int seq = 0, k = 0;
+    for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
+      const int b = item / q_tiles;
+      const int q0 = (item % q_tiles) * TQ;
+      const int qi = pi[b];
+      const int dj = pj[b];
+      const int n_tiles = (counts[dj] + NT - 1) / NT;
+      if constexpr (C::A_SMEM)
+        mbar_wait(qfull, k & 1);
+      else
+        load_a<C>(a, table + (static_cast<long long>(qi) * K + q0 + wg * 64 +
+                              warp * 16 + g) * DIM, t);
+
+      // Running (e0, i0, e1) of rows g and g + 8 of each m-tile; with MERGE
+      // also the 512-row block's.
+      int e0[MT][2], i0[MT][2], e1[MT][2];
+      int f0[MT][2], fi[MT][2], f1[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          e0[mt][h] = e1[mt][h] = f0[mt][h] = f1[mt][h] = E_POISON;
+          i0[mt][h] = fi[mt][h] = 0;
+        }
+      }
+
+      // Product (n, mt) is db tile n (ring stage (seq + n) % STAGES) against
+      // m-tile mt.  Products run in (n, mt) order with two accumulator sets:
+      // the next product is issued before this one's epilogue and waited for
+      // after it, so every wgmma group is retired inside the step that
+      // issued it (ptxas serialises groups in flight across a loop's back
+      // edge).  The ring stage goes back to the producer after the epilogue
+      // of its last m-tile.
+      auto stage_of = [&](int n) { return (seq + n) % STAGES; };
+      auto issue = [&](Acc (&acc)[64], int n, int mt) {
+        if (mt == 0)
+          mbar_wait(full + 8 * stage_of(n), ((seq + n) / STAGES) & 1);
+        const int gm = wg * MT + mt;
+        issue_product<C>(acc, a, q_buf + (gm / 2) * C::TILE_BYTES + (gm % 2) * 8192,
+                         tiles + stage_of(n) * C::TILE_BYTES);
+      };
+      auto finish = [&](const Acc (&acc)[64], int n, auto mtc, auto lastc) {
+        constexpr int mt = decltype(mtc)::value;
+        constexpr bool LAST = decltype(lastc)::value;
+        const int* cst = norm_s + stage_of(n) * NT;
+        if constexpr (MERGE) {
+          epilogue<LAST>(acc, cst, t, n * NT, f0[mt][0], fi[mt][0], f1[mt][0],
+                         f0[mt][1], fi[mt][1], f1[mt][1]);
+          if (LAST || n % (BD / NT) == BD / NT - 1) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              fold_running(e0[mt][h], i0[mt][h], e1[mt][h], f0[mt][h],
+                           fi[mt][h], f1[mt][h]);
+              f0[mt][h] = f1[mt][h] = E_POISON;
+              fi[mt][h] = 0;
+            }
+          }
+        } else {
+          epilogue<LAST>(acc, cst, t, n * NT, e0[mt][0], i0[mt][0], e1[mt][0],
+                         e0[mt][1], i0[mt][1], e1[mt][1]);
+        }
+        if constexpr (mt == MT - 1) mbar_arrive(empty + 8 * stage_of(n));
+      };
+      using M0 = std::integral_constant<int, 0>;
+      using Body = std::false_type;
+      using Last = std::true_type;
+
+      if (n_tiles > 0) {
+        issue(acc0, 0, 0);
+        wgmma_wait<0>(acc0);
+        if constexpr (MT == 1) {
+          for (int n = 0;; n += 2) {
+            if (n + 1 == n_tiles) {
+              finish(acc0, n, M0(), Last());
+              break;
+            }
+            issue(acc1, n + 1, 0);
+            finish(acc0, n, M0(), Body());
+            wgmma_wait<0>(acc1);
+            if (n + 2 == n_tiles) {
+              finish(acc1, n + 1, M0(), Last());
+              break;
+            }
+            issue(acc0, n + 2, 0);
+            finish(acc1, n + 1, M0(), Body());
+            wgmma_wait<0>(acc0);
+          }
+        } else {
+          // MT is even: m-tile mt's product is in acc0 for even mt.
+          int n = 0;
+          for (; n + 1 < n_tiles; ++n) {
+            static_for<MT>([&](auto mtc) {
+              constexpr int mt = decltype(mtc)::value;
+              auto& cur = pick<mt % 2>(acc0, acc1);
+              auto& nxt = pick<(mt + 1) % 2>(acc0, acc1);
+              if constexpr (mt + 1 < MT)
+                issue(nxt, n, mt + 1);
+              else
+                issue(nxt, n + 1, 0);
+              finish(cur, n, mtc, Body());
+              wgmma_wait<0>(nxt);
+            });
+          }
+          static_for<MT>([&](auto mtc) {   // the pair's last db tile
+            constexpr int mt = decltype(mtc)::value;
+            auto& cur = pick<mt % 2>(acc0, acc1);
+            auto& nxt = pick<(mt + 1) % 2>(acc0, acc1);
+            if constexpr (mt + 1 < MT) {
+              issue(nxt, n, mt + 1);
+              finish(cur, n, mtc, Last());
+              wgmma_wait<0>(nxt);
+            } else {
+              finish(cur, n, mtc, Last());
+            }
+          });
+        }
+      }
+      if constexpr (C::A_SMEM) mbar_arrive(qempty);
+      seq += n_tiles;
+
+      // The four lanes of a row group hold interleaved columns: merge them.
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          wsk::merge_lanes(e0[mt][h], i0[mt][h], e1[mt][h], 1);
+          wsk::merge_lanes(e0[mt][h], i0[mt][h], e1[mt][h], 2);
+          if (t == 0) {
+            const int row = q0 + (wg * MT + mt) * 64 + warp * 16 + g + 8 * h;
+            const long long o = static_cast<long long>(b) * K + row;
+            const int qs = qsq[static_cast<long long>(qi) * K + row];
+            d0_out[o] = to_dist(qs, e0[mt][h]);
+            i0_out[o] = i0[mt][h];
+            d1_out[o] = to_dist(qs, e1[mt][h]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The warp-specialised design's per-call pre-pass over the table, eight
+// threads a row: the column constants c = |b|^2*256 + row%128 + bias
+// (KEY_POISON at or past the count), |q|^2 of every row, and, when tab16 is
+// given, the table as bf16 (for the bf16 dot: TMA cannot convert).
+__global__ void __launch_bounds__(256)
+prepass_kernel(const int8_t* __restrict__ tab, long long rows, int K,
+               const int* __restrict__ counts, int bias, int* __restrict__ norms,
+               int* __restrict__ qsq, __nv_bfloat16* __restrict__ tab16) {
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const bool live = row < rows;
+  uint32_t w[4] = {0, 0, 0, 0};
+  if (live) {
+    const uint4 v = *reinterpret_cast<const uint4*>(tab + row * DIM + part * 16);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    s = __dp4a(static_cast<int>(w[i]), static_cast<int>(w[i]), s);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if (live && tab16 != nullptr) {
+    uint32_t h[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[2 * i] = pack_bf16x2(sbyte(w[i], 0), sbyte(w[i], 1));
+      h[2 * i + 1] = pack_bf16x2(sbyte(w[i], 2), sbyte(w[i], 3));
+    }
+    uint4* d = reinterpret_cast<uint4*>(tab16 + row * DIM + part * 16);
+    d[0] = make_uint4(h[0], h[1], h[2], h[3]);
+    d[1] = make_uint4(h[4], h[5], h[6], h[7]);
+  }
+  if (live && part == 0) {
+    const int j = static_cast<int>(row / K);
+    const int r = static_cast<int>(row % K);
+    qsq[row] = s;
+    norms[row] = r < counts[j]
+                     ? static_cast<int>(static_cast<uint32_t>(s * 256 + r % NT) +
+                                        static_cast<uint32_t>(bias))
+                     : KEY_POISON;
+  }
+}
+
+struct WsArgs {
+  const void* table;     // int8 [n_img, K, 128]
+  const void* tab16;     // its bf16 copy (bf16 dot), else unused
+  int n_img;
+  int K;
+  const int* counts;
+  const int* norms;      // [n_img, K] from the pre-pass
+  const int* qsq;        // [n_img, K]
+  const int* pi;
+  const int* pj;
+  int num_pairs;
+  float* d0;
+  int* i0;
+  float* d1;
+  cudaStream_t stream;
+};
+
+template <int TQ, bool BF16, bool MERGE>
+int launch_ws(const WsArgs& x) {
+  using C = Ws<TQ, BF16>;
+  if (x.K <= 0 || x.K % TQ || (MERGE && x.K % BD))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x.num_pairs == 0) return 0;
+  const void* base = BF16 ? x.tab16 : x.table;
+  if (base == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  if (!encode_rows(&map,
+                   BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   base, DIM, static_cast<long long>(x.n_img) * x.K,
+                   BF16 ? 2 * DIM : DIM, DIM / C::HALVES))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      variant_ws_kernel<TQ, BF16, MERGE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = static_cast<long long>(x.num_pairs) * (x.K / TQ);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  variant_ws_kernel<TQ, BF16, MERGE><<<grid, WS_THREADS, C::SMEM, x.stream>>>(
+      map, static_cast<const int8_t*>(x.table), x.K, x.counts, x.norms, x.qsq,
+      x.pi, x.pj, static_cast<int>(items), x.d0, x.i0, x.d1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -446,27 +957,79 @@ extern "C" {
 // point returns the CUDA error code of the launch (0 on success), or
 // cudaErrorInvalidValue for a shape or parameter it does not take.
 
-// Exact 2-NN; tq in {128, 256, 512, 1024}, K % tq == 0; bf16 != 0 runs the
-// dot in bf16 (m16n8k16), else in int8 (m16n8k32).
-int two_nn_oneblock(const void* table, int K, const int* counts,
+// The warp-specialised design's pre-pass: norms and qsq int32 [n_img, K]
+// (column constants with the f32 offset when bf16 != 0, |q|^2); with
+// bf16 != 0 also tab16, the table as bf16 [n_img, K, 128].  K % 128 == 0.
+int two_nn_variants_prepass(const void* table, int n_img, int K,
+                            const int* counts, int bf16, int* norms, int* qsq,
+                            void* tab16, void* stream) {
+  if (K <= 0 || K % NT) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(n_img) * K;
+  if (rows == 0) return 0;
+  prepass_kernel<<<static_cast<unsigned>((rows * 8 + 255) / 256), 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(table), rows, K, counts,
+      bf16 ? F32_MAGIC_BIAS : 0, norms, qsq,
+      bf16 ? static_cast<__nv_bfloat16*>(tab16) : nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Exact 2-NN on the warp-specialised design, with norms / qsq (and, for
+// bf16 != 0, tab16) from two_nn_variants_prepass with the same bf16 flag:
+// int8 dot at tq in {128, 256, 512, 1024}, bf16 dot at tq 128; K % tq == 0.
+int two_nn_oneblock(const void* table, const void* tab16, int n_img, int K,
+                    const int* counts, const int* norms, const int* qsq,
                     const int* pi, const int* pj, int num_pairs, int tq,
                     int bf16, float* d0, int* i0, float* d1, void* stream) {
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, pi, pj,
+                 num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream)};
+  if (bf16) {
+    if (tq == 128) return launch_ws<128, true, false>(x);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (tq) {
+    case 128: return launch_ws<128, false, false>(x);
+    case 256: return launch_ws<256, false, false>(x);
+    case 512: return launch_ws<512, false, false>(x);
+    case 1024: return launch_ws<1024, false, false>(x);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Exact 2-NN, bf16 dot, 256 query rows, 512-row db blocks; K % 512 == 0;
+// the pre-pass with bf16 != 0.
+int two_nn_blockmerge_bf16(const void* table, const void* tab16, int n_img,
+                           int K, const int* counts, const int* norms,
+                           const int* qsq, const int* pi, const int* pj,
+                           int num_pairs, float* d0, int* i0, float* d1,
+                           void* stream) {
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, pi, pj,
+                 num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream)};
+  return launch_ws<256, true, true>(x);
+}
+
+// The first design (mma.sync): tq in {128, 256, 512, 1024}, K % tq == 0;
+// bf16 != 0 runs the dot in bf16 (m16n8k16), else in int8 (m16n8k32).
+int two_nn_oneblock_mma(const void* table, int K, const int* counts,
+                        const int* pi, const int* pj, int num_pairs, int tq,
+                        int bf16, float* d0, int* i0, float* d1, void* stream) {
   const Args x{table, K, counts, pi, pj, num_pairs, d0, i0, d1,
                static_cast<cudaStream_t>(stream)};
   return bf16 ? launch_oneblock<Bf16Dot>(x, tq) : launch_oneblock<I8Dot>(x, tq);
 }
 
-// Exact 2-NN, bf16 dot, 256 query rows, 512-row db blocks; K % 512 == 0.
-int two_nn_blockmerge_bf16(const void* table, int K, const int* counts,
-                           const int* pi, const int* pj, int num_pairs,
-                           float* d0, int* i0, float* d1, void* stream) {
+// The first design's blockmerge: bf16 dot, 256 query rows, 512-row db
+// blocks; K % 512 == 0.
+int two_nn_blockmerge_bf16_mma(const void* table, int K, const int* counts,
+                               const int* pi, const int* pj, int num_pairs,
+                               float* d0, int* i0, float* d1, void* stream) {
   const Args x{table, K, counts, pi, pj, num_pairs, d0, i0, d1,
                static_cast<cudaStream_t>(stream)};
   return launch<256, Bf16Dot, TOP2, true>(x);
 }
 
-// Epilogue ablations, int8 dot, 128 query rows; K % 128 == 0.
-// mode 0: "matmul_max", mode 1: "top1".
+// Epilogue ablations on the first design, int8 dot, 128 query rows;
+// K % 128 == 0.  mode 0: "matmul_max", mode 1: "top1".
 int two_nn_ablation(const void* table, int K, const int* counts,
                     const int* pi, const int* pj, int num_pairs, int mode,
                     float* d0, int* i0, float* d1, void* stream) {

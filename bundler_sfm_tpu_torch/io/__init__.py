@@ -10,3 +10,11 @@ from bundler_sfm_tpu_torch.io.keyfile import (  # noqa: F401
 )
 from bundler_sfm_tpu_torch.io.listfile import ImageEntry, read_list_file, write_list_file  # noqa: F401
 from bundler_sfm_tpu_torch.io.matchfile import read_match_file, write_match_file  # noqa: F401
+from bundler_sfm_tpu_torch.io.bundlefile import (  # noqa: F401
+    BundleCamera,
+    BundlePoint,
+    BundleFile,
+    read_bundle_file,
+    write_bundle_file,
+)
+from bundler_sfm_tpu_torch.io.plyfile import write_points_ply  # noqa: F401

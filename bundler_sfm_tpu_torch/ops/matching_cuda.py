@@ -33,7 +33,9 @@ Wrappers, each counting its kernel launches in `LAUNCHES`:
 For CPU tensors each runs its plain PyTorch version (`two_nn_reference`,
 `two_nn_norms_plain`); for CUDA tensors it launches its kernel or raises.
 The library is built with `nvcc` from the sources in this package at
-first use, into `build/kernels/` at the repository root.
+first use, into `build/kernels/` at the repository root; `csrc/two_nn.cu`
+shares its TMA ring, `wgmma` and packed-key helpers with
+`csrc/two_nn_variants.cu` through `csrc/wgmma_ring.cuh`.
 """
 
 from __future__ import annotations
@@ -80,13 +82,17 @@ def _nvcc() -> str:
 def build(source: str = "two_nn.cu", verbose: bool = False,
           force: bool = False) -> str:
     """Compile `csrc/<source>` into its own library in `build/kernels/`,
-    named after the source and keyed by the hash of the source and the
-    flags (an edited source rebuilds; `force` rebuilds anyway); returns the
-    library path.  `verbose` prints what ptxas reports of each kernel."""
+    named after the source and keyed by the hash of the source, the headers
+    beside it (`csrc/*.cuh`) and the flags (an edited source or header
+    rebuilds; `force` rebuilds anyway); returns the library path.
+    `verbose` prints what ptxas reports of each kernel."""
     src = os.path.join(_CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(_CSRC, f) for f in
+                               os.listdir(_CSRC) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     stem = os.path.splitext(source)[0]
     out = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(out) and not force:

@@ -23,10 +23,20 @@ Outputs d0 f32, i0 int32, d1 f32, each [B, K].  The arithmetic is exact
 (half-integers below 2²³), so the exact variants are bit-identical to
 `matching_cuda.two_nn_pairs(table, table, counts, pi, pj)`.
 
-For CPU tensors a wrapper runs its plain PyTorch version (the query tile
-and the dot type do not change the result); for CUDA tensors it launches
-the kernel or raises.  Bound on an H100: 2·128·K² int8 tensor-core
-operations per pair (see the source note).
+Two kernel designs (see the source note).  `two_nn_oneblock` (int8 at every
+tq, bf16 at tq 128) and `two_nn_blockmerge_bf16` run the warp-specialised
+`wgmma` design: a per-call pre-pass kernel (`variants_prepass`: column
+constants, |q|², and for the bf16 dot a bf16 copy of the table), then a
+persistent kernel with a TMA ring of db tiles and a packed-key top-2.  The
+first design's `mma.sync` kernels stay as yardsticks
+(`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`), and serve
+`two_nn_oneblock` at bf16 tq 256–1024 (launched by no path) and the
+ablations.
+
+For CPU tensors a wrapper runs its plain PyTorch version (the query tile,
+the dot type and the design do not change the result); for CUDA tensors it
+launches the kernel or raises.  Bound on an H100: 2·128·K² int8 (or bf16)
+tensor-core operations per pair.
 """
 
 from __future__ import annotations
@@ -36,7 +46,9 @@ from typing import Callable, Tuple
 
 import torch
 
-from bundler_sfm_tpu_torch.ops.matching_cuda import BIG, build
+from bundler_sfm_tpu_torch.ops.matching_cuda import (
+    BIG, KEY_POISON, NORM_TILE, build,
+)
 
 SOURCE = "two_nn_variants.cu"
 ONEBLOCK_TILES = (128, 256, 512, 1024)
@@ -45,12 +57,23 @@ ABLATION_MODES = ("matmul_max", "top1")
 BLOCKMERGE_TQ = 256
 BLOCKMERGE_BD = 512
 ABLATION_TQ = 128
+# The bf16 column constants carry the offset that turns an f32 accumulator
+# into its int32 value (acc + 1.5·2²³ read as int32 is acc + 0x4B400000, and
+# 512·0x4B400000 wraps to 0x80000000).
+F32_MAGIC_BIAS = 0x80000000
 
-# Kernel launches, one count per kernel instantiation the wrappers reach.
+# Kernel launches, one count per kernel instantiation the wrappers reach:
+# the probe's variants (`wgmma` design where it serves them), the
+# pre-pass kernel that design launches once per call, and the first
+# design's `mma.sync` yardsticks.
 LAUNCHES = {**{f"two_nn_oneblock_{d}_{tq}": 0 for d in DOTS
                for tq in ONEBLOCK_TILES},
             "two_nn_blockmerge_bf16": 0,
-            **{f"two_nn_ablation_{m}": 0 for m in ABLATION_MODES}}
+            **{f"two_nn_ablation_{m}": 0 for m in ABLATION_MODES},
+            "two_nn_variants_prepass": 0,
+            **{f"two_nn_oneblock_mma_{d}_{tq}": 0 for d in DOTS
+               for tq in ONEBLOCK_TILES},
+            "two_nn_blockmerge_bf16_mma": 0}
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -63,13 +86,19 @@ def _load():
         lib = ctypes.CDLL(build(SOURCE))
         p, i = ctypes.c_void_p, ctypes.c_int
         head = [p, i, p, p, p, i]              # table, K, counts, pi, pj, B
+        # table, tab16, n_img, K, counts, norms, qsq, pi, pj, B
+        ws = [p, p, i, i, p, p, p, p, p, i]
         tail = [p, p, p, p]                    # d0, i0, d1, stream
-        for name, extra in (("two_nn_oneblock", [i, i]),
-                            ("two_nn_blockmerge_bf16", []),
-                            ("two_nn_ablation", [i])):
+        for name, args in (
+                ("two_nn_oneblock", ws + [i, i] + tail),
+                ("two_nn_blockmerge_bf16", ws + tail),
+                ("two_nn_oneblock_mma", head + [i, i] + tail),
+                ("two_nn_blockmerge_bf16_mma", head + tail),
+                ("two_nn_ablation", head + [i] + tail),
+                ("two_nn_variants_prepass", [p, i, i, p, i, p, p, p, p])):
             fn = getattr(lib, name)
             fn.restype = i
-            fn.argtypes = head + extra + tail
+            fn.argtypes = args
         _lib = lib
     return _lib
 
@@ -160,6 +189,22 @@ def ablation_plain(table, counts, pi, pj, mode: str) -> Outputs:
     return _pairs_plain(mode, table, counts, pi, pj)
 
 
+def prepass_plain(table: torch.Tensor, counts: torch.Tensor, bf16: bool
+                  ) -> Outputs:
+    """The `wgmma` design's per-call pre-pass: int32 column constants
+    [n_img, K] (|b|²·256 + row % 128, plus F32_MAGIC_BIAS wrapped to int32
+    for the bf16 dot; KEY_POISON at or past the count), |q|² int32 [n_img,
+    K], and for the bf16 dot the table as bf16 (else None)."""
+    t = table.int()
+    sq = (t * t).sum(-1)
+    row = torch.arange(table.shape[1], device=table.device)
+    c = sq.long() * 256 + row % NORM_TILE + (F32_MAGIC_BIAS if bf16 else 0)
+    c = (c + 2 ** 31) % 2 ** 32 - 2 ** 31
+    c = torch.where(row < counts[:, None].long(), c,
+                    torch.full_like(c, KEY_POISON)).int()
+    return c, sq.int(), table.to(torch.bfloat16) if bf16 else None
+
+
 # ------------------------------------------------------------- wrappers ----
 
 def _check(name: str, table, counts, pi, pj, row_multiple: int) -> None:
@@ -190,58 +235,146 @@ def _check(name: str, table, counts, pi, pj, row_multiple: int) -> None:
         raise ValueError(f"{name}: image index or count out of range")
 
 
+def _outputs(B: int, K: int, device) -> Outputs:
+    return (torch.empty((B, K), dtype=torch.float32, device=device),
+            torch.empty((B, K), dtype=torch.int32, device=device),
+            torch.empty((B, K), dtype=torch.float32, device=device))
+
+
 def _run(name: str, counter: str, plain: Callable[[], Outputs],
          launch: Callable, table, counts, pi, pj, row_multiple: int
          ) -> Outputs:
+    """Checks, then the plain version for CPU tensors, or `launch(table,
+    counts, pi, pj, (d0, i0, d1), stream)` for CUDA tensors (raising on a
+    nonzero CUDA error), counted under `counter`."""
     _check(name, table, counts, pi, pj, row_multiple)
     if table.device.type == "cpu":
         return plain()
     table, counts = table.contiguous(), counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
-    B, K = pi.shape[0], table.shape[1]
-    d0 = torch.empty((B, K), dtype=torch.float32, device=table.device)
-    i0 = torch.empty((B, K), dtype=torch.int32, device=table.device)
-    d1 = torch.empty((B, K), dtype=torch.float32, device=table.device)
-    if B == 0:
-        return d0, i0, d1
-    lib = _load()
+    out = _outputs(pi.shape[0], table.shape[1], table.device)
+    if pi.shape[0] == 0:
+        return out
     with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(lib, (table.data_ptr(), K, counts.data_ptr(),
-                           pi.data_ptr(), pj.data_ptr(), B),
-                     (d0.data_ptr(), i0.data_ptr(), d1.data_ptr(), stream))
+        err = launch(table, counts, pi, pj, out,
+                     torch.cuda.current_stream().cuda_stream)
+    _launched(err, name, counter)
+    return out
+
+
+def _launched(err: int, name: str, counter: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[counter] += 1
-    return d0, i0, d1
 
 
-def two_nn_oneblock(table: torch.Tensor, counts: torch.Tensor,
-                    pi: torch.Tensor, pj: torch.Tensor, tq: int = 128,
-                    dot: str = "int8") -> Outputs:
-    """Exact 2-NN with a one-pass top-2 over each score row; tq query rows
-    share each staged db tile (K % tq == 0); dot "int8" or "bf16"."""
+def variants_prepass(table: torch.Tensor, counts: torch.Tensor,
+                     bf16: bool = False):
+    """`prepass_plain` of a centered int8 table [n_img, K, 128] (K % 128
+    == 0) and its int32 counts; on CUDA by the pre-pass kernel (count
+    "two_nn_variants_prepass")."""
+    if table.device.type == "cpu":
+        return prepass_plain(table, counts, bf16)
+    if (table.device.type != "cuda" or counts.device != table.device
+            or table.dtype != torch.int8 or table.dim() != 3
+            or table.shape[2] != 128 or table.shape[1] % NORM_TILE
+            or counts.dtype != torch.int32
+            or counts.shape != table.shape[:1]):
+        raise ValueError("variants_prepass: need a CUDA int8 [n_img, K, 128] "
+                         "table with K % 128 == 0 and int32 [n_img] counts "
+                         "on the same device")
+    table, counts = table.contiguous(), counts.contiguous()
+    n_img, K = table.shape[0], table.shape[1]
+    norms = torch.empty((n_img, K), dtype=torch.int32, device=table.device)
+    qsq = torch.empty_like(norms)
+    tab16 = (torch.empty(table.shape, dtype=torch.bfloat16,
+                         device=table.device) if bf16 else None)
+    if table.numel():
+        with torch.cuda.device(table.device):
+            err = _load().two_nn_variants_prepass(
+                table.data_ptr(), n_img, K, counts.data_ptr(), int(bf16),
+                norms.data_ptr(), qsq.data_ptr(),
+                tab16.data_ptr() if bf16 else None,
+                torch.cuda.current_stream().cuda_stream)
+        _launched(err, "variants_prepass", "two_nn_variants_prepass")
+    return norms, qsq, tab16
+
+
+def _ws_launch(entry: str, bf16: bool, *extra):
+    """The `wgmma` design's launch: the pre-pass, then the kernel."""
+    def launch(table, counts, pi, pj, out, stream):
+        norms, qsq, tab16 = variants_prepass(table, counts, bf16)
+        return getattr(_load(), entry)(
+            table.data_ptr(), tab16.data_ptr() if bf16 else None,
+            table.shape[0], table.shape[1], counts.data_ptr(),
+            norms.data_ptr(), qsq.data_ptr(), pi.data_ptr(), pj.data_ptr(),
+            pi.shape[0], *extra, *(o.data_ptr() for o in out), stream)
+    return launch
+
+
+def _mma_launch(entry: str, *extra):
+    """The first design's launch."""
+    def launch(table, counts, pi, pj, out, stream):
+        return getattr(_load(), entry)(
+            table.data_ptr(), table.shape[1], counts.data_ptr(),
+            pi.data_ptr(), pj.data_ptr(), pi.shape[0], *extra,
+            *(o.data_ptr() for o in out), stream)
+    return launch
+
+
+def _oneblock_args(tq: int, dot: str) -> None:
     if tq not in ONEBLOCK_TILES:
         raise ValueError(f"two_nn_oneblock: tq must be one of "
                          f"{ONEBLOCK_TILES}, got {tq}")
     if dot not in DOTS:
         raise ValueError(f"two_nn_oneblock: dot must be one of {DOTS}, "
                          f"got {dot!r}")
+
+
+def two_nn_oneblock(table: torch.Tensor, counts: torch.Tensor,
+                    pi: torch.Tensor, pj: torch.Tensor, tq: int = 128,
+                    dot: str = "int8") -> Outputs:
+    """Exact 2-NN with a one-pass top-2 over each score row; tq query rows
+    share each staged db tile (K % tq == 0); dot "int8" or "bf16".  On the
+    `wgmma` design, except bf16 at tq > 128 (the `mma.sync` design)."""
+    _oneblock_args(tq, dot)
+    bf16 = dot == "bf16"
+    launch = (_mma_launch("two_nn_oneblock_mma", tq, 1) if bf16 and tq > 128
+              else _ws_launch("two_nn_oneblock", bf16, tq, int(bf16)))
     return _run("two_nn_oneblock", f"two_nn_oneblock_{dot}_{tq}",
-                lambda: oneblock_plain(table, counts, pi, pj),
-                lambda lib, head, tail: lib.two_nn_oneblock(
-                    *head, tq, int(dot == "bf16"), *tail),
+                lambda: oneblock_plain(table, counts, pi, pj), launch,
                 table, counts, pi, pj, tq)
 
 
 def two_nn_blockmerge_bf16(table: torch.Tensor, counts: torch.Tensor,
                            pi: torch.Tensor, pj: torch.Tensor) -> Outputs:
-    """Exact 2-NN with a bf16 dot, 256 query rows per block and the db in
-    512-row blocks folded into a running top-2 (K % 512 == 0)."""
+    """Exact 2-NN with a bf16 dot, 256 query rows per work item and the db
+    in 512-row blocks folded into a running top-2 (K % 512 == 0)."""
     return _run("two_nn_blockmerge_bf16", "two_nn_blockmerge_bf16",
                 lambda: blockmerge_plain(table, counts, pi, pj),
-                lambda lib, head, tail: lib.two_nn_blockmerge_bf16(
-                    *head, *tail),
+                _ws_launch("two_nn_blockmerge_bf16", True),
+                table, counts, pi, pj, BLOCKMERGE_BD)
+
+
+def two_nn_oneblock_mma(table: torch.Tensor, counts: torch.Tensor,
+                        pi: torch.Tensor, pj: torch.Tensor, tq: int = 128,
+                        dot: str = "int8") -> Outputs:
+    """`two_nn_oneblock` on the first design's `mma.sync` kernel, for
+    timing and checks beside the `wgmma` design."""
+    _oneblock_args(tq, dot)
+    return _run("two_nn_oneblock_mma", f"two_nn_oneblock_mma_{dot}_{tq}",
+                lambda: oneblock_plain(table, counts, pi, pj),
+                _mma_launch("two_nn_oneblock_mma", tq, int(dot == "bf16")),
+                table, counts, pi, pj, tq)
+
+
+def two_nn_blockmerge_bf16_mma(table: torch.Tensor, counts: torch.Tensor,
+                               pi: torch.Tensor, pj: torch.Tensor
+                               ) -> Outputs:
+    """`two_nn_blockmerge_bf16` on the first design's `mma.sync` kernel."""
+    return _run("two_nn_blockmerge_bf16_mma", "two_nn_blockmerge_bf16_mma",
+                lambda: blockmerge_plain(table, counts, pi, pj),
+                _mma_launch("two_nn_blockmerge_bf16_mma"),
                 table, counts, pi, pj, BLOCKMERGE_BD)
 
 
@@ -254,6 +387,5 @@ def two_nn_ablation(table: torch.Tensor, counts: torch.Tensor,
                          f"expected one of {ABLATION_MODES}")
     return _run("two_nn_ablation", f"two_nn_ablation_{mode}",
                 lambda: ablation_plain(table, counts, pi, pj, mode),
-                lambda lib, head, tail: lib.two_nn_ablation(
-                    *head, ABLATION_MODES.index(mode), *tail),
+                _mma_launch("two_nn_ablation", ABLATION_MODES.index(mode)),
                 table, counts, pi, pj, ABLATION_TQ)

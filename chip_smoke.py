@@ -4,8 +4,9 @@
 
 Phases (any failure raises, so the exit code is non-zero):
   1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc, in
-               parallel; check that ptxas reports no spills for the int8
-               wgmma kernel.
+               parallel; check that ptxas reports no spills for the
+               wgmma kernels (two_nn.cu's two, two_nn_variants.cu's six)
+               and serialises no wgmma.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
                on the card: the int8 2-NN (`wgmma`) and its norms kernel,
                the first design's `mma.sync` kernel beside them, and the
@@ -49,14 +50,20 @@ Phases (any failure raises, so the exit code is non-zero):
                12 views: 12/12, and --slow_bundle --fix_necker on the first
                8 (the flip must run).  Every bundler run is repeated on
                CUDA and its bundle.out must be byte-identical.
-  5. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) and
-               mode bit-exact against its plain version at the probe's shape
-               (276 pairs x 2048 keys), at ragged counts and on ties; run the
-               probe entry point (`probes/probe_two_nn_variants.py`) with the
+  5. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) of
+               both designs (the `wgmma` design and its `mma.sync` twins,
+               `_mma`) and every mode bit-exact against its plain version,
+               and the `wgmma` design's pre-pass kernel against its own, at
+               the probe's shape (276 pairs x 2048 keys), at ragged counts,
+               on ties and with garbage rows past the counts; run the probe
+               entry point (`probes/probe_two_nn_variants.py`) with the
                launch counts zeroed, check every exact variant IDENTICAL to
-               two_nn and every count moved; time two_nn, the `mma.sync`
-               kernel, each variant kernel, its plain version, a library
-               yardstick and the bound at 2208 pairs x 2048^2.
+               two_nn, every count moved, no `_mma` yardstick ran and one
+               pre-pass ran per `wgmma`-design call; time two_nn, its
+               `mma.sync` kernel, each variant kernel beside its `mma.sync`
+               twin in turns, its plain version, a library yardstick, the
+               int8 and bf16 bounds and the pre-pass at 2208 pairs x
+               2048^2.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
 power limit as nvidia-smi reports them.  `--dump-scene PATH` also writes
@@ -299,13 +306,22 @@ def phase_build():
         log(f"[build] {os.path.relpath(p, ROOT)}")
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.2f} s")
     # ptxas prints each kernel's spills under "Function properties for":
-    # both instantiations of the wgmma kernel (2-NN, product-only).
-    spills = re.findall(r"Function properties for \S*two_nn_ws_kernel\S*\n"
-                        r"\s*(.*)\n", buf.getvalue())
-    check(len(spills) == 2 and all(
-        "0 bytes spill stores, 0 bytes spill loads" in x for x in spills),
-        f"two_nn_ws_kernel spills or was not built now: {spills}")
-    log(f"[build] two_nn_ws_kernel (2 instantiations): {spills}")
+    # the wgmma kernels of two_nn.cu (2-NN, product-only) and of
+    # two_nn_variants.cu (6 instantiations), none of which may spill or
+    # have its wgmma serialised.
+    out = buf.getvalue()
+    for kernel, n in (("two_nn_ws_kernel", 2), ("variant_ws_kernel", 6)):
+        spills = re.findall(rf"Function properties for \S*{kernel}\S*\n"
+                            r"\s*(.*)\n", out)
+        check(len(spills) == n and all(
+            "0 bytes spill stores, 0 bytes spill loads" in x for x in spills),
+            f"{kernel} spills or was not built now: {spills}")
+        regs = re.findall(rf"Compiling entry function '\S*{kernel}\S*'.*\n"
+                          r"(?:.*\n)*?.*Used (\d+) registers", out)
+        log(f"[build] {kernel} ({n} instantiations): no spills; registers "
+            f"{regs}")
+    serial = [ln for ln in out.splitlines() if "serialized" in ln]
+    check(not serial, f"ptxas serialised wgmma: {serial}")
 
 
 def phase_kernels():
@@ -1119,10 +1135,41 @@ def _variant_plain(kernel):
     V = matching_variants
     if kernel.startswith("two_nn_oneblock"):
         return V.oneblock_plain
-    if kernel == "two_nn_blockmerge_bf16":
+    if kernel.startswith("two_nn_blockmerge_bf16"):
         return V.blockmerge_plain
     mode = kernel[len("two_nn_ablation_"):]
     return lambda *a: V.ablation_plain(*a, mode)
+
+
+def variant_kernels():
+    """{counter: wrapper} of every variant kernel: the oneblock tiles and
+    dots, blockmerge, the ablations, and the first design's `mma.sync`
+    yardsticks (`_mma`).  Oneblock bf16 at tq > 128 runs the `mma.sync`
+    design under either name."""
+    V = matching_variants
+    out = {}
+    for dot in V.DOTS:
+        for tq in V.ONEBLOCK_TILES:
+            for mid, fn in (("", V.two_nn_oneblock),
+                            ("mma_", V.two_nn_oneblock_mma)):
+                out[f"two_nn_oneblock_{mid}{dot}_{tq}"] = (
+                    lambda f, t, d: lambda *a: f(*a, tq=t, dot=d))(fn, tq, dot)
+    out["two_nn_blockmerge_bf16"] = V.two_nn_blockmerge_bf16
+    out["two_nn_blockmerge_bf16_mma"] = V.two_nn_blockmerge_bf16_mma
+    for m in V.ABLATION_MODES:
+        out[f"two_nn_ablation_{m}"] = (lambda mode: lambda *a:
+                                       V.two_nn_ablation(*a, mode))(m)
+    return out
+
+
+# The instantiations on the `wgmma` design, by counter.
+WGMMA_VARIANTS = ([f"two_nn_oneblock_int8_{tq}" for tq in (128, 256, 512, 1024)]
+                  + ["two_nn_oneblock_bf16_128", "two_nn_blockmerge_bf16"])
+
+
+def mma_twin(kernel):
+    return (kernel.replace("two_nn_oneblock_", "two_nn_oneblock_mma_")
+            if kernel.startswith("two_nn_oneblock") else kernel + "_mma")
 
 
 def compare_variant(kernel, fn, tab, counts, pi, pj, label):
@@ -1179,6 +1226,44 @@ def _ties_table(rng):
     return table.table, table.counts
 
 
+def _garbage_table(rng):
+    """6 images x 1024 keys, counts 1024, 1000, 513, 129, 1, 0, with random
+    nonzero rows past every count (which must not change any result), exact
+    hits and duplicated rows."""
+    sizes = [1024, 1000, 513, 129, 1, 0]
+    tab = torch.from_numpy(rng.integers(-128, 128, (6, 1024, 128))
+                           .astype(np.int8))
+    tab[1, 600:1000] = tab[0, 0:400]
+    tab[2, :50] = tab[2, 300]
+    return tab.cuda(), torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def compare_prepass(tab, counts, label):
+    """The pre-pass kernel (int8 and bf16 flavours) bit-exact against its
+    plain version."""
+    V = matching_variants
+    for bf16 in (False, True):
+        got = V.variants_prepass(tab, counts, bf16)
+        torch.cuda.synchronize()
+        want = V.prepass_plain(tab, counts, bf16)
+        bad = [0 if w is None else int((g != w).sum())
+               for g, w in zip(got, want)]
+        log(f"[variants] two_nn_variants_prepass {label} "
+            f"{'bf16' if bf16 else 'int8'}: {tab.shape[0]} x {tab.shape[1]} "
+            f"rows, mismatches norms {bad[0]}, qsq {bad[1]}, bf16 table "
+            f"{bad[2]}")
+        check(not any(bad), f"two_nn_variants_prepass disagrees with its "
+              f"plain version: {label}")
+
+
+def prepass_bound_ms(tab, bf16):
+    """The pre-pass reads the table once and writes two int32 per row (and
+    the bf16 table); its dp4a work is far below."""
+    rows = tab.shape[0] * tab.shape[1]
+    nbytes = tab.numel() + 8 * rows + (2 * tab.numel() if bf16 else 0)
+    return nbytes / HBM_BYTES_S * 1e3, "bytes"
+
+
 def split_two_nn(tab, counts, pi, pj, base, ragged):
     """The wgmma kernel's time split: its product-only ablation (one max a
     score in place of the top-2), held bit-exact against its plain version
@@ -1200,28 +1285,71 @@ def split_two_nn(tab, counts, pi, pj, base, ragged):
         f"{base['ms']:.4f} ms")
 
 
+def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
+    """A variant kernel at the timing shape: for the `wgmma` design (and
+    oneblock bf16 at tq > 128) its `mma.sync` twin in turns (new, old, old,
+    new; 10 calls each), else alone; the plain version and the library
+    yardstick; logged with the shares of the int8 (and bf16) bound."""
+    kinds = variant_kernels()
+    bf16 = "bf16" in kernel
+    twin = kinds.get(mma_twin(kernel)) if "ablation" not in kernel else None
+    if twin is None:
+        t = {"ms": cuda_ms(lambda: fn(tab, counts, pi, pj), 10)}
+        turns = ""
+    else:
+        r = [cuda_ms(lambda f=f: f(tab, counts, pi, pj), 10)
+             for f in (fn, twin, twin, fn)]
+        t = {"ms": (r[0] + r[3]) / 2, "ms_before": (r[1] + r[2]) / 2}
+        turns = (f" ({r[0]:.4f}, {r[3]:.4f}); mma.sync {t['ms_before']:.4f} "
+                 f"ms ({r[1]:.4f}, {r[2]:.4f}; "
+                 f"{100 * bound / t['ms_before']:.2f} % of the int8 bound), "
+                 f"speed-up {t['ms_before'] / t['ms']:.3f}x")
+    t["plain_ms"] = cuda_ms(
+        lambda: _variant_plain(kernel)(tab, counts, pi, pj), 2)
+    kind = ("exact" if "ablation" not in kernel
+            else kernel[len("two_nn_ablation_"):])
+    t["library_ms"] = cuda_ms(
+        lambda: library_yardstick(kind, tab, counts, pi, pj), 2)
+    extra = ""
+    if bf16:
+        t["bound_bf16_ms"] = ops / BF16_TOPS * 1e3
+        extra = (f", {100 * t['bound_bf16_ms'] / t['ms']:.2f} % of the bf16 "
+                 f"bound ({t['bound_bf16_ms']:.4f} ms)")
+    log(f"[variants] {kernel}: {t['ms']:.4f} ms{turns}; "
+        f"{100 * bound / t['ms']:.2f} % of the int8 bound{extra}; plain "
+        f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+    return t
+
+
 def phase_variants():
     V = matching_variants
     P = probe_two_nn_variants
     rows = [v for v in P.variants() if v.kernel != "two_nn"]
+    kinds = variant_kernels()
     rng = np.random.default_rng(3)
     shapes = {"probe": P.make_table(2048, "cuda"),
-              "ragged": _ragged_table(rng), "ties": _ties_table(rng)}
-    # Every kernel and mode, the three bf16 tiles the probe does not run
-    # included.
-    every = [(v.kernel, v.fn) for v in rows] + [
-        (f"two_nn_oneblock_bf16_{tq}",
-         (lambda t: lambda *a: V.two_nn_oneblock(*a, tq=t, dot="bf16"))(tq))
-        for tq in V.ONEBLOCK_TILES[1:]]
+              "ragged": _ragged_table(rng), "ties": _ties_table(rng),
+              "garbage": _garbage_table(rng)}
+    # Every kernel and mode of both designs, bit-exact on every table.
     errs = {}
     for label, (tab, counts) in shapes.items():
         n = tab.shape[0]
         pairs = (P.make_pairs(276) if label == "probe"
                  else [(i, j) for i in range(n) for j in range(n)])
         pi, pj = pair_tensors(pairs)
-        for kernel, fn in every:
-            e = compare_variant(kernel, fn, tab, counts, pi, pj, label)
-            errs[kernel] = max(errs.get(kernel, 0.0), e)
+        compare_prepass(tab, counts, label)
+        plain = {}
+        for kernel, fn in kinds.items():
+            key = "ablation" + kernel if "ablation" in kernel else (
+                "blockmerge" if "blockmerge" in kernel else "oneblock")
+            if key not in plain:
+                plain[key] = _variant_plain(kernel)(tab, counts, pi, pj)
+            got = fn(tab, counts, pi, pj)
+            torch.cuda.synchronize()
+            errs[kernel] = max(errs.get(kernel, 0.0), compare_outputs(
+                got, plain[key], f"[variants] {kernel} {label}: {len(pi)} "
+                f"pairs x {tab.shape[1]} keys"))
+    check(len(errs) == len(kinds), f"compared {sorted(errs)}")
 
     # The probe path through its command-line entry point, with every
     # launch count zeroed just before it.
@@ -1248,6 +1376,12 @@ def phase_variants():
         if v.exact and v.kernel != "two_nn":
             check(res[v.name][0] == "IDENTICAL",
                   f"probe: {v.name} {res[v.name][0]}")
+    mma = {k: v for k, v in launches.items() if "_mma" in k and v}
+    check(not mma, f"probe: a mma.sync yardstick ran: {mma}")
+    check(launches["two_nn_variants_prepass"]
+          == sum(launches[k] for k in WGMMA_VARIANTS),
+          "probe: one pre-pass per wgmma-design call, got "
+          f"{launches['two_nn_variants_prepass']}")
 
     # Times at 2208 pairs x 2048^2.
     tab, counts = shapes["probe"]
@@ -1256,29 +1390,40 @@ def phase_variants():
     ops = 2.0 * 128 * float((counts.long()[pi.long()]
                              * counts.long()[pj.long()]).sum())
     log(f"[variants] 2208 pairs x 2048^2: bound {bound:.4f} ms ({by}: "
-        f"{ops:.4e} int8 ops at {INT8_TOPS:.3e}/s)")
+        f"{ops:.4e} int8 ops at {INT8_TOPS:.3e}/s; bf16 "
+        f"{ops / BF16_TOPS * 1e3:.4f} ms at {BF16_TOPS:.3e}/s)")
     base = time_two_nn(tab, counts, pi, pj, 10,
                        "probe shape (base), 2208 pairs x 2048^2")
     split_two_nn(tab, counts, pi, pj, base, shapes["ragged"])
     records = []
     for v in rows:
         compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")
-        k = cuda_ms(lambda: v.fn(tab, counts, pi, pj), 10)
-        p = cuda_ms(lambda: _variant_plain(v.kernel)(tab, counts, pi, pj), 2)
-        kind = "exact" if v.exact else v.kernel[len("two_nn_ablation_"):]
-        y = cuda_ms(lambda: library_yardstick(kind, tab, counts, pi, pj), 2)
-        extra = (f", {100 * ops / BF16_TOPS * 1e3 / k:.2f} % of the bf16 "
-                 f"bound ({ops / BF16_TOPS * 1e3:.4f} ms)" if v.bf16 else "")
-        log(f"[variants] {v.kernel}: kernel {k:.4f} ms ({100 * bound / k:.2f} "
-            f"% of the int8 bound{extra}), plain {p:.4f} ms, library {y:.4f} "
-            f"ms, probe best-of-3 {res[v.name][1]:.4f} ms at 276 pairs")
+        t = time_variant(v.kernel, v.fn, tab, counts, pi, pj, bound, ops)
+        log(f"[variants] {v.kernel}: probe best-of-3 {res[v.name][1]:.4f} ms "
+            f"at 276 pairs")
         records.append({"name": v.kernel, "route": "cuda",
                         "source": VARIANTS_SOURCE,
                         "replaces": _replaces(v.kernel),
                         "launches": launches[v.kernel],
-                        "max_abs_err": errs[v.kernel], "ms": k,
-                        "plain_ms": p, "bound_ms": bound, "bound_by": by,
-                        "library_ms": y})
+                        "max_abs_err": errs[v.kernel], "bound_ms": bound,
+                        "bound_by": by, **t})
+    # Oneblock bf16 at tq > 128: no path launches them; timed for the record.
+    for tq in V.ONEBLOCK_TILES[1:]:
+        k = f"two_nn_oneblock_bf16_{tq}"
+        time_variant(k, kinds[k], tab, counts, pi, pj, bound, ops)
+    # The pre-pass the wgmma design launches once per call.
+    pb, pby = prepass_bound_ms(tab, True)
+    pre = {"ms": cuda_ms(lambda: V.variants_prepass(tab, counts, True), 10),
+           "plain_ms": cuda_ms(lambda: V.prepass_plain(tab, counts, True), 10)}
+    log(f"[variants] two_nn_variants_prepass (bf16, {tab.shape[0]} x "
+        f"{tab.shape[1]} rows): {pre['ms']:.4f} ms, int8 "
+        f"{cuda_ms(lambda: V.variants_prepass(tab, counts, False), 10):.4f} "
+        f"ms; plain {pre['plain_ms']:.4f} ms; bound {pb:.4f} ms ({pby})")
+    records.append({"name": "two_nn_variants_prepass", "route": "cuda",
+                    "source": VARIANTS_SOURCE, "replaces": f"{PROBE}:62",
+                    "launches": launches["two_nn_variants_prepass"],
+                    "max_abs_err": 0.0, "bound_ms": pb, "bound_by": pby,
+                    "library_ms": None, **pre})
     return records, launches
 
 

@@ -199,47 +199,114 @@ def test_kernel_rejects_bad_inputs(cuda):
 VARIANTS = ([("oneblock", dict(tq=tq, dot=dot)) for dot in MV.DOTS
              for tq in MV.ONEBLOCK_TILES]
             + [("blockmerge", {})]
-            + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES])
+            + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES]
+            + [("oneblock_mma", dict(tq=tq, dot=dot)) for dot in MV.DOTS
+               for tq in MV.ONEBLOCK_TILES]
+            + [("blockmerge_mma", {})])
+# The instantiations on the `wgmma` design, and their `mma.sync` twins.
+WGMMA = ([(dict(tq=tq, dot="int8"), f"two_nn_oneblock_int8_{tq}")
+          for tq in MV.ONEBLOCK_TILES]
+         + [(dict(tq=128, dot="bf16"), "two_nn_oneblock_bf16_128"),
+            (None, "two_nn_blockmerge_bf16")])
 
 
 def _variant(kind, kw):
-    if kind == "oneblock":
-        return (lambda *a: MV.two_nn_oneblock(*a, **kw),
-                f"two_nn_oneblock_{kw['dot']}_{kw['tq']}")
+    if kind in ("oneblock", "oneblock_mma"):
+        fn = MV.two_nn_oneblock if kind == "oneblock" else \
+            MV.two_nn_oneblock_mma
+        mid = "" if kind == "oneblock" else "mma_"
+        return (lambda *a: fn(*a, **kw),
+                f"two_nn_oneblock_{mid}{kw['dot']}_{kw['tq']}")
     if kind == "blockmerge":
         return MV.two_nn_blockmerge_bf16, "two_nn_blockmerge_bf16"
+    if kind == "blockmerge_mma":
+        return MV.two_nn_blockmerge_bf16_mma, "two_nn_blockmerge_bf16_mma"
     return (lambda *a: MV.two_nn_ablation(*a, **kw),
             f"two_nn_ablation_{kw['mode']}")
+
+
+def _plain(kind, kw):
+    return {"oneblock": MV.oneblock_plain, "blockmerge": MV.blockmerge_plain,
+            "ablation": lambda *a: MV.ablation_plain(*a, **kw)
+            }[kind.replace("_mma", "")]
+
+
+def _variant_table(cuda, garbage):
+    """6 images x 1024 keys, ragged counts (65, 1, 0 included), duplicated
+    rows (ties), one repeated row, exact hits; with `garbage`, random
+    nonzero rows past every count."""
+    rng = np.random.default_rng(2)
+    sizes = [1024, 1000, 700, 65, 1, 0]
+    tab = _table(rng, sizes, torch.int8, 1024)
+    tab[2, :40] = tab[0, 10:50]                     # distance-0 hits
+    if garbage:
+        junk = torch.from_numpy(rng.integers(-128, 128, tab.shape)
+                                .astype(np.int8))
+        row = torch.arange(1024)[None, :, None]
+        tab = torch.where(row >= torch.tensor(sizes)[:, None, None], junk, tab)
+        tab[1, 600:1000] = tab[0, 0:400]
+    n = len(sizes)
+    pi = torch.arange(n, dtype=torch.int32).repeat_interleave(n)
+    pj = torch.arange(n, dtype=torch.int32).repeat(n)
+    return (tab.to(cuda), torch.tensor(sizes, dtype=torch.int32, device=cuda),
+            pi.to(cuda), pj.to(cuda))
 
 
 @pytest.mark.parametrize("kind,kw", VARIANTS,
                          ids=[f"{k}-{'-'.join(map(str, kw.values()))}"
                               for k, kw in VARIANTS])
 def test_variant_kernel_matches_plain(cuda, kind, kw):
-    """Each variant kernel bit-exact against its plain version: ragged
-    counts, duplicated rows (ties), one repeated row, exact hits."""
-    rng = np.random.default_rng(2)
-    sizes = [1024, 1000, 700, 65, 1, 0]
-    tab = _table(rng, sizes, torch.int8, 1024)
-    tab[2, :40] = tab[0, 10:50]                     # distance-0 hits
-    tab, counts = tab.to(cuda), torch.tensor(sizes, dtype=torch.int32,
-                                             device=cuda)
-    n = len(sizes)
-    pi = torch.arange(n, dtype=torch.int32, device=cuda).repeat_interleave(n)
-    pj = torch.arange(n, dtype=torch.int32, device=cuda).repeat(n)
+    """Each variant kernel (both designs) bit-exact against its plain
+    version: ragged counts, duplicated rows (ties), one repeated row, exact
+    hits."""
+    tab, counts, pi, pj = _variant_table(cuda, garbage=False)
     fn, counter = _variant(kind, kw)
     before = MV.LAUNCHES[counter]
     got = fn(tab, counts, pi, pj)
     torch.cuda.synchronize()
     assert MV.LAUNCHES[counter] == before + 1
-    plain = {"oneblock": MV.oneblock_plain, "blockmerge": MV.blockmerge_plain,
-             "ablation": lambda *a: MV.ablation_plain(*a, **kw)}[kind]
-    want = plain(tab, counts, pi, pj)
+    want = _plain(kind, kw)(tab, counts, pi, pj)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     if kind != "ablation":
         for g, w in zip(got, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("garbage", [False, True], ids=["zeros", "garbage"])
+@pytest.mark.parametrize("kw,counter", WGMMA, ids=[c for _, c in WGMMA])
+def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
+    """Each `wgmma` instantiation bit-identical to its `mma.sync` twin and
+    to `two_nn_pairs`, also with garbage in the rows past the counts; one
+    pre-pass launch per call."""
+    tab, counts, pi, pj = _variant_table(cuda, garbage)
+    if kw is None:
+        new, old = MV.two_nn_blockmerge_bf16, MV.two_nn_blockmerge_bf16_mma
+    else:
+        new = lambda *a: MV.two_nn_oneblock(*a, **kw)          # noqa: E731
+        old = lambda *a: MV.two_nn_oneblock_mma(*a, **kw)      # noqa: E731
+    before = dict(MV.LAUNCHES)
+    got = new(tab, counts, pi, pj)
+    twin = old(tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in MV.LAUNCHES.items() if v != before[k]}
+    assert moved == {counter: 1, "two_nn_variants_prepass": 1,
+                     counter.replace("two_nn_oneblock_",
+                                     "two_nn_oneblock_mma_")
+                     if kw else "two_nn_blockmerge_bf16_mma": 1}
+    for g, w, p in zip(got, twin, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    assert not got[1][pj == 5].any()                # no valid db row: i0 = 0
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+def test_variants_prepass_matches_plain(cuda, bf16):
+    tab, counts, _, _ = _variant_table(cuda, garbage=True)
+    got = MV.variants_prepass(tab, counts, bf16)
+    torch.cuda.synchronize()
+    want = MV.prepass_plain(tab, counts, bf16)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
 
 
 def test_variant_wrappers_reject_bad_inputs(cuda):

@@ -253,3 +253,17 @@ def test_points_ply_identical(tmp_path, rng):
         lambda p: J_plyfile.write_points_ply(p, pts, colors, Rs, cs),
         lambda p: T_plyfile.write_points_ply(p, pts, colors, Rs, cs))
     assert a == b and b"element vertex 31" in a
+
+
+def test_io_package_exports_match_jax():
+    """`bundler_sfm_tpu_torch.io` re-exports what `bundler_sfm_tpu.io` does
+    (the bundle and PLY writers included), each from the port's copy."""
+    import bundler_sfm_tpu.io as J_io
+    import bundler_sfm_tpu_torch.io as T_io
+    names = [n for n in vars(J_io) if not n.startswith("_")
+             and not isinstance(getattr(J_io, n), type(J_io))]
+    assert names and "write_bundle_file" in names
+    for n in names:
+        obj = getattr(T_io, n)
+        assert obj.__module__.startswith("bundler_sfm_tpu_torch.io."), n
+        assert obj.__name__ == getattr(J_io, n).__name__
