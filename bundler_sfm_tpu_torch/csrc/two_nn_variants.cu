@@ -31,7 +31,7 @@
 //
 // 1. Warp-specialised (variant_ws_kernel): every oneblock int8 instantiation,
 //    oneblock bf16 at TQ 128 and blockmerge -- what the probe path launches.
-//    PR 3's machinery of two_nn.cu (wgmma_ring.cuh), generalised to TQ:
+//    The machinery of two_nn.cu's int8 kernel (wgmma_ring.cuh), generalised to TQ:
 //    a persistent grid walks (pair, query tile of TQ rows) items; a producer
 //    thread keeps a 4-stage TMA + mbarrier ring of 128-row db tiles
 //    (128-byte swizzle) and their column constants full; two consumer

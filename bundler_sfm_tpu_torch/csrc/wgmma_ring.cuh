@@ -259,7 +259,7 @@ inline EncodeTiled encode_tiled() {
 
 // A 2-D tensor map over `rows` rows of 128 B (128 int8 or 64 bf16 per box
 // row), boxes of `box_cols` x 128 rows, 128-byte swizzle.  Returns false if
-// the driver entry point is missing or refuses the map.
+// cuTensorMapEncodeTiled cannot be found or refuses the map.
 inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type,
                         const void* base, int cols, long long rows,
                         int row_bytes, int box_cols) {
