@@ -12,15 +12,19 @@
 // with none i0 is 0, as in the XLA path (ops/matching.py::two_nn), whatever
 // the rows past the count hold.
 //
-// Three instantiations:
+// Entry points:
 //   two_nn_pairs_i8      — the main path.  Centered int8 descriptors
 //                          (u8 - 128), a warp-specialised wgmma kernel (below).
-//   two_nn_pairs_i8_mma  — the first design (mma.sync.m16n8k32, db tiles staged
-//                          synchronously by all warps), kept as a yardstick.
-//   two_nn_pairs_f32     — f32 tables on the same mma.sync template, operands
-//                          rounded to bf16, f32 accumulate, norms from the
-//                          unrounded values, d = (|q|^2 + |b|^2) - 2 q.b in f32
-//                          (exact for integer-valued descriptors).
+//   two_nn_pairs_f32     — f32 tables on the same machinery, operands rounded
+//                          to bf16, f32 accumulate, norms from the unrounded
+//                          values, d = (|q|^2 + |b|^2) - 2 q.b and the top-2 in
+//                          f32 (exact for integer-valued descriptors with
+//                          |x| <= 255: every quantity is an integer below 2^24
+//                          until the last subtraction, rounded as the plain
+//                          version rounds it); two_nn_prepass_f32 first.
+//   two_nn_pairs_i8_mma, two_nn_pairs_f32_mma — the first design (mma.sync
+//                          m16n8k32 / m16n8k16, db tiles staged synchronously
+//                          by all warps), kept as yardsticks.
 //
 // Bound on an H100: 2*B*Nq*Nd*128 int8 tensor-core operations (1979 TOP/s
 // dense, 4096 int8 MAC per clock per SM), and B*Nq*Nd top-2 updates on the
@@ -70,6 +74,24 @@
 // work (64 lanes a clock) against 512 clocks of tensor-core work.  That is a
 // reckoning from the instruction mix, not a measurement; PERF.md has the
 // measured times.
+//
+// The f32 tables (two_nn_f32_ws_kernel) replaced the first design's mma.sync
+// instantiation, which paid the first design's costs twice over at the bf16
+// rate and converted f32 to bf16 per staged tile.  TMA cannot convert, so a
+// pre-pass writes a bf16 copy of the db table and f32 |b|^2 (3e38 past the
+// count) once per call, and a bf16 copy of the query table with |q|^2
+// (one copy when both are one table); the ring then holds 128-row bf16
+// tiles (two 64-column boxes, 32 KB a stage), each item's query tile is
+// loaded once into shared memory, and the consumers issue
+// wgmma.m64n128k16.f32.bf16.bf16 with A and B from shared memory (96 B of
+// operands a clock at peak, under the 128 B shared memory gives).  Packed int32 keys
+// do not carry over (they are exact only for centered int8 values), so the
+// top-2 stays in f32 in the plain version's order and rounding: one FADD
+// and one FFMA a score for d, then a strict `<` and three min/max into a
+// tile-local top-2 with its column, merged once per tile.  That is ~7
+// instructions a score against a product at half the int8 rate: per tile
+// ~900 clocks of epilogue against ~1000 of tensor-core work on an SM, so
+// the two overlap at best (a reckoning; PERF.md has the measured split).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -335,7 +357,7 @@ two_nn_norms_kernel(const int8_t* __restrict__ tab, int n_img, int nd, int kp,
   if (live && part == 0) out[row] = r < counts[j] ? s * 256 + r % NT : KEY_POISON;
 }
 
-// ------------------------------------ mma.sync template (i8_mma, f32) ----
+// ---------------------------- mma.sync template (i8_mma, f32_mma) ----
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -588,6 +610,389 @@ int launch(const void* qtab, long long q_stride, int nq, const void* dbtab,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- f32 wgmma kernel ----
+
+constexpr int F32_TILE_BYTES = 2 * BOX_BYTES;   // 128 bf16 rows: two boxes
+// The item's query tile, then the ring, its |b|^2, and the ring's and the
+// query tile's full / empty barriers.
+constexpr int SMEM_F32 = 1024 + F32_TILE_BYTES +
+                         STAGES * (F32_TILE_BYTES + NORM_BYTES) +
+                         (2 * STAGES + 2) * 8;
+
+// One 64x128 f32 product tile: the warpgroup's 64 bf16 query rows (the m64
+// tile of the query buffer at `a_addr`) against the 128 bf16 db rows of
+// ring stage `b_addr`, eight k16 steps, both from shared memory.
+__device__ __forceinline__ void issue_tile_bf16(float (&d)[64], uint32_t a_addr,
+                                                uint32_t b_addr) {
+  fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t ad = desc_sw128(kstep_addr(a_addr, kk));
+    const uint64_t bd = desc_sw128(kstep_addr(b_addr, kk));
+    if (kk == 0) wgmma_k16_ss<0>(d, ad, bd);
+    else wgmma_k16_ss<1>(d, ad, bd);
+  }
+  wgmma_commit();
+}
+
+// One score into a row's tile-local f32 top-2 (b0 <= b1, k0 the column of
+// b0): columns arrive in increasing order, so a strict `<` keeps the lowest
+// column on ties, and an equal distance becomes the runner-up.
+__device__ __forceinline__ void top2f(float d, int col, float& b0, int& k0,
+                                      float& b1) {
+  k0 = d < b0 ? col : k0;
+  b1 = fminf(b1, fmaxf(b0, d));
+  b0 = fminf(b0, d);
+}
+
+// Merge a tile's top-2 (b0, column col0 + k0, b1) into the running
+// (e0, i0, e1); the running entry has the lower columns, so it wins ties.
+__device__ __forceinline__ void merge_tile_f32(float b0, int k0, float b1,
+                                               int col0, float& e0, int& i0,
+                                               float& e1) {
+  const bool lt = b0 < e0;
+  e1 = lt ? fminf(e0, b1) : fminf(e1, b0);
+  i0 = lt ? col0 + k0 : i0;
+  e0 = lt ? b0 : e0;
+}
+
+// The f32 top-2 of this thread's 2 rows x 32 columns of one tile (the
+// layout of `epilogue` in wgmma_ring.cuh), merged into the running state.
+// d = (|q|^2 + |b|^2) - 2 q.b in the plain version's order: 2 q.b is exact,
+// so one FMA rounds as the subtraction does.  With LAST, columns at or past
+// `valid` (rows past the count) are 3e38.
+template <bool LAST>
+__device__ __forceinline__ void f32_epilogue(const float (&acc)[64],
+                                             const float* bsq, int t, int col0,
+                                             int valid, float qlo, float qhi,
+                                             float& e0lo, int& i0lo,
+                                             float& e1lo, float& e0hi,
+                                             int& i0hi, float& e1hi) {
+  float b0lo = BIG, b1lo = BIG, b0hi = BIG, b1hi = BIG;
+  int klo = 0, khi = 0;
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    const float2 s = *reinterpret_cast<const float2*>(bsq + c);
+    float d0 = __fmaf_rn(-2.0f, acc[4 * i], __fadd_rn(qlo, s.x));
+    float d1 = __fmaf_rn(-2.0f, acc[4 * i + 1], __fadd_rn(qlo, s.y));
+    float d2 = __fmaf_rn(-2.0f, acc[4 * i + 2], __fadd_rn(qhi, s.x));
+    float d3 = __fmaf_rn(-2.0f, acc[4 * i + 3], __fadd_rn(qhi, s.y));
+    if (LAST) {
+      d0 = c < valid ? d0 : BIG;
+      d2 = c < valid ? d2 : BIG;
+      d1 = c + 1 < valid ? d1 : BIG;
+      d3 = c + 1 < valid ? d3 : BIG;
+    }
+    top2f(d0, c, b0lo, klo, b1lo);
+    top2f(d1, c + 1, b0lo, klo, b1lo);
+    top2f(d2, c, b0hi, khi, b1hi);
+    top2f(d3, c + 1, b0hi, khi, b1hi);
+  }
+  merge_tile_f32(b0lo, klo, b1lo, col0, e0lo, i0lo, e1lo);
+  merge_tile_f32(b0hi, khi, b1hi, col0, e0hi, i0hi, e1hi);
+}
+
+// The product-only split of the f32 kernel: the row max of q.b over the
+// tile's valid columns, one max a score.
+template <bool LAST>
+__device__ __forceinline__ void f32_max_epilogue(const float (&acc)[64], int t,
+                                                 int valid, float& mlo,
+                                                 float& mhi) {
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    float a0 = acc[4 * i], a1 = acc[4 * i + 1];
+    float a2 = acc[4 * i + 2], a3 = acc[4 * i + 3];
+    if (LAST) {
+      a0 = c < valid ? a0 : -BIG;
+      a2 = c < valid ? a2 : -BIG;
+      a1 = c + 1 < valid ? a1 : -BIG;
+      a3 = c + 1 < valid ? a3 : -BIG;
+    }
+    mlo = fmaxf(mlo, fmaxf(a0, a1));
+    mhi = fmaxf(mhi, fmaxf(a2, a3));
+  }
+}
+
+// f32 tables on the int8 kernel's machinery: a producer thread keeps a
+// STAGES-deep TMA ring of 128-row bf16 db tiles (two 64-column boxes with
+// 128-byte swizzle, from the pre-pass's bf16 copy) and their f32 |b|^2,
+// and loads each item's 128 bf16 query rows into a swizzled buffer once;
+// two consumer warpgroups of 64 query rows issue
+// wgmma.m64n128k16.f32.bf16.bf16 with A and B from shared memory.  (A in
+// registers would take 32 of the 168 registers a consumer thread is
+// compiled for, beside 128 of accumulators: the f32 top-2 state then
+// spills.)  The top-2 stays in f32 (packed int32 keys are exact only for
+// centered int8 values).  TOP2: the exact 2-NN; else the product-only
+// split (d0 = row max of q.b over the valid rows, -3e38 if none;
+// i0 = d1 = 0).
+template <bool TOP2>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+two_nn_f32_ws_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap db_map,
+                     long long q_rows_per_img, const float* __restrict__ qsq,
+                     int nq, int nd, const int* __restrict__ db_counts,
+                     const float* __restrict__ bsq, int kp,
+                     const int* __restrict__ pi, const int* __restrict__ pj,
+                     int num_items, float* __restrict__ d0_out,
+                     int* __restrict__ i0_out, float* __restrict__ d1_out) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t q_buf = smem_u32(smem);
+  const uint32_t tiles = q_buf + F32_TILE_BYTES;
+  const float* bsq_s = reinterpret_cast<const float*>(
+      smem + (STAGES + 1) * F32_TILE_BYTES);
+  const uint32_t bsq_u = tiles + STAGES * F32_TILE_BYTES;
+  const uint32_t full = bsq_u + STAGES * NORM_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+  const uint32_t qfull = empty + STAGES * 8;
+  const uint32_t qempty = qfull + 8;
+  const int q_tiles = nq / QT_WS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * WG);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 2 * WG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * WG) {
+    // Producer warpgroup: one thread walks every item's tiles.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * WG) {
+      int seq = 0, k = 0;
+      for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
+        const int b = item / q_tiles;
+        const int dj = pj[b];
+        const int n_tiles = (db_counts[dj] + NT - 1) / NT;
+        auto load_tile = [&](int n) {
+          const int s = seq % STAGES;
+          mbar_wait(empty + 8 * s, ((seq / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * s, F32_TILE_BYTES + NORM_BYTES);
+          for (int h = 0; h < 2; ++h)
+            tma_load_2d(tiles + s * F32_TILE_BYTES + h * BOX_BYTES, &db_map,
+                        h * (DIM / 2), dj * nd + n * NT, full + 8 * s);
+          bulk_load(bsq_u + s * NORM_BYTES,
+                    bsq + static_cast<long long>(dj) * kp + n * NT,
+                    NORM_BYTES, full + 8 * s);
+          ++seq;
+        };
+        // This item's first db tiles go into the ring while the consumers
+        // finish the last item; its query tile waits for them to let go.
+        int n = 0;
+        for (; n < n_tiles && n < STAGES; ++n) load_tile(n);
+        mbar_wait(qempty, (k & 1) ^ 1);
+        mbar_expect_tx(qfull, F32_TILE_BYTES);
+        const int row0 = static_cast<int>(pi[b] * q_rows_per_img) +
+                         (item % q_tiles) * QT_WS;
+        for (int h = 0; h < 2; ++h)
+          tma_load_2d(q_buf + h * BOX_BYTES, &q_map, h * (DIM / 2), row0,
+                      qfull);
+        for (; n < n_tiles; ++n) load_tile(n);
+      }
+    }
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x / WG;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int rlo = wg * 64 + ((threadIdx.x % WG) / 32) * 16 + g;
+    // The warpgroup's m64 tile of the query buffer: rows 64 wg.. of each
+    // 128-row box.
+    const uint32_t a_addr = q_buf + wg * 64 * 128;
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    int seq = 0, k = 0;
+    for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
+      const int b = item / q_tiles;
+      const int row = (item % q_tiles) * QT_WS + rlo;
+      const int dj = pj[b];
+      const int dbc = db_counts[dj];
+      const long long qrow = static_cast<long long>(pi[b]) * nq + row;
+      const float qs_lo = qsq[qrow];
+      const float qs_hi = qsq[qrow + 8];
+
+      const float init = TOP2 ? BIG : -BIG;
+      float e0lo = init, e1lo = init, e0hi = init, e1hi = init;
+      int i0lo = 0, i0hi = 0;
+      const int n_tiles = (dbc + NT - 1) / NT;
+
+      // The pipeline of two_nn_ws_kernel: tile n+1's product is issued
+      // before tile n's epilogue and waited for after it.
+      auto stage_of = [&](int n) { return (seq + n) % STAGES; };
+      auto issue = [&](float (&acc)[64], int n) {
+        mbar_wait(full + 8 * stage_of(n), ((seq + n) / STAGES) & 1);
+        issue_tile_bf16(acc, a_addr, tiles + stage_of(n) * F32_TILE_BYTES);
+      };
+      auto tile_epilogue = [&](const float (&acc)[64], int n, auto last) {
+        constexpr bool LAST = decltype(last)::value;
+        const int valid = dbc - n * NT;
+        if constexpr (TOP2)
+          f32_epilogue<LAST>(acc, bsq_s + stage_of(n) * NT, t, n * NT, valid,
+                             qs_lo, qs_hi, e0lo, i0lo, e1lo, e0hi, i0hi, e1hi);
+        else
+          f32_max_epilogue<LAST>(acc, t, valid, e0lo, e0hi);
+        mbar_arrive(empty + 8 * stage_of(n));
+      };
+      auto finish = [&](const float (&acc)[64], int n) {
+        tile_epilogue(acc, n, std::false_type());
+      };
+      auto finish_last = [&](const float (&acc)[64], int n) {
+        if (dbc % NT)
+          tile_epilogue(acc, n, std::true_type());
+        else
+          tile_epilogue(acc, n, std::false_type());
+      };
+
+      mbar_wait(qfull, k & 1);
+      if (n_tiles > 0) {
+        issue(acc0, 0);
+        wgmma_wait<0>(acc0);
+      }
+      for (int n = 0; n < n_tiles; n += 2) {
+        if (n + 1 == n_tiles) {
+          finish_last(acc0, n);
+          break;
+        }
+        issue(acc1, n + 1);
+        finish(acc0, n);
+        wgmma_wait<0>(acc1);
+        if (n + 2 == n_tiles) {
+          finish_last(acc1, n + 1);
+          break;
+        }
+        issue(acc0, n + 2);
+        finish(acc1, n + 1);
+        wgmma_wait<0>(acc0);
+      }
+      mbar_arrive(qempty);     // every product of the item has retired
+      seq += n_tiles;
+
+      // The four lanes of a row group hold interleaved columns: merge them.
+      const long long o = static_cast<long long>(b) * nq + row;
+      if constexpr (TOP2) {
+        top2_merge<F32>(e0lo, i0lo, e1lo, 1);
+        top2_merge<F32>(e0lo, i0lo, e1lo, 2);
+        top2_merge<F32>(e0hi, i0hi, e1hi, 1);
+        top2_merge<F32>(e0hi, i0hi, e1hi, 2);
+        if (t == 0) {
+          d0_out[o] = e0lo;
+          i0_out[o] = i0lo;
+          d1_out[o] = e1lo;
+          d0_out[o + 8] = e0hi;
+          i0_out[o + 8] = i0hi;
+          d1_out[o + 8] = e1hi;
+        }
+      } else {
+        for (int mask = 1; mask <= 2; mask *= 2) {
+          e0lo = fmaxf(e0lo, __shfl_xor_sync(0xffffffffu, e0lo, mask));
+          e0hi = fmaxf(e0hi, __shfl_xor_sync(0xffffffffu, e0hi, mask));
+        }
+        if (t == 0) {
+          d0_out[o] = e0lo;
+          d0_out[o + 8] = e0hi;
+          i0_out[o] = i0_out[o + 8] = 0;
+          d1_out[o] = d1_out[o + 8] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// The f32 kernel's per-call pre-pass over an f32 table [n_img, nd, 128],
+// eight threads a row of the table padded to kp rows: the bf16 copy (TMA
+// cannot convert), |x|^2 of every row from the unrounded values (sixteen
+// elements a thread in order, then a tree over the eight threads, no FMA;
+// `prepass_f32_plain` repeats that order), and, with counts, |b|^2 per
+// column (3e38 at or past the count and in the padding).
+__global__ void __launch_bounds__(256)
+f32_prepass_kernel(const float* __restrict__ tab, int n_img, int nd, int kp,
+                   const int* __restrict__ counts,
+                   __nv_bfloat16* __restrict__ tab16, float* __restrict__ sq,
+                   float* __restrict__ bsq) {
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const bool live = row < static_cast<long long>(n_img) * kp;
+  const int j = live ? static_cast<int>(row / kp) : 0;
+  const int r = live ? static_cast<int>(row % kp) : 0;
+  const bool data = live && r < nd;
+  float s = 0.f;
+  if (data) {
+    const long long e = (static_cast<long long>(j) * nd + r) * DIM + part * 16;
+    const float4* src = reinterpret_cast<const float4*>(tab + e);
+    uint32_t h[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = src[i];
+      s = __fadd_rn(s, __fmul_rn(v.x, v.x));
+      s = __fadd_rn(s, __fmul_rn(v.y, v.y));
+      s = __fadd_rn(s, __fmul_rn(v.z, v.z));
+      s = __fadd_rn(s, __fmul_rn(v.w, v.w));
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      h[2 * i] = *reinterpret_cast<uint32_t*>(&lo);
+      h[2 * i + 1] = *reinterpret_cast<uint32_t*>(&hi);
+    }
+    uint4* d = reinterpret_cast<uint4*>(tab16 + e);
+    d[0] = make_uint4(h[0], h[1], h[2], h[3]);
+    d[1] = make_uint4(h[4], h[5], h[6], h[7]);
+  }
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
+  if (live && part == 0) {
+    if (data) sq[static_cast<long long>(j) * nd + r] = s;
+    if (bsq != nullptr) bsq[row] = data && r < counts[j] ? s : BIG;
+  }
+}
+
+template <bool TOP2>
+int launch_f32(const void* q16, long long q_stride, int n_img_q, int nq,
+               const float* qsq, const void* db16, int n_img, int nd,
+               const int* db_counts, const float* bsq, const int* pi,
+               const int* pj, int num_pairs, float* d0, int* i0, float* d1,
+               cudaStream_t stream) {
+  if (num_pairs == 0 || nq == 0) return 0;
+  if (nq % QT_WS || q_stride % DIM || q_stride < static_cast<long long>(nq) * DIM ||
+      reinterpret_cast<uintptr_t>(q16) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(db16) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bsq) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const long long q_rows = q_stride / DIM;      // table rows per query image
+  CUtensorMap q_map, map;
+  if (!encode_rows(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q16, DIM,
+                   static_cast<long long>(n_img_q) * q_rows, 2 * DIM, DIM / 2) ||
+      !encode_rows(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, db16, DIM,
+                   static_cast<long long>(n_img) * nd, 2 * DIM, DIM / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      two_nn_f32_ws_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_F32);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long items = static_cast<long long>(num_pairs) * (nq / QT_WS);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  const int kp = (nd + NT - 1) / NT * NT;
+  two_nn_f32_ws_kernel<TOP2><<<grid, WS_THREADS, SMEM_F32, stream>>>(
+      q_map, map, q_rows, qsq, nq, nd, db_counts, bsq, kp, pi, pj,
+      static_cast<int>(items), d0, i0, d1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool TOP2>
 int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
               int n_img, int nd, const int* db_counts, const int* norms,
@@ -674,13 +1079,62 @@ int two_nn_pairs_i8_mma(const void* qtab, long long q_stride, int nq,
                     num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
 }
 
-int two_nn_pairs_f32(const void* qtab, long long q_stride, int nq,
-                     const void* dbtab, long long db_stride,
-                     const int* db_counts, const int* pi, const int* pj,
-                     int num_pairs, float* d0, int* i0, float* d1,
-                     void* stream) {
+int two_nn_pairs_f32_mma(const void* qtab, long long q_stride, int nq,
+                         const void* dbtab, long long db_stride,
+                         const int* db_counts, const int* pi, const int* pj,
+                         int num_pairs, float* d0, int* i0, float* d1,
+                         void* stream) {
   return launch<F32>(qtab, q_stride, nq, dbtab, db_stride, db_counts, pi, pj,
                      num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 kernel's pre-pass: tab f32 [n_img, nd, 128] contiguous and
+// 16-byte aligned -> tab16 bf16 [n_img, nd, 128] and sq f32 [n_img, nd];
+// with counts (else null) also bsq f32 [n_img, kp], kp = nd rounded up to
+// 128.
+int two_nn_prepass_f32(const void* tab, int n_img, int nd, const int* counts,
+                       void* tab16, float* sq, float* bsq, void* stream) {
+  if ((counts == nullptr) != (bsq == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kp = (nd + NT - 1) / NT * NT;
+  const long long threads = static_cast<long long>(n_img) * kp * 8;
+  if (threads == 0) return 0;
+  f32_prepass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(tab), n_img, nd, kp, counts,
+      static_cast<__nv_bfloat16*>(tab16), sq, bsq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 tables on the wgmma design, from the pre-pass: q16 bf16 [n_img_q,
+// *, 128] with per-image element stride q_stride (a multiple of 128) and
+// qsq f32 [n_img_q, nq] (the query table's copy and |q|^2), db16 bf16
+// [n_img, nd, 128] contiguous and bsq f32 [n_img, kp] (the db table's
+// copy and column norms, with the same counts), all 16-byte aligned.
+// nq % 128 == 0, db_counts[j] <= nd.  Outputs are [num_pairs, nq].
+// Returns a CUDA error code (0 on success).
+int two_nn_pairs_f32(const void* q16, long long q_stride, int n_img_q, int nq,
+                     const float* qsq, const void* db16, int n_img, int nd,
+                     const int* db_counts, const float* bsq, const int* pi,
+                     const int* pj, int num_pairs, float* d0, int* i0,
+                     float* d1, void* stream) {
+  return launch_f32<true>(q16, q_stride, n_img_q, nq, qsq, db16, n_img, nd,
+                          db_counts, bsq, pi, pj, num_pairs, d0, i0, d1,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The same kernel with the top-2 epilogue replaced by one max a score:
+// d0 = max of q.b (bf16 operands) over the valid db rows (-3e38 if none),
+// i0 = d1 = 0.
+int two_nn_product_max_f32(const void* q16, long long q_stride, int n_img_q,
+                           int nq, const float* qsq, const void* db16,
+                           int n_img, int nd, const int* db_counts,
+                           const float* bsq, const int* pi, const int* pj,
+                           int num_pairs, float* d0, int* i0, float* d1,
+                           void* stream) {
+  return launch_f32<false>(q16, q_stride, n_img_q, nq, qsq, db16, n_img, nd,
+                           db_counts, bsq, pi, pj, num_pairs, d0, i0, d1,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

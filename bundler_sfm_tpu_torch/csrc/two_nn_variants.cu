@@ -30,7 +30,8 @@
 // Two designs live here.
 //
 // 1. Warp-specialised (variant_ws_kernel): every oneblock int8 instantiation,
-//    oneblock bf16 at TQ 128 and blockmerge -- what the probe path launches.
+//    oneblock bf16 at TQ 128, blockmerge and both ablations -- what the probe
+//    path launches.
 //    The machinery of two_nn.cu's int8 kernel (wgmma_ring.cuh), generalised to TQ:
 //    a persistent grid walks (pair, query tile of TQ rows) items; a producer
 //    thread keeps a 4-stage TMA + mbarrier ring of 128-row db tiles
@@ -72,16 +73,25 @@
 //    state (e0, i0, e1) over four 128-row tiles, and the block state folds
 //    into the running one at each 512-row boundary, ties keeping the
 //    running entry; the four lanes of a row are merged once at the end.
+//    The ablations are the same kernel at TQ 128 with the int8 dot and a
+//    MODE template parameter beside TOP2 (the exact 2-NN): TOP1 keeps one
+//    running key a row (one IMAD and one min a score, folded into (e0, i0)
+//    once per tile; counts 0 and 1 give the top-2 kernels' i0 = 0 and 3e38
+//    from KEY_POISON), MAX one max a score on the int32 accumulator.  MAX
+//    follows the TPU kernel: the row max over all K db rows whatever the
+//    count, so its producer streams every tile of the db image, no column
+//    is poisoned and it needs no pre-pass (no column constants, no |q|^2).
 //    Bound on an H100: 2*128*K^2 tensor-core operations per pair (1979 TOP/s
 //    int8, 989 TFLOP/s bf16).  What bounds this design is its epilogue, as
-//    in two_nn.cu: 4 integer instructions a score (5 with the bf16 FADD)
-//    against one m64n128k32 wgmma (64 tensor clocks) per 8192 scores.
+//    in two_nn.cu: 4 integer instructions a score (5 with the bf16 FADD, 2
+//    for TOP1, 1 for MAX) against one m64n128k32 wgmma (64 tensor clocks)
+//    per 8192 scores.
 //
 // 2. The first design (variant_kernel, mma.sync), kept as the yardstick:
-//    two_nn_oneblock_mma, two_nn_blockmerge_bf16_mma, and the ablations
-//    (next in the redesign queue).  Oneblock bf16 at TQ 256..1024 is launched
-//    by no path (a bf16 query tile of 1024 rows, 256 KB, does not fit beside
-//    a ring), so two_nn_oneblock_mma serves those three.  Its notes follow.
+//    two_nn_oneblock_mma, two_nn_blockmerge_bf16_mma, two_nn_ablation_mma.
+//    Oneblock bf16 at TQ 256..1024 is launched by no path (a bf16 query tile
+//    of 1024 rows, 256 KB, does not fit beside a ring), so
+//    two_nn_oneblock_mma serves those three.  Its notes follow.
 //
 // What TQ means in the first design.  On the TPU, TQ rows of queries meet
 // the whole db in one [TQ, K] f32 score tile in VMEM.  Here no score tile
@@ -481,7 +491,6 @@ int launch_oneblock(const Args& x, int tq) {
 
 constexpr int WS_THREADS = 3 * WG;   // two consumer warpgroups + a producer
 constexpr int STAGES = 4;            // ring depth
-constexpr int BOX_BYTES = 128 * NT;  // one 128-byte-wide TMA box of 128 rows
 
 template <int TQ, bool BF16_>
 struct Ws {
@@ -508,37 +517,6 @@ __device__ __forceinline__ void wgmma_k32_ss(int (&d)[64], uint64_t a_desc,
       ", %64, %65, p;\n}\n"
       : WSK_D64(WSK_R)
       : "l"(a_desc), "l"(b_desc), "r"(SCALE_D));
-}
-
-// bf16 x bf16 -> f32, A in registers (the m16n8k16 layout per warp).
-template <int SCALE_D>
-__device__ __forceinline__ void wgmma_k16_rs(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WSK_ACC
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : WSK_D64(WSK_F)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(SCALE_D));
-}
-
-// bf16 x bf16 -> f32, A from shared memory.
-template <int SCALE_D>
-__device__ __forceinline__ void wgmma_k16_ss(float (&d)[64], uint64_t a_desc,
-                                             uint64_t b_desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WSK_ACC
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WSK_D64(WSK_F)
-      : "l"(a_desc), "l"(b_desc), "r"(SCALE_D));
-}
-
-// Byte address of k-step kk in a block of 128-byte-wide boxes: steps 0-3
-// read the first box (the whole int8 row), steps 4-7 the second (bf16).
-__device__ __forceinline__ uint32_t kstep_addr(uint32_t base, int kk) {
-  return base + (kk / 4) * BOX_BYTES + (kk % 4) * 32;
 }
 
 // One 64x128 product: A (registers, or the m64 tile at a_base) against the
@@ -608,6 +586,56 @@ __device__ __forceinline__ void fold_running(int& e0, int& i0, int& e1, int f0,
   e0 = lt ? f0 : e0;
 }
 
+// The "top1" ablation's epilogue: the tile-local smallest key of this
+// thread's 2 rows x 32 columns (one IMAD and one min a score), merged into
+// the running (e0, i0); ties keep the running entry.  With LAST, the keys
+// of poisoned columns are raised to KEY_POISON, as in `epilogue`.
+template <bool LAST>
+__device__ __forceinline__ void top1_epilogue(const int (&acc)[64],
+                                              const int* cst, int t, int col0,
+                                              int& e0lo, int& i0lo, int& e0hi,
+                                              int& i0hi) {
+  int blo = KEY_POISON, bhi = KEY_POISON;
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    const int2 c = *reinterpret_cast<const int2*>(cst + 8 * i + 2 * t);
+    int k0 = key(c.x, acc[4 * i]);
+    int k1 = key(c.y, acc[4 * i + 1]);
+    int k2 = key(c.x, acc[4 * i + 2]);
+    int k3 = key(c.y, acc[4 * i + 3]);
+    if (LAST) {
+      const int fx = c.x == KEY_POISON ? KEY_POISON : INT32_MIN;
+      const int fy = c.y == KEY_POISON ? KEY_POISON : INT32_MIN;
+      k0 = max(k0, fx);
+      k1 = max(k1, fy);
+      k2 = max(k2, fx);
+      k3 = max(k3, fy);
+    }
+    blo = min(blo, min(k0, k1));
+    bhi = min(bhi, min(k2, k3));
+  }
+  if ((blo >> 8) < e0lo) {
+    e0lo = blo >> 8;
+    i0lo = col0 + (blo & 255);
+  }
+  if ((bhi >> 8) < e0hi) {
+    e0hi = bhi >> 8;
+    i0hi = col0 + (bhi & 255);
+  }
+}
+
+// The "matmul_max" ablation's epilogue: the row max of q.b over the tile,
+// one max a score on the int32 accumulators.  No column is poisoned: the
+// TPU kernel takes the max over all K db rows, whatever the count.
+__device__ __forceinline__ void max_epilogue(const int (&acc)[64], int& mlo,
+                                             int& mhi) {
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    mlo = max(mlo, max(acc[4 * i], acc[4 * i + 1]));
+    mhi = max(mhi, max(acc[4 * i + 2], acc[4 * i + 3]));
+  }
+}
+
 template <int N, class T>
 __device__ __forceinline__ T& pick(T& a, T& b) {
   if constexpr (N == 0) return a;
@@ -625,7 +653,12 @@ __device__ __forceinline__ void static_for(F&& f) {
   static_for_impl(f, std::make_integer_sequence<int, N>());
 }
 
-template <int TQ, bool BF16, bool MERGE>
+// MODE TOP2: the exact 2-NN (oneblock, blockmerge).  TOP1 and MAX, at
+// TQ 128 with the int8 dot only: the ablations "top1" (d0, i0 of the
+// nearest valid row, d1 = 0) and "matmul_max" (d0 = row max of q.b over all
+// K db rows, i0 = d1 = 0; the producer streams every tile of the db image
+// and no column constants).
+template <int TQ, bool BF16, bool MERGE, int MODE>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 variant_ws_kernel(const __grid_constant__ CUtensorMap map,
                   const int8_t* __restrict__ table, int K,
@@ -637,6 +670,10 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
   using C = Ws<TQ, BF16>;
   using Acc = typename C::Acc;
   constexpr int MT = C::MT;
+  static_assert(MODE == TOP2 || (TQ == 128 && !BF16 && !MERGE),
+                "the ablations run at TQ 128 with the int8 dot");
+  // Column constants travel with each db tile except for MAX.
+  constexpr int CST_BYTES = MODE == MAX ? 0 : NORM_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -670,17 +707,19 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
       for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
         const int b = item / q_tiles;
         const int dj = pj[b];
-        const int n_tiles = (counts[dj] + NT - 1) / NT;
+        const int n_tiles =
+            MODE == MAX ? K / NT : (counts[dj] + NT - 1) / NT;
         auto load_tile = [&](int n) {
           const int s = seq % STAGES;
           mbar_wait(empty + 8 * s, ((seq / STAGES) & 1) ^ 1);
-          mbar_expect_tx(full + 8 * s, C::TILE_BYTES + NORM_BYTES);
+          mbar_expect_tx(full + 8 * s, C::TILE_BYTES + CST_BYTES);
           for (int h = 0; h < C::HALVES; ++h)
             tma_load_2d(tiles + s * C::TILE_BYTES + h * BOX_BYTES, &map,
                         h * (DIM / C::HALVES), dj * K + n * NT, full + 8 * s);
-          bulk_load(norm_u + s * NORM_BYTES,
-                    norms + static_cast<long long>(dj) * K + n * NT,
-                    NORM_BYTES, full + 8 * s);
+          if constexpr (MODE != MAX)
+            bulk_load(norm_u + s * NORM_BYTES,
+                      norms + static_cast<long long>(dj) * K + n * NT,
+                      NORM_BYTES, full + 8 * s);
           ++seq;
         };
         int n = 0;
@@ -717,15 +756,16 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
       const int q0 = (item % q_tiles) * TQ;
       const int qi = pi[b];
       const int dj = pj[b];
-      const int n_tiles = (counts[dj] + NT - 1) / NT;
+      const int n_tiles =
+          MODE == MAX ? K / NT : (counts[dj] + NT - 1) / NT;
       if constexpr (C::A_SMEM)
         mbar_wait(qfull, k & 1);
       else
         load_a<C>(a, table + (static_cast<long long>(qi) * K + q0 + wg * 64 +
                               warp * 16 + g) * DIM, t);
 
-      // Running (e0, i0, e1) of rows g and g + 8 of each m-tile; with MERGE
-      // also the 512-row block's.
+      // Running (e0, i0, e1) of rows g and g + 8 of each m-tile (MAX: the
+      // running max in e0); with MERGE also the 512-row block's.
       int e0[MT][2], i0[MT][2], e1[MT][2];
       int f0[MT][2], fi[MT][2], f1[MT][2];
 #pragma unroll
@@ -734,6 +774,7 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
         for (int h = 0; h < 2; ++h) {
           e0[mt][h] = e1[mt][h] = f0[mt][h] = f1[mt][h] = E_POISON;
           i0[mt][h] = fi[mt][h] = 0;
+          if constexpr (MODE == MAX) e0[mt][h] = INT32_MIN;
         }
       }
 
@@ -754,9 +795,14 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
       };
       auto finish = [&](const Acc (&acc)[64], int n, auto mtc, auto lastc) {
         constexpr int mt = decltype(mtc)::value;
-        constexpr bool LAST = decltype(lastc)::value;
+        [[maybe_unused]] constexpr bool LAST = decltype(lastc)::value;
         const int* cst = norm_s + stage_of(n) * NT;
-        if constexpr (MERGE) {
+        if constexpr (MODE == MAX) {
+          max_epilogue(acc, e0[mt][0], e0[mt][1]);
+        } else if constexpr (MODE == TOP1) {
+          top1_epilogue<LAST>(acc, cst, t, n * NT, e0[mt][0], i0[mt][0],
+                              e0[mt][1], i0[mt][1]);
+        } else if constexpr (MERGE) {
           epilogue<LAST>(acc, cst, t, n * NT, f0[mt][0], fi[mt][0], f1[mt][0],
                          f0[mt][1], fi[mt][1], f1[mt][1]);
           if (LAST || n % (BD / NT) == BD / NT - 1) {
@@ -836,15 +882,36 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          wsk::merge_lanes(e0[mt][h], i0[mt][h], e1[mt][h], 1);
-          wsk::merge_lanes(e0[mt][h], i0[mt][h], e1[mt][h], 2);
+#pragma unroll
+          for (int mask = 1; mask <= 2; mask *= 2) {
+            if constexpr (MODE == MAX) {
+              e0[mt][h] = max(e0[mt][h],
+                              __shfl_xor_sync(0xffffffffu, e0[mt][h], mask));
+            } else if constexpr (MODE == TOP1) {
+              // Ties go to the lower index; e1 stays E_POISON.
+              const int o0 = __shfl_xor_sync(0xffffffffu, e0[mt][h], mask);
+              const int oi = __shfl_xor_sync(0xffffffffu, i0[mt][h], mask);
+              if (o0 < e0[mt][h] || (o0 == e0[mt][h] && oi < i0[mt][h])) {
+                e0[mt][h] = o0;
+                i0[mt][h] = oi;
+              }
+            } else {
+              wsk::merge_lanes(e0[mt][h], i0[mt][h], e1[mt][h], mask);
+            }
+          }
           if (t == 0) {
             const int row = q0 + (wg * MT + mt) * 64 + warp * 16 + g + 8 * h;
             const long long o = static_cast<long long>(b) * K + row;
-            const int qs = qsq[static_cast<long long>(qi) * K + row];
-            d0_out[o] = to_dist(qs, e0[mt][h]);
-            i0_out[o] = i0[mt][h];
-            d1_out[o] = to_dist(qs, e1[mt][h]);
+            if constexpr (MODE == MAX) {
+              d0_out[o] = static_cast<float>(e0[mt][h]);
+              i0_out[o] = 0;
+              d1_out[o] = 0.0f;
+            } else {
+              const int qs = qsq[static_cast<long long>(qi) * K + row];
+              d0_out[o] = to_dist(qs, e0[mt][h]);
+              i0_out[o] = i0[mt][h];
+              d1_out[o] = MODE == TOP2 ? to_dist(qs, e1[mt][h]) : 0.0f;
+            }
           }
         }
       }
@@ -915,7 +982,7 @@ struct WsArgs {
   cudaStream_t stream;
 };
 
-template <int TQ, bool BF16, bool MERGE>
+template <int TQ, bool BF16, bool MERGE, int MODE = TOP2>
 int launch_ws(const WsArgs& x) {
   using C = Ws<TQ, BF16>;
   if (x.K <= 0 || x.K % TQ || (MERGE && x.K % BD))
@@ -933,7 +1000,7 @@ int launch_ws(const WsArgs& x) {
                    BF16 ? 2 * DIM : DIM, DIM / C::HALVES))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      variant_ws_kernel<TQ, BF16, MERGE>,
+      variant_ws_kernel<TQ, BF16, MERGE, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
@@ -941,7 +1008,8 @@ int launch_ws(const WsArgs& x) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long items = static_cast<long long>(x.num_pairs) * (x.K / TQ);
   const int grid = static_cast<int>(items < sms ? items : sms);
-  variant_ws_kernel<TQ, BF16, MERGE><<<grid, WS_THREADS, C::SMEM, x.stream>>>(
+  variant_ws_kernel<TQ, BF16, MERGE, MODE>
+      <<<grid, WS_THREADS, C::SMEM, x.stream>>>(
       map, static_cast<const int8_t*>(x.table), x.K, x.counts, x.norms, x.qsq,
       x.pi, x.pj, static_cast<int>(items), x.d0, x.i0, x.d1);
   return static_cast<int>(cudaGetLastError());
@@ -1028,11 +1096,27 @@ int two_nn_blockmerge_bf16_mma(const void* table, int K, const int* counts,
   return launch<256, Bf16Dot, TOP2, true>(x);
 }
 
-// Epilogue ablations on the first design, int8 dot, 128 query rows;
-// K % 128 == 0.  mode 0: "matmul_max", mode 1: "top1".
-int two_nn_ablation(const void* table, int K, const int* counts,
+// Epilogue ablations on the warp-specialised design, int8 dot, 128 query
+// rows; K % 128 == 0; the arguments of two_nn_oneblock (tab16 unused).
+// mode 0: "matmul_max" (norms and qsq unused: no pre-pass), mode 1: "top1"
+// (the int8 pre-pass).
+int two_nn_ablation(const void* table, const void* tab16, int n_img, int K,
+                    const int* counts, const int* norms, const int* qsq,
                     const int* pi, const int* pj, int num_pairs, int mode,
                     float* d0, int* i0, float* d1, void* stream) {
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, pi, pj,
+                 num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream)};
+  switch (mode) {
+    case 0: return launch_ws<128, false, false, MAX>(x);
+    case 1: return launch_ws<128, false, false, TOP1>(x);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same ablations on the first design (mma.sync).
+int two_nn_ablation_mma(const void* table, int K, const int* counts,
+                        const int* pi, const int* pj, int num_pairs, int mode,
+                        float* d0, int* i0, float* d1, void* stream) {
   const Args x{table, K, counts, pi, pj, num_pairs, d0, i0, d1,
                static_cast<cudaStream_t>(stream)};
   switch (mode) {

@@ -1,9 +1,9 @@
 // Building blocks of the warp-specialised 2-NN kernels for Hopper (sm_90a),
-// shared by two_nn.cu (two_nn_pairs_i8) and two_nn_variants.cu (the probe
-// variants): mbarrier and TMA helpers for a ring of 128-row tiles in
-// shared memory, the wgmma descriptor of a K-major tile with 128-byte
-// swizzle, the m64n128k32 int8 wgmma with A in registers, and the
-// packed-key top-2 fold.
+// shared by two_nn.cu (two_nn_pairs_i8, two_nn_pairs_f32) and
+// two_nn_variants.cu (the probe variants): mbarrier and TMA helpers for a
+// ring of 128-row tiles in shared memory, the wgmma descriptor of a K-major
+// tile with 128-byte swizzle, the m64n128k32 int8 and m64n128k16 bf16
+// wgmma (A in registers or shared memory), and the packed-key top-2 fold.
 //
 // Packed keys.  With the per-column constant c = |b|^2 * 256 + (row % 128)
 // (KEY_POISON for a row at or past the count), key = c - 512 (q.b) =
@@ -22,6 +22,7 @@ namespace wsk {
 constexpr int NT = 128;                      // db rows per ring stage (wgmma N)
 constexpr int WG = 128;                      // threads per warpgroup
 constexpr int NORM_BYTES = NT * 4;           // a stage's column constants
+constexpr int BOX_BYTES = 128 * NT;          // one 128-byte-wide TMA box of 128 rows
 constexpr int KEY_POISON = 0x7fffffff;       // key of a row past the count
 constexpr int E_POISON = KEY_POISON >> 8;    // its distance part
 constexpr float BIG = 3.0e38f;
@@ -140,6 +141,37 @@ __device__ __forceinline__ void wgmma_k32(int (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p;\n}\n"
       : WSK_D64(WSK_R)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(SCALE_D));
+}
+
+// bf16 x bf16 -> f32, A in registers (the m16n8k16 layout per warp).
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_k16_rs(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WSK_ACC
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WSK_D64(WSK_F)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(SCALE_D));
+}
+
+// bf16 x bf16 -> f32, A from shared memory.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_k16_ss(float (&d)[64], uint64_t a_desc,
+                                             uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WSK_ACC
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WSK_D64(WSK_F)
+      : "l"(a_desc), "l"(b_desc), "r"(SCALE_D));
+}
+
+// Byte address of k-step kk in a block of 128-byte-wide boxes: steps 0-3
+// read the first box (the whole int8 row), steps 4-7 the second (bf16).
+__device__ __forceinline__ uint32_t kstep_addr(uint32_t base, int kk) {
+  return base + (kk / 4) * BOX_BYTES + (kk % 4) * 32;
 }
 
 // Fold two keys of distinct columns into a top-2 (b0 <= b1): the second

@@ -18,20 +18,28 @@ m64n128k32 (A in registers, B from a 128-byte-swizzled TMA ring kept
 full by a producer warp: 64 B a clock), folds packed (distance, column)
 keys at 4 integer instructions a score, and overlaps each tile's top-2
 with the next tile's product; that epilogue is what bounds it now (see
-the source note for the arithmetic).
+the source note for the arithmetic).  f32 tables run the same machinery
+at the bf16 rate (`wgmma` m64n128k16 on bf16 copies of the tables written
+by a per-call pre-pass, with the norms of the unrounded values) and keep
+the top-2 in f32.
 
 Wrappers, each counting its kernel launches in `LAUNCHES`:
   two_nn_pairs     the matcher.  int8: `two_nn_norms` then the `wgmma`
-                   kernel ("two_nn"); f32: the bf16 `mma.sync` kernel
-                   ("two_nn_f32").
+                   kernel ("two_nn"); f32: `prepass_f32` then the bf16
+                   `wgmma` kernel ("two_nn_f32").
   two_nn_norms     |b|²·256 + row % 128 per table row, poisoned past the
                    count: the int8 kernel's per-column constants.
-  two_nn_pairs_mma the first int8 design, for comparison only.
+  prepass_f32      the f32 kernel's bf16 table, |x|² and column norms
+                   ("two_nn_f32_prepass").
+  two_nn_pairs_mma the first design (`mma.sync`), int8 ("two_nn_mma") or
+                   f32 ("two_nn_f32_mma"), for comparison only.
   two_nn_product_max  the `wgmma` kernel with one max a score in place of
-                   the top-2 (row max of q·b): splits its time, not a
-                   matcher.
+                   the top-2 (row max of q·b), int8 ("two_nn_product_max")
+                   or f32 ("two_nn_product_max_f32"): splits its time, not
+                   a matcher.
 For CPU tensors each runs its plain PyTorch version (`two_nn_reference`,
-`two_nn_norms_plain`); for CUDA tensors it launches its kernel or raises.
+`two_nn_norms_plain`, `prepass_f32_plain`, `product_max_plain`); for CUDA
+tensors it launches its kernel or raises.
 The library is built with `nvcc` from the sources in this package at
 first use, into `build/kernels/` at the repository root; `csrc/two_nn.cu`
 shares its TMA ring, `wgmma` and packed-key helpers with
@@ -45,7 +53,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,11 +71,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma`
-# kernel), "two_nn_f32" (the f32 instantiation of the `mma.sync` kernel),
-# "two_nn_norms", "two_nn_mma" (the first int8 design) and
-# "two_nn_product_max" (the `wgmma` kernel's product-only ablation).
-LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_norms": 0, "two_nn_mma": 0,
-            "two_nn_product_max": 0}
+# kernel), "two_nn_f32" (the f32 `wgmma` kernel), "two_nn_norms",
+# "two_nn_f32_prepass", "two_nn_mma" / "two_nn_f32_mma" (the first design's
+# `mma.sync` kernels) and "two_nn_product_max" / "two_nn_product_max_f32"
+# (the `wgmma` kernels' product-only ablations).
+LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_norms": 0,
+            "two_nn_f32_prepass": 0, "two_nn_mma": 0, "two_nn_f32_mma": 0,
+            "two_nn_product_max": 0, "two_nn_product_max_f32": 0}
 
 _lib = None
 
@@ -117,12 +127,18 @@ def _load():
         lib = ctypes.CDLL(build())
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ws = [p, ll, i, p, i, i, p, p, p, p, i, p, p, p, p]
+        # q16, q_stride, n_img_q, nq, qsq, db16, n_img, nd, counts, bsq,
+        # pi, pj, B, d0, i0, d1, stream
+        f32 = [p, ll, i, i, p, p, i, i, p, p, p, p, i, p, p, p, p]
         mma = [p, ll, i, p, ll, p, p, p, i, p, p, p, p]
         for name, args in (("two_nn_pairs_i8", ws),
                            ("two_nn_product_max_i8", ws),
                            ("two_nn_norms_i8", [p, i, i, p, p, p]),
+                           ("two_nn_pairs_f32", f32),
+                           ("two_nn_product_max_f32", f32),
+                           ("two_nn_prepass_f32", [p, i, i, p, p, p, p, p]),
                            ("two_nn_pairs_i8_mma", mma),
-                           ("two_nn_pairs_f32", mma)):
+                           ("two_nn_pairs_f32_mma", mma)):
             fn = getattr(lib, name)
             fn.restype = i
             fn.argtypes = args
@@ -161,6 +177,41 @@ def two_nn_reference(query: torch.Tensor, db: torch.Tensor, db_count
     return d0, i0.to(torch.int32), d1
 
 
+# The f32 kernels on real-valued tables: the tensor cores sum the 128
+# products of a dot in another order (and with other intermediate
+# roundings) than the plain version's matrix product, so a distance may
+# differ by a few ulps of |q|^2 + |b|^2.  They are held to |d - d_plain| <=
+# F32_REL_TOL * (|q|^2 + |b|^2), with |b|^2 the largest over the pair's valid
+# db rows, and to the plain version's i0 wherever its d1 - d0 exceeds twice
+# that.  On integer-valued tables (|x| <= 255) they are exact.
+F32_REL_TOL = 1e-5
+
+
+def f32_tolerance(qtab, dbtab, db_counts, pi, pj) -> torch.Tensor:
+    """The tolerance of each output row [B, Nq] (see F32_REL_TOL)."""
+    qsq = (qtab.float() ** 2).sum(-1)
+    bsq = (dbtab.float() ** 2).sum(-1)
+    col = torch.arange(dbtab.shape[1], device=dbtab.device)
+    bmax = torch.where(col < db_counts[:, None].long(), bsq,
+                       torch.zeros_like(bsq)).amax(-1)
+    return F32_REL_TOL * (qsq[pi.long()] + bmax[pj.long()][:, None])
+
+
+def f32_mismatches(got, want, tol) -> list:
+    """Counts of d0, i0 and d1 entries of `got` outside the tolerance `tol`
+    [B, Nq] around `want` (the plain version's): a finite distance off by
+    more than tol, a 3e38 one not equal, an i0 not equal where want's
+    d1 - d0 > 2 tol."""
+    bad = []
+    for g, w in ((got[0], want[0]), (got[2], want[2])):
+        fin = w < BIG
+        bad.append(int(((g - w).abs() > tol)[fin].sum())
+                   + int((g != w)[~fin].sum()))
+    sep = (want[2] - want[0]) > 2 * tol
+    bad.insert(1, int((got[1] != want[1])[sep].sum()))
+    return bad
+
+
 def _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj, chunk_elems=1 << 26):
     """`two_nn_reference` over a pair list, in chunks that bound the
     [chunk, Nq, Nd] distance temporaries."""
@@ -191,10 +242,40 @@ def two_nn_norms_plain(dbtab: torch.Tensor, db_counts: torch.Tensor
                        torch.full_like(c, KEY_POISON)).int()
 
 
+def prepass_f32_plain(tab: torch.Tensor, counts: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]:
+    """The f32 kernel's per-call pre-pass over an f32 table [n_img, N,
+    128]: its bf16 copy, |x|² f32 [n_img, N] from the unrounded values in
+    the kernel's order (16 elements a lane in sequence, then a tree over
+    the 8 lanes of a row, each product and sum rounded to f32), and with
+    `counts` the column norms f32 [n_img, Kp] (Kp = N rounded up to
+    NORM_TILE; BIG at or past the count and in the padding), else None."""
+    x = tab.float()
+    parts = (x * x).reshape(*x.shape[:2], 8, 16)
+    s = parts[..., 0]
+    for k in range(1, 16):
+        s = s + parts[..., k]
+    while s.shape[-1] > 1:               # lanes p and p ^ 1, then ^ 2, ^ 4
+        s = s[..., 0::2] + s[..., 1::2]
+    sq = s[..., 0]
+    bsq = None
+    if counts is not None:
+        n_img, n = tab.shape[0], tab.shape[1]
+        kp = -(-n // NORM_TILE) * NORM_TILE
+        bsq = torch.nn.functional.pad(sq, (0, kp - n))
+        row = torch.arange(kp, device=tab.device)
+        bsq = torch.where(row < counts[:, None].long(), bsq,
+                          torch.full_like(bsq, BIG))
+    return tab.to(torch.bfloat16), sq, bsq
+
+
 def _check_tables(qtab, dbtab, db_counts, pi, pj, dtypes):
-    """Device, dtype, shape and index checks of the pair wrappers on CUDA
-    tensors; one device sync for the index ranges."""
-    if qtab.device.type != "cuda":
+    """Device, dtype, shape and index checks of the pair wrappers (which
+    run them on CUDA tensors; CPU tensors pass the device check, so the
+    messages can be tested anywhere); one device sync for the index
+    ranges."""
+    if qtab.device.type not in ("cpu", "cuda"):
         raise ValueError(f"two_nn_pairs: unsupported device {qtab.device}")
     dtype = qtab.dtype
     if dtype not in dtypes or dbtab.dtype != dtype:
@@ -241,6 +322,41 @@ def _launched(err, name):
     LAUNCHES[name] += 1
 
 
+def prepass_f32(tab: torch.Tensor, counts: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """`prepass_f32_plain` of an f32 table [n_img, N, 128] (and its int32
+    counts [n_img]); on CUDA by the pre-pass kernel ("two_nn_f32_prepass").
+    Writes new tensors: the caller's table is only read."""
+    if tab.device.type == "cpu":
+        return prepass_f32_plain(tab, counts)
+    if (tab.device.type != "cuda" or tab.dtype != torch.float32
+            or tab.dim() != 3 or tab.shape[2] != 128
+            or (counts is not None and (
+                counts.device != tab.device or counts.dtype != torch.int32
+                or counts.shape != tab.shape[:1]))):
+        raise ValueError("prepass_f32: need a CUDA f32 [n_img, N, 128] table "
+                         "and int32 [n_img] counts on the same device")
+    tab = tab.contiguous()
+    n_img, n = tab.shape[0], tab.shape[1]
+    tab16 = torch.empty(tab.shape, dtype=torch.bfloat16, device=tab.device)
+    sq = torch.empty((n_img, n), dtype=torch.float32, device=tab.device)
+    bsq = None
+    if counts is not None:
+        counts = counts.contiguous()
+        bsq = torch.empty((n_img, -(-n // NORM_TILE) * NORM_TILE),
+                          dtype=torch.float32, device=tab.device)
+    if tab.numel():
+        with torch.cuda.device(tab.device):
+            err = _load().two_nn_prepass_f32(
+                tab.data_ptr(), n_img, n,
+                None if counts is None else counts.data_ptr(),
+                tab16.data_ptr(), sq.data_ptr(),
+                None if bsq is None else bsq.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        _launched(err, "two_nn_f32_prepass")
+    return tab16, sq, bsq
+
+
 def two_nn_norms(dbtab: torch.Tensor, db_counts: torch.Tensor
                  ) -> torch.Tensor:
     """`two_nn_norms_plain` of a centered int8 table [n_img, Nd, 128] and
@@ -284,18 +400,22 @@ def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
     _check_tables(qtab, dbtab, db_counts, pi, pj,
                   (torch.int8, torch.float32))
     if qtab.dtype == torch.float32:
-        return _launch_mma(qtab, dbtab, db_counts, pi, pj, "two_nn_f32")
+        return _launch_f32(qtab, dbtab, db_counts, pi, pj, "two_nn_f32")
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn")
 
 
 def product_max_plain(qtab, dbtab, db_counts, pi, pj, chunk_elems=1 << 26):
     """The product-only ablation's plain version: d0 = max of q·b over the
-    first db_counts[pj[b]] rows (−3e38 if none), i0 = d1 = 0.  Exact in
-    f32: |q·b| ≤ 2²¹."""
+    first db_counts[pj[b]] rows (−3e38 if none), i0 = d1 = 0, on the
+    centered int8 or the bf16-rounded f32 values.  Exact in f32 for int8
+    (|q·b| ≤ 2²¹) and for integer-valued f32 tables with |x| ≤ 255."""
     nq, nd = qtab.shape[1], dbtab.shape[1]
     step = max(1, chunk_elems // max(nq * nd, 1))
     col = torch.arange(nd, device=qtab.device)
     d0 = torch.empty((len(pi), nq), device=qtab.device)
+    if qtab.dtype == torch.float32:
+        qtab = qtab.to(torch.bfloat16)
+        dbtab = dbtab.to(torch.bfloat16)
     for s in range(0, len(pi), step):
         a, b = pi[s:s + step].long(), pj[s:s + step].long()
         dots = qtab[a].float() @ dbtab[b].float().transpose(1, 2)
@@ -309,12 +429,45 @@ def two_nn_product_max(qtab: torch.Tensor, dbtab: torch.Tensor,
                        db_counts: torch.Tensor, pi: torch.Tensor,
                        pj: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`product_max_plain` of centered int8 tables; on CUDA by the `wgmma`
-    2-NN kernel with its top-2 epilogue replaced by one max a score."""
+    """`product_max_plain` of centered int8 or f32 tables; on CUDA by the
+    `wgmma` 2-NN kernel of that type with its top-2 epilogue replaced by one
+    max a score."""
     if qtab.device.type == "cpu":
         return product_max_plain(qtab, dbtab, db_counts, pi, pj)
-    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
+    _check_tables(qtab, dbtab, db_counts, pi, pj,
+                  (torch.int8, torch.float32))
+    if qtab.dtype == torch.float32:
+        return _launch_f32(qtab, dbtab, db_counts, pi, pj,
+                           "two_nn_product_max_f32")
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn_product_max")
+
+
+def _launch_f32(qtab, dbtab, db_counts, pi, pj, counter):
+    """The f32 `wgmma` kernel: the 2-NN ("two_nn_f32") or its product-only
+    ablation; the pre-pass first, once for a query table that is the db
+    table (as `DescriptorTable` passes it), else once for each."""
+    dbtab, db_counts = dbtab.contiguous(), db_counts.contiguous()
+    pi, pj = pi.contiguous(), pj.contiguous()
+    B, nq = pi.shape[0], qtab.shape[1]
+    d0, i0, d1 = _outputs(B, nq, qtab.device)
+    if B == 0:
+        return d0, i0, d1
+    db16, sq, bsq = prepass_f32(dbtab, db_counts)
+    if qtab.data_ptr() == dbtab.data_ptr() and qtab.shape == dbtab.shape \
+            and qtab.is_contiguous():
+        q16, qsq = db16, sq
+    else:
+        q16, qsq, _ = prepass_f32(qtab)
+    fn = (_load().two_nn_pairs_f32 if counter == "two_nn_f32"
+          else _load().two_nn_product_max_f32)
+    with torch.cuda.device(qtab.device):
+        err = fn(q16.data_ptr(), nq * 128, q16.shape[0], nq, qsq.data_ptr(),
+                 db16.data_ptr(), dbtab.shape[0], dbtab.shape[1],
+                 db_counts.data_ptr(), bsq.data_ptr(), pi.data_ptr(),
+                 pj.data_ptr(), B, d0.data_ptr(), i0.data_ptr(),
+                 d1.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _launched(err, counter)
+    return d0, i0, d1
 
 
 def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter):
@@ -345,16 +498,21 @@ def two_nn_pairs_mma(qtab: torch.Tensor, dbtab: torch.Tensor,
                      db_counts: torch.Tensor, pi: torch.Tensor,
                      pj: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`two_nn_pairs` for centered int8 tables on the first design's
-    `mma.sync` kernel; for timing and checks beside the `wgmma` kernel."""
+    """`two_nn_pairs` on the first design's `mma.sync` kernels (int8
+    "two_nn_mma", f32 "two_nn_f32_mma"); for timing and checks beside the
+    `wgmma` kernels."""
     if qtab.device.type == "cpu":
         return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
-    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
-    return _launch_mma(qtab, dbtab, db_counts, pi, pj, "two_nn_mma")
+    _check_tables(qtab, dbtab, db_counts, pi, pj,
+                  (torch.int8, torch.float32))
+    return _launch_mma(qtab, dbtab, db_counts, pi, pj,
+                       "two_nn_mma" if qtab.dtype == torch.int8
+                       else "two_nn_f32_mma")
 
 
 def _launch_mma(qtab, dbtab, db_counts, pi, pj, counter):
-    """The `mma.sync` template: int8 (`two_nn_pairs_i8_mma`) or f32."""
+    """The `mma.sync` template: int8 (`two_nn_pairs_i8_mma`) or f32
+    (`two_nn_pairs_f32_mma`)."""
     qtab, dbtab = qtab.contiguous(), dbtab.contiguous()
     db_counts = db_counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
@@ -364,7 +522,7 @@ def _launch_mma(qtab, dbtab, db_counts, pi, pj, counter):
         return d0, i0, d1
     lib = _load()
     fn = (lib.two_nn_pairs_i8_mma if qtab.dtype == torch.int8
-          else lib.two_nn_pairs_f32)
+          else lib.two_nn_pairs_f32_mma)
     with torch.cuda.device(qtab.device):
         err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(), nd * 128,
                  db_counts.data_ptr(), pi.data_ptr(), pj.data_ptr(), B,

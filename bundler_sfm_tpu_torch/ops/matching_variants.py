@@ -24,14 +24,15 @@ Outputs d0 f32, i0 int32, d1 f32, each [B, K].  The arithmetic is exact
 `matching_cuda.two_nn_pairs(table, table, counts, pi, pj)`.
 
 Two kernel designs (see the source note).  `two_nn_oneblock` (int8 at every
-tq, bf16 at tq 128) and `two_nn_blockmerge_bf16` run the warp-specialised
-`wgmma` design: a per-call pre-pass kernel (`variants_prepass`: column
-constants, |q|², and for the bf16 dot a bf16 copy of the table), then a
-persistent kernel with a TMA ring of db tiles and a packed-key top-2.  The
-first design's `mma.sync` kernels stay as yardsticks
-(`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`), and serve
-`two_nn_oneblock` at bf16 tq 256–1024 (launched by no path) and the
-ablations.
+tq, bf16 at tq 128), `two_nn_blockmerge_bf16` and `two_nn_ablation` run the
+warp-specialised `wgmma` design: a per-call pre-pass kernel
+(`variants_prepass`: column constants, |q|², and for the bf16 dot a bf16
+copy of the table; "matmul_max" needs none), then a persistent kernel with
+a TMA ring of db tiles and a packed-key top-2 (top-1 for "top1", one max a
+score for "matmul_max").  The first design's `mma.sync` kernels stay as
+yardsticks (`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`,
+`two_nn_ablation_mma`), and serve `two_nn_oneblock` at bf16 tq 256–1024
+(launched by no path).
 
 For CPU tensors a wrapper runs its plain PyTorch version (the query tile,
 the dot type and the design do not change the result); for CUDA tensors it
@@ -73,7 +74,8 @@ LAUNCHES = {**{f"two_nn_oneblock_{d}_{tq}": 0 for d in DOTS
             "two_nn_variants_prepass": 0,
             **{f"two_nn_oneblock_mma_{d}_{tq}": 0 for d in DOTS
                for tq in ONEBLOCK_TILES},
-            "two_nn_blockmerge_bf16_mma": 0}
+            "two_nn_blockmerge_bf16_mma": 0,
+            **{f"two_nn_ablation_mma_{m}": 0 for m in ABLATION_MODES}}
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -92,9 +94,10 @@ def _load():
         for name, args in (
                 ("two_nn_oneblock", ws + [i, i] + tail),
                 ("two_nn_blockmerge_bf16", ws + tail),
+                ("two_nn_ablation", ws + [i] + tail),
                 ("two_nn_oneblock_mma", head + [i, i] + tail),
                 ("two_nn_blockmerge_bf16_mma", head + tail),
-                ("two_nn_ablation", head + [i] + tail),
+                ("two_nn_ablation_mma", head + [i] + tail),
                 ("two_nn_variants_prepass", [p, i, i, p, i, p, p, p, p])):
             fn = getattr(lib, name)
             fn.restype = i
@@ -300,15 +303,20 @@ def variants_prepass(table: torch.Tensor, counts: torch.Tensor,
     return norms, qsq, tab16
 
 
-def _ws_launch(entry: str, bf16: bool, *extra):
-    """The `wgmma` design's launch: the pre-pass, then the kernel."""
+def _ws_launch(entry: str, bf16: bool, *extra, prepass: bool = True):
+    """The `wgmma` design's launch: the pre-pass (unless the kernel reads
+    none of its outputs), then the kernel."""
     def launch(table, counts, pi, pj, out, stream):
-        norms, qsq, tab16 = variants_prepass(table, counts, bf16)
+        norms = qsq = tab16 = None
+        if prepass:
+            norms, qsq, tab16 = variants_prepass(table, counts, bf16)
         return getattr(_load(), entry)(
             table.data_ptr(), tab16.data_ptr() if bf16 else None,
             table.shape[0], table.shape[1], counts.data_ptr(),
-            norms.data_ptr(), qsq.data_ptr(), pi.data_ptr(), pj.data_ptr(),
-            pi.shape[0], *extra, *(o.data_ptr() for o in out), stream)
+            norms.data_ptr() if prepass else None,
+            qsq.data_ptr() if prepass else None, pi.data_ptr(),
+            pj.data_ptr(), pi.shape[0], *extra,
+            *(o.data_ptr() for o in out), stream)
     return launch
 
 
@@ -378,14 +386,32 @@ def two_nn_blockmerge_bf16_mma(table: torch.Tensor, counts: torch.Tensor,
                 table, counts, pi, pj, BLOCKMERGE_BD)
 
 
-def two_nn_ablation(table: torch.Tensor, counts: torch.Tensor,
-                    pi: torch.Tensor, pj: torch.Tensor, mode: str) -> Outputs:
-    """Epilogue ablation (not a matcher), int8 dot, 128 query rows
-    (K % 128 == 0): mode "matmul_max" or "top1"."""
+def _ablation_mode(mode: str) -> int:
     if mode not in ABLATION_MODES:
         raise ValueError(f"two_nn_ablation: unknown mode {mode!r}; "
                          f"expected one of {ABLATION_MODES}")
+    return ABLATION_MODES.index(mode)
+
+
+def two_nn_ablation(table: torch.Tensor, counts: torch.Tensor,
+                    pi: torch.Tensor, pj: torch.Tensor, mode: str) -> Outputs:
+    """Epilogue ablation (not a matcher), int8 dot, 128 query rows
+    (K % 128 == 0): mode "matmul_max" or "top1", on the `wgmma` design
+    ("matmul_max" without the pre-pass)."""
+    m = _ablation_mode(mode)
     return _run("two_nn_ablation", f"two_nn_ablation_{mode}",
                 lambda: ablation_plain(table, counts, pi, pj, mode),
-                _mma_launch("two_nn_ablation", ABLATION_MODES.index(mode)),
+                _ws_launch("two_nn_ablation", False, m,
+                           prepass=mode != "matmul_max"),
+                table, counts, pi, pj, ABLATION_TQ)
+
+
+def two_nn_ablation_mma(table: torch.Tensor, counts: torch.Tensor,
+                        pi: torch.Tensor, pj: torch.Tensor, mode: str
+                        ) -> Outputs:
+    """`two_nn_ablation` on the first design's `mma.sync` kernel."""
+    m = _ablation_mode(mode)
+    return _run("two_nn_ablation_mma", f"two_nn_ablation_mma_{mode}",
+                lambda: ablation_plain(table, counts, pi, pj, mode),
+                _mma_launch("two_nn_ablation_mma", m),
                 table, counts, pi, pj, ABLATION_TQ)

@@ -5,18 +5,21 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc, in
                parallel; check that ptxas reports no spills for the
-               wgmma kernels (two_nn.cu's two, two_nn_variants.cu's six)
-               and serialises no wgmma.
+               wgmma kernels (two_nn.cu's int8 two and f32 two,
+               two_nn_variants.cu's eight) and serialises no wgmma.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
                on the card: the int8 2-NN (`wgmma`) and its norms kernel,
-               the first design's `mma.sync` kernel beside them, and the
-               f32 kernel, at 64 images x 2048 keys (all 2016 pairs), 8
-               images x 4096 ragged keys, duplicated rows (ties), an f32
-               table and garbage rows past the counts; time the `wgmma` and
-               `mma.sync` kernels in turns, the plain version, a library
-               yardstick (f32 matmul + topk), and the bound; time the f32
-               kernel at 2016 pairs x 2048^2 on integer-valued f32
-               descriptors the same way, against the bf16 tensor-core bound.
+               the f32 2-NN (`wgmma`) and its pre-pass kernel, and the first
+               design's `mma.sync` kernel of each type beside them, at 64
+               images x 2048 keys (all 2016 pairs), ragged keys up to 4096,
+               duplicated rows (ties), integer-valued f32 tables and
+               garbage rows past the counts; the f32 kernels within the
+               stated tolerance on a real-valued table; time each `wgmma`
+               kernel and its `mma.sync` twin in turns, the plain version, a
+               library yardstick (f32 matmul + topk), and the bound (the
+               int8 rate; the bf16 rate for f32 tables, timed at 2016 pairs
+               x 2048^2 on integer-valued f32 descriptors with the
+               product-only split and the pre-pass).
   3. main    — render a 24-view 1024x768 box room and run
                `bundler_sfm_tpu_torch.run_bundler --out bundle` on CUDA (SIFT,
                matching on the kernels, F/H verification, tracks, and the
@@ -52,14 +55,16 @@ Phases (any failure raises, so the exit code is non-zero):
                CUDA and its bundle.out must be byte-identical.
   5. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) of
                both designs (the `wgmma` design and its `mma.sync` twins,
-               `_mma`) and every mode bit-exact against its plain version,
+               `_mma`; both ablation modes included) bit-exact against its
+               plain version,
                and the `wgmma` design's pre-pass kernel against its own, at
                the probe's shape (276 pairs x 2048 keys), at ragged counts,
                on ties and with garbage rows past the counts; run the probe
                entry point (`probes/probe_two_nn_variants.py`) with the
                launch counts zeroed, check every exact variant IDENTICAL to
-               two_nn, every count moved, no `_mma` yardstick ran and one
-               pre-pass ran per `wgmma`-design call; time two_nn, its
+               two_nn, every kernel launched once per probe call, no `_mma`
+               yardstick ran and one pre-pass ran per `wgmma`-design call
+               ("matmul_max" needs none); time two_nn, its
                `mma.sync` kernel, each variant kernel beside its `mma.sync`
                twin in turns, its plain version, a library yardstick, the
                int8 and bf16 bounds and the pre-pass at 2208 pairs x
@@ -175,16 +180,36 @@ def compare_outputs(got, want, what):
     return err
 
 
+def compare_prepass_f32(tab, counts, name):
+    """The f32 pre-pass kernel (bf16 table, |x|^2, column norms) bit-exact
+    against its plain version."""
+    got = matching_cuda.prepass_f32(tab, counts)
+    torch.cuda.synchronize()
+    want = matching_cuda.prepass_f32_plain(tab, counts)
+    bad = [int((g != w).sum()) for g, w in zip(got, want)]
+    log(f"[kernels] {name} two_nn_f32_prepass: {tab.shape[0]} x "
+        f"{tab.shape[1]} rows, mismatches bf16 table {bad[0]}, |x|^2 "
+        f"{bad[1]}, column norms {bad[2]}")
+    check(not any(bad), f"two_nn_f32_prepass disagrees with its plain "
+          f"version: {name}")
+
+
 def compare_two_nn(tab, counts, pi, pj, name):
     """The 2-NN kernels vs the plain version on the same inputs: two_nn
-    (int8 `wgmma` or f32), and for int8 tables the `mma.sync` kernel and
-    the norms kernel (against its own plain version).  Bit-exact or raise;
-    returns two_nn's max |err| over finite distances (0)."""
+    (int8 or f32 `wgmma`) and the first design's `mma.sync` kernel of the
+    same type, and the norms kernel (int8) or the pre-pass kernel (f32)
+    against its own plain version.  Bit-exact or raise; returns two_nn's
+    max |err| over finite distances (0)."""
     label = f"{len(pi)} pairs x {tab.shape[1]} keys {tab.dtype}"
     want = matching_cuda._two_nn_pairs_plain(tab, tab, counts, pi, pj)
-    kernels = [("two_nn", matching_cuda.two_nn_pairs)]
-    if tab.dtype == torch.int8:
-        kernels.append(("two_nn_mma", matching_cuda.two_nn_pairs_mma))
+    f32 = tab.dtype == torch.float32
+    kernels = [("two_nn_f32" if f32 else "two_nn",
+                matching_cuda.two_nn_pairs),
+               ("two_nn_f32_mma" if f32 else "two_nn_mma",
+                matching_cuda.two_nn_pairs_mma)]
+    if f32:
+        compare_prepass_f32(tab, counts, name)
+    else:
         norms = matching_cuda.two_nn_norms(tab, counts)
         torch.cuda.synchronize()
         bad = int((norms != matching_cuda.two_nn_norms_plain(tab, counts))
@@ -200,6 +225,34 @@ def compare_two_nn(tab, counts, pi, pj, name):
         errs.append(compare_outputs(got, want, f"[kernels] {name} {kname}: "
                                     f"{label}"))
     return errs[0]
+
+
+def compare_two_nn_real(tab, counts, pi, pj, name):
+    """The f32 kernels on a real-valued table, where tensor-core sums run
+    in another order than the plain version's: within
+    `matching_cuda.f32_tolerance` (|d - d_plain| <= 1e-5 (|q|^2 + |b|^2), i0
+    equal wherever the plain d1 - d0 exceeds twice that) or raise.  Returns
+    two_nn_f32's largest |d - d_plain| / tolerance."""
+    M = matching_cuda
+    want = M._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    tol = M.f32_tolerance(tab, tab, counts, pi, pj)
+    worst = []
+    for kname, fn in (("two_nn_f32", M.two_nn_pairs),
+                      ("two_nn_f32_mma", M.two_nn_pairs_mma)):
+        got = fn(tab, tab, counts, pi, pj)
+        torch.cuda.synchronize()
+        bad = M.f32_mismatches(got, want, tol)
+        ratio = max(float(((g - w).abs() / tol)[w < M.BIG].max())
+                    for g, w in ((got[0], want[0]), (got[2], want[2])))
+        same_i0 = int((got[1] == want[1]).sum())
+        log(f"[kernels] {name} {kname}: {len(pi)} pairs x {tab.shape[1]} "
+            f"keys real-valued f32: outside the tolerance d0 {bad[0]}, i0 "
+            f"{bad[1]}, d1 {bad[2]}; largest |err| / tolerance {ratio:.4f}; "
+            f"i0 equal at {same_i0} of {got[1].numel()}; bit-identical d0 "
+            f"{int((got[0] == want[0]).sum())}")
+        check(not any(bad), f"{kname} outside its tolerance: {name}")
+        worst.append(ratio)
+    return worst[0]
 
 
 def yardstick(tab, counts, pi, pj, chunk=64):
@@ -262,23 +315,60 @@ def time_two_nn(tab, counts, pi, pj, reps, what):
 
 
 def time_two_nn_f32(tab, counts, pi, pj, reps, what):
-    """Times of the f32 kernel (bf16 `mma.sync`), its plain version and the
-    library yardstick at one shape, in this call, beside its bound at the
-    bf16 tensor-core rate.  Returns a dict of ms."""
-    t = {"ms": cuda_ms(lambda: matching_cuda.two_nn_pairs(
+    """Times of the f32 2-NN at one shape, all in this call: the `wgmma`
+    wrapper (pre-pass + kernel) and its `mma.sync` twin in turns (new, old,
+    old, new), the product-only split (one max a score in place of the
+    top-2, held bit-exact against its plain version first), the pre-pass
+    alone, the plain version and the library yardstick, beside the bound at
+    the bf16 tensor-core rate.  Returns a dict of ms."""
+    M = matching_cuda
+    got = M.two_nn_product_max(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    compare_outputs(got, M.product_max_plain(tab, tab, counts, pi, pj),
+                    f"[kernels] two_nn_product_max_f32: {len(pi)} pairs x "
+                    f"{tab.shape[1]} keys")
+
+    def new():
+        return M.two_nn_pairs(tab, tab, counts, pi, pj)
+
+    def old():
+        return M.two_nn_pairs_mma(tab, tab, counts, pi, pj)
+    turns = [cuda_ms(f, reps) for f in (new, old, old, new)]
+    t = {"ms": (turns[0] + turns[3]) / 2,
+         "ms_before": (turns[1] + turns[2]) / 2,
+         "product_ms": cuda_ms(lambda: M.two_nn_product_max(
              tab, tab, counts, pi, pj), reps),
-         "plain_ms": cuda_ms(lambda: matching_cuda._two_nn_pairs_plain(
+         "prepass_ms": cuda_ms(lambda: M.prepass_f32(tab, counts), reps),
+         "prepass_plain_ms": cuda_ms(lambda: M.prepass_f32_plain(
+             tab, counts), reps),
+         "plain_ms": cuda_ms(lambda: M._two_nn_pairs_plain(
              tab, tab, counts, pi, pj), max(1, reps // 10)),
          "library_ms": cuda_ms(lambda: yardstick(tab, counts, pi, pj),
                                max(1, reps // 10))}
     bound, by = two_nn_bound_ms(tab, counts, pi, pj, BF16_TOPS)
     t.update(bound_ms=bound, bound_by=by)
-    share = 100 * bound / t["ms"]
-    log(f"[kernels] {what}: two_nn_f32 {t['ms']:.4f} ms ({share:.2f} % of "
-        f"the bound); plain {t['plain_ms']:.4f} ms, "
-        f"matmul+topk {t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}, "
-        f"bf16 rate)")
+    log(f"[kernels] {what}: two_nn_f32 (wgmma) {t['ms']:.4f} ms "
+        f"({turns[0]:.4f}, {turns[3]:.4f}; {100 * bound / t['ms']:.2f} % of "
+        f"the bound), mma.sync {t['ms_before']:.4f} ms ({turns[1]:.4f}, "
+        f"{turns[2]:.4f}; {100 * bound / t['ms_before']:.2f} %), speed-up "
+        f"{t['ms_before'] / t['ms']:.3f}x; split: pre-pass + product + one "
+        f"max a score {t['product_ms']:.4f} ms "
+        f"({100 * bound / t['product_ms']:.2f} % of the bound), top-2 "
+        f"epilogue +{t['ms'] - t['product_ms']:.4f} ms; pre-pass "
+        f"{t['prepass_ms']:.4f} ms (plain {t['prepass_plain_ms']:.4f}); "
+        f"plain {t['plain_ms']:.4f} ms, matmul+topk "
+        f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}, bf16 rate)")
     return t
+
+
+def prepass_f32_bound_ms(tab):
+    """The f32 pre-pass reads the table once and writes its bf16 copy,
+    |x|^2 and the column norms (padded to the ring tile) once."""
+    kp = -(-tab.shape[1] // matching_cuda.NORM_TILE) * matching_cuda.NORM_TILE
+    rows = tab.shape[0] * tab.shape[1]
+    nbytes = 4 * tab.numel() + 2 * tab.numel() + 4 * rows \
+        + 4 * tab.shape[0] * kp
+    return nbytes / HBM_BYTES_S * 1e3, "bytes"
 
 
 def norms_bound_ms(tab):
@@ -306,11 +396,12 @@ def phase_build():
         log(f"[build] {os.path.relpath(p, ROOT)}")
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.2f} s")
     # ptxas prints each kernel's spills under "Function properties for":
-    # the wgmma kernels of two_nn.cu (2-NN, product-only) and of
-    # two_nn_variants.cu (6 instantiations), none of which may spill or
-    # have its wgmma serialised.
+    # the wgmma kernels of two_nn.cu (int8 and f32, each 2-NN and
+    # product-only) and of two_nn_variants.cu (8 instantiations), none of
+    # which may spill or have its wgmma serialised.
     out = buf.getvalue()
-    for kernel, n in (("two_nn_ws_kernel", 2), ("variant_ws_kernel", 6)):
+    for kernel, n in (("two_nn_ws_kernel", 2), ("two_nn_f32_ws_kernel", 2),
+                      ("variant_ws_kernel", 8)):
         spills = re.findall(rf"Function properties for \S*{kernel}\S*\n"
                             r"\s*(.*)\n", out)
         check(len(spills) == n and all(
@@ -352,7 +443,8 @@ def phase_kernels():
     table = DescriptorTable(descs, device="cuda")
     pi, pj = pair_tensors([(i, j) for i in range(4) for j in range(4)])
     compare_two_nn(table.table, table.counts, pi, pj, "(c) ties")
-    # (d) f32 table (integer-valued float descriptors).
+    # (d) f32 table (integer-valued float descriptors), then f32 ragged
+    # counts and f32 ties.
     descs = [rng.integers(0, 256, (n, 128)).astype(np.float32)
              for n in (1024, 700, 1, 513)]
     descs[2] = descs[0][:1].copy()
@@ -360,6 +452,26 @@ def phase_kernels():
     table = DescriptorTable(descs, device="cuda")
     pi, pj = pair_tensors([(i, j) for i in range(4) for j in range(4)])
     err32 = compare_two_nn(table.table, table.counts, pi, pj, "(d) f32")
+    sizes = [4096, 3001, 65, 1, 0]
+    descs = [rng.integers(0, 256, (n, 128)).astype(np.float32)
+             for n in sizes]
+    descs[1][:2000] = descs[0][1000:3000]
+    descs[2][:] = 255.0
+    descs[0][:8] = 0.0
+    table = DescriptorTable(descs, device="cuda")
+    pi, pj = pair_tensors([(i, j) for i in range(5) for j in range(5)])
+    err32 = max(err32, compare_two_nn(table.table, table.counts, pi, pj,
+                                      "(d) f32 ragged"))
+    descs = [rng.integers(0, 256, (512, 128)).astype(np.float32)
+             for _ in range(4)]
+    for d in descs:
+        d[100:200] = d[0:100]
+        d[300] = d[5]
+    descs[3][:] = descs[3][7]
+    table = DescriptorTable(descs, device="cuda")
+    pi, pj = pair_tensors([(i, j) for i in range(4) for j in range(4)])
+    err32 = max(err32, compare_two_nn(table.table, table.counts, pi, pj,
+                                      "(d) f32 ties"))
     # (e) nonzero garbage in the rows past each count (counts 0 included):
     # the plain version masks them; where a db has no valid row, i0 is 0.
     sizes = [1024, 1000, 129, 1, 0, 0]
@@ -382,6 +494,23 @@ def phase_kernels():
     t32 = time_two_nn_f32(table.table, table.counts, pi, pj, 10,
                           "(f) f32 2016 pairs x 2048^2")
     t32["max_abs_err"] = err32
+    t32["prepass_bound"] = prepass_f32_bound_ms(table.table)
+    # (g) real-valued f32: L2-normalised Gaussian rows scaled to 512, with
+    # near-duplicates (noisy copies) across images, ragged counts.
+    sizes = [1024, 1000, 700, 129, 1, 0]
+    descs = []
+    for n in sizes:
+        x = rng.normal(size=(n, 128))
+        descs.append(x)
+    descs[1][:600] = descs[0][:600] + 0.05 * rng.normal(size=(600, 128))
+    descs[2][:300] = descs[0][300:600] + 0.2 * rng.normal(size=(300, 128))
+    descs = [(512.0 * d / np.maximum(np.linalg.norm(d, axis=1,
+                                                    keepdims=True), 1e-12)
+              ).astype(np.float32) for d in descs]
+    table = DescriptorTable(descs, device="cuda")
+    pi, pj = pair_tensors([(i, j) for i in range(6) for j in range(6)])
+    t32["tolerance_ratio"] = compare_two_nn_real(
+        table.table, table.counts, pi, pj, "(g) real-valued")
     return t32
 
 
@@ -1131,14 +1260,24 @@ def _replaces(kernel):
     return next(v for k, v in REPLACES.items() if kernel.startswith(k))
 
 
+def _plain_kind(kernel):
+    """The plain version a variant kernel is held to: "oneblock",
+    "blockmerge" or an ablation mode (a `_mma` twin shares its kernel's)."""
+    if kernel.startswith("two_nn_oneblock"):
+        return "oneblock"
+    if kernel.startswith("two_nn_blockmerge_bf16"):
+        return "blockmerge"
+    return kernel[len("two_nn_ablation_"):].replace("mma_", "", 1)
+
+
 def _variant_plain(kernel):
     V = matching_variants
-    if kernel.startswith("two_nn_oneblock"):
+    kind = _plain_kind(kernel)
+    if kind == "oneblock":
         return V.oneblock_plain
-    if kernel.startswith("two_nn_blockmerge_bf16"):
+    if kind == "blockmerge":
         return V.blockmerge_plain
-    mode = kernel[len("two_nn_ablation_"):]
-    return lambda *a: V.ablation_plain(*a, mode)
+    return lambda *a: V.ablation_plain(*a, kind)
 
 
 def variant_kernels():
@@ -1157,19 +1296,27 @@ def variant_kernels():
     out["two_nn_blockmerge_bf16"] = V.two_nn_blockmerge_bf16
     out["two_nn_blockmerge_bf16_mma"] = V.two_nn_blockmerge_bf16_mma
     for m in V.ABLATION_MODES:
-        out[f"two_nn_ablation_{m}"] = (lambda mode: lambda *a:
-                                       V.two_nn_ablation(*a, mode))(m)
+        for mid, fn in (("", V.two_nn_ablation), ("mma_", V.two_nn_ablation_mma)):
+            out[f"two_nn_ablation_{mid}{m}"] = (
+                lambda f, mode: lambda *a: f(*a, mode))(fn, m)
     return out
 
 
-# The instantiations on the `wgmma` design, by counter.
+# The instantiations on the `wgmma` design, by counter, and those of them
+# that launch the pre-pass once per call.
 WGMMA_VARIANTS = ([f"two_nn_oneblock_int8_{tq}" for tq in (128, 256, 512, 1024)]
-                  + ["two_nn_oneblock_bf16_128", "two_nn_blockmerge_bf16"])
+                  + ["two_nn_oneblock_bf16_128", "two_nn_blockmerge_bf16",
+                     "two_nn_ablation_matmul_max", "two_nn_ablation_top1"])
+PREPASS_VARIANTS = [k for k in WGMMA_VARIANTS
+                    if k != "two_nn_ablation_matmul_max"]
 
 
 def mma_twin(kernel):
-    return (kernel.replace("two_nn_oneblock_", "two_nn_oneblock_mma_")
-            if kernel.startswith("two_nn_oneblock") else kernel + "_mma")
+    if kernel.startswith("two_nn_oneblock"):
+        return kernel.replace("two_nn_oneblock_", "two_nn_oneblock_mma_")
+    if kernel.startswith("two_nn_ablation"):
+        return kernel.replace("two_nn_ablation_", "two_nn_ablation_mma_")
+    return kernel + "_mma"
 
 
 def compare_variant(kernel, fn, tab, counts, pi, pj, label):
@@ -1286,13 +1433,13 @@ def split_two_nn(tab, counts, pi, pj, base, ragged):
 
 
 def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
-    """A variant kernel at the timing shape: for the `wgmma` design (and
-    oneblock bf16 at tq > 128) its `mma.sync` twin in turns (new, old, old,
-    new; 10 calls each), else alone; the plain version and the library
+    """A variant kernel at the timing shape: its `mma.sync` twin in turns
+    (new, old, old, new; 10 calls each; for oneblock bf16 at tq > 128 both
+    are the `mma.sync` kernel); the plain version and the library
     yardstick; logged with the shares of the int8 (and bf16) bound."""
     kinds = variant_kernels()
     bf16 = "bf16" in kernel
-    twin = kinds.get(mma_twin(kernel)) if "ablation" not in kernel else None
+    twin = kinds.get(mma_twin(kernel))
     if twin is None:
         t = {"ms": cuda_ms(lambda: fn(tab, counts, pi, pj), 10)}
         turns = ""
@@ -1307,7 +1454,7 @@ def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
     t["plain_ms"] = cuda_ms(
         lambda: _variant_plain(kernel)(tab, counts, pi, pj), 2)
     kind = ("exact" if "ablation" not in kernel
-            else kernel[len("two_nn_ablation_"):])
+            else _plain_kind(kernel))
     t["library_ms"] = cuda_ms(
         lambda: library_yardstick(kind, tab, counts, pi, pj), 2)
     extra = ""
@@ -1340,8 +1487,7 @@ def phase_variants():
         compare_prepass(tab, counts, label)
         plain = {}
         for kernel, fn in kinds.items():
-            key = "ablation" + kernel if "ablation" in kernel else (
-                "blockmerge" if "blockmerge" in kernel else "oneblock")
+            key = _plain_kind(kernel)
             if key not in plain:
                 plain[key] = _variant_plain(kernel)(tab, counts, pi, pj)
             got = fn(tab, counts, pi, pj)
@@ -1358,8 +1504,7 @@ def phase_variants():
     with contextlib.redirect_stdout(buf):
         rc = P.main(["276", "2048", "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = dict(V.LAUNCHES, two_nn=matching_cuda.LAUNCHES["two_nn"],
-                    two_nn_f32=matching_cuda.LAUNCHES["two_nn_f32"])
+    launches = dict(V.LAUNCHES, **matching_cuda.LAUNCHES)
     res = {}
     for line in buf.getvalue().splitlines():
         log(f"[probe] {line}")
@@ -1370,16 +1515,18 @@ def phase_variants():
     check(rc == 0, f"probe returned {rc}")
     log("[variants] probe-path launches: "
         + json.dumps({k: v for k, v in launches.items() if v}))
+    calls = 1 + 3 * P.REPS_PER_ORDER     # the warm-up, 3 orders x reps
     for v in P.variants():
         check(v.name in res, f"probe skipped {v.name}")
-        check(launches[v.kernel] > 0, f"probe: {v.kernel} was not launched")
+        check(launches[v.kernel] == calls, f"probe: {v.kernel} launched "
+              f"{launches[v.kernel]} times, not {calls}")
         if v.exact and v.kernel != "two_nn":
             check(res[v.name][0] == "IDENTICAL",
                   f"probe: {v.name} {res[v.name][0]}")
     mma = {k: v for k, v in launches.items() if "_mma" in k and v}
     check(not mma, f"probe: a mma.sync yardstick ran: {mma}")
     check(launches["two_nn_variants_prepass"]
-          == sum(launches[k] for k in WGMMA_VARIANTS),
+          == sum(launches[k] for k in PREPASS_VARIANTS),
           "probe: one pre-pass per wgmma-design call, got "
           f"{launches['two_nn_variants_prepass']}")
 
@@ -1452,8 +1599,19 @@ def main(argv=None):
          "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
          "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
          "bound_by": t32["bound_by"], "library_ms": t32["library_ms"],
+         "ms_before": t32["ms_before"], "product_ms": t32["product_ms"],
+         "tolerance_ratio": t32["tolerance_ratio"],
          "staged_launches": staged_launches["two_nn_f32"],
          "probe_launches": probe_launches["two_nn_f32"]})
+    kernels.append(
+        {"name": "two_nn_f32_prepass", "route": "cuda",
+         "source": TWO_NN_SOURCE, "replaces": TWO_NN_REPLACES,
+         "launches": main_launches["two_nn_f32_prepass"], "max_abs_err": 0.0,
+         "ms": t32["prepass_ms"], "plain_ms": t32["prepass_plain_ms"],
+         "bound_ms": t32["prepass_bound"][0],
+         "bound_by": t32["prepass_bound"][1], "library_ms": None,
+         "staged_launches": staged_launches["two_nn_f32_prepass"],
+         "probe_launches": probe_launches["two_nn_f32_prepass"]})
     kernels += variant_records
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

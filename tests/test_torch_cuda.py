@@ -125,9 +125,8 @@ def test_garbage_rows_past_count(cuda, dtype):
     want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     empty = pj >= 4
     assert not want[1][empty].any() and (want[0][empty] == MC.BIG).all()
-    kernels = [MC.two_nn_pairs]
+    kernels = [MC.two_nn_pairs, MC.two_nn_pairs_mma]
     if dtype == torch.int8:
-        kernels.append(MC.two_nn_pairs_mma)
         _hold_int8(tab, counts, pi, pj, want=want)
     for fn in kernels:
         got = fn(tab, tab, counts, pi, pj)
@@ -182,6 +181,118 @@ def test_product_max_matches_plain(cuda):
     assert _mismatches(got, want) == [0, 0, 0]
 
 
+def _f32_case(kind):
+    """(qtab, dbtab, counts) of integer-valued f32 descriptors in [0, 255]
+    (every quantity exact in f32): the extremes 0 and 255, ragged counts
+    4096 / 3001 / 65 / 1 / 0, ties, garbage past the counts, and a query
+    table that is not the db table."""
+    rng = np.random.default_rng(11)
+    if kind == "extremes":
+        tab = np.zeros((4, 256, 128), np.float32)
+        tab[1] = 255
+        tab[2, :128], tab[2, 128:] = 255, 0
+        tab[3, ::2] = rng.integers(0, 256, (128, 128))
+        sizes = [256, 256, 200, 129]
+    elif kind == "ragged":
+        sizes = [4096, 3001, 65, 1, 0]
+        tab = _table(rng, sizes, torch.float32, 4096).numpy()
+        tab[1, :2000] = tab[0, 1000:3000]
+    elif kind == "ties":
+        sizes = [1024, 1024, 1000, 1024]
+        tab = _table(rng, sizes, torch.float32, 1024).numpy()
+        tab[2, 128:256] = tab[2, 0:128]
+        tab[2, 999] = tab[2, 127]
+        tab[3, 500:1024] = tab[0, 0:524]
+    else:                                    # garbage, separate
+        sizes = [512, 300, 129, 1, 0, 0]
+        tab = rng.integers(0, 256, (6, 512, 128)).astype(np.float32)
+        tab[1, 200:300] = tab[0, 0:100]
+    tab = torch.from_numpy(tab)
+    counts = torch.tensor(sizes, dtype=torch.int32)
+    qtab = tab
+    if kind == "separate":
+        qtab = torch.from_numpy(rng.integers(0, 256, (3, 256, 128))
+                                .astype(np.float32))
+        qtab[0, :100] = tab[0, :100]
+    return qtab, tab, counts
+
+
+@pytest.mark.parametrize("kind", ["extremes", "ragged", "ties", "garbage",
+                                  "separate"])
+def test_f32_kernel_and_twin_bit_exact(cuda, kind):
+    """The f32 `wgmma` kernel and its `mma.sync` twin bit-exact against
+    the plain version on integer-valued tables; one pre-pass launch when
+    the query table is the db table, two otherwise."""
+    qtab, dbtab, counts = _f32_case(kind)
+    shared = qtab is dbtab
+    dbtab, counts = dbtab.to(cuda), counts.to(cuda)
+    qtab = dbtab if shared else qtab.to(cuda)
+    nq, nd = qtab.shape[0], dbtab.shape[0]
+    pi = torch.arange(nq, dtype=torch.int32, device=cuda).repeat_interleave(nd)
+    pj = torch.arange(nd, dtype=torch.int32, device=cuda).repeat(nq)
+    want = MC._two_nn_pairs_plain(qtab, dbtab, counts, pi, pj)
+    before = dict(MC.LAUNCHES)
+    got = MC.two_nn_pairs(qtab, dbtab, counts, pi, pj)
+    twin = MC.two_nn_pairs_mma(qtab, dbtab, counts, pi, pj)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in MC.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {"two_nn_f32": 1, "two_nn_f32_mma": 1,
+                     "two_nn_f32_prepass": 2 if kind == "separate" else 1}
+    assert _mismatches(got, want) == [0, 0, 0], "wgmma vs plain"
+    assert _mismatches(twin, want) == [0, 0, 0], "mma.sync vs plain"
+    assert not got[1][counts[pj.long()] == 0].any()
+
+
+def test_f32_real_valued_within_tolerance(cuda):
+    """Real-valued tables (L2-normalised Gaussian rows scaled to 512,
+    noisy near-duplicates): both f32 kernels within MC.f32_tolerance of
+    the plain version."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(4, 1024, 128))
+    x[1, :500] = x[0, :500] + 0.05 * rng.normal(size=(500, 128))
+    x[2, :300] = x[0, 200:500] + 0.3 * rng.normal(size=(300, 128))
+    x = 512 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+    tab = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    counts = torch.tensor([1024, 900, 513, 1], dtype=torch.int32, device=cuda)
+    pi, pj = _all_pairs(4, cuda)
+    want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    tol = MC.f32_tolerance(tab, tab, counts, pi, pj)
+    for fn in (MC.two_nn_pairs, MC.two_nn_pairs_mma):
+        got = fn(tab, tab, counts, pi, pj)
+        torch.cuda.synchronize()
+        assert MC.f32_mismatches(got, want, tol) == [0, 0, 0], fn.__name__
+
+
+def test_f32_prepass_matches_plain(cuda):
+    """The f32 pre-pass kernel bit-exact against its plain version on a
+    real-valued table (the sums run in the same order), with and without
+    counts, at a row count that is not a multiple of 128."""
+    rng = np.random.default_rng(13)
+    tab = torch.from_numpy(rng.normal(size=(3, 320, 128)).astype(np.float32)
+                           * 100).to(cuda)
+    counts = torch.tensor([320, 130, 0], dtype=torch.int32, device=cuda)
+    for c in (counts, None):
+        got = MC.prepass_f32(tab, c)
+        torch.cuda.synchronize()
+        want = MC.prepass_f32_plain(tab, c)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+
+
+def test_product_max_f32_matches_plain(cuda):
+    """The f32 kernel's product-only split against its plain version."""
+    qtab, dbtab, counts = _f32_case("garbage")
+    tab, counts = dbtab.to(cuda), counts.to(cuda)
+    pi, pj = _all_pairs(tab.shape[0], cuda)
+    before = MC.LAUNCHES["two_nn_product_max_f32"]
+    got = MC.two_nn_product_max(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES["two_nn_product_max_f32"] == before + 1
+    want = MC.product_max_plain(tab, tab, counts, pi, pj)
+    assert _mismatches(got, want) == [0, 0, 0]
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     tab = torch.zeros((2, 128, 128), dtype=torch.int8, device=cuda)
     counts = torch.tensor([128, 128], dtype=torch.int32, device=cuda)
@@ -202,12 +313,15 @@ VARIANTS = ([("oneblock", dict(tq=tq, dot=dot)) for dot in MV.DOTS
             + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES]
             + [("oneblock_mma", dict(tq=tq, dot=dot)) for dot in MV.DOTS
                for tq in MV.ONEBLOCK_TILES]
-            + [("blockmerge_mma", {})])
+            + [("blockmerge_mma", {})]
+            + [("ablation_mma", dict(mode=m)) for m in MV.ABLATION_MODES])
 # The instantiations on the `wgmma` design, and their `mma.sync` twins.
 WGMMA = ([(dict(tq=tq, dot="int8"), f"two_nn_oneblock_int8_{tq}")
           for tq in MV.ONEBLOCK_TILES]
          + [(dict(tq=128, dot="bf16"), "two_nn_oneblock_bf16_128"),
-            (None, "two_nn_blockmerge_bf16")])
+            (None, "two_nn_blockmerge_bf16")]
+         + [(dict(mode=m), f"two_nn_ablation_{m}")
+            for m in MV.ABLATION_MODES])
 
 
 def _variant(kind, kw):
@@ -221,6 +335,9 @@ def _variant(kind, kw):
         return MV.two_nn_blockmerge_bf16, "two_nn_blockmerge_bf16"
     if kind == "blockmerge_mma":
         return MV.two_nn_blockmerge_bf16_mma, "two_nn_blockmerge_bf16_mma"
+    if kind == "ablation_mma":
+        return (lambda *a: MV.two_nn_ablation_mma(*a, **kw),
+                f"two_nn_ablation_mma_{kw['mode']}")
     return (lambda *a: MV.two_nn_ablation(*a, **kw),
             f"two_nn_ablation_{kw['mode']}")
 
@@ -268,7 +385,7 @@ def test_variant_kernel_matches_plain(cuda, kind, kw):
     want = _plain(kind, kw)(tab, counts, pi, pj)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    if kind != "ablation":
+    if not kind.startswith("ablation"):
         for g, w in zip(got, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
             assert torch.equal(g, w)
 
@@ -277,26 +394,38 @@ def test_variant_kernel_matches_plain(cuda, kind, kw):
 @pytest.mark.parametrize("kw,counter", WGMMA, ids=[c for _, c in WGMMA])
 def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
     """Each `wgmma` instantiation bit-identical to its `mma.sync` twin and
-    to `two_nn_pairs`, also with garbage in the rows past the counts; one
-    pre-pass launch per call."""
+    to `two_nn_pairs` (an ablation: to its plain version), also with
+    garbage in the rows past the counts; one pre-pass launch per call
+    ("matmul_max" launches none)."""
     tab, counts, pi, pj = _variant_table(cuda, garbage)
     if kw is None:
         new, old = MV.two_nn_blockmerge_bf16, MV.two_nn_blockmerge_bf16_mma
+        twin_counter = "two_nn_blockmerge_bf16_mma"
+    elif "mode" in kw:
+        new = lambda *a: MV.two_nn_ablation(*a, **kw)          # noqa: E731
+        old = lambda *a: MV.two_nn_ablation_mma(*a, **kw)      # noqa: E731
+        twin_counter = f"two_nn_ablation_mma_{kw['mode']}"
     else:
         new = lambda *a: MV.two_nn_oneblock(*a, **kw)          # noqa: E731
         old = lambda *a: MV.two_nn_oneblock_mma(*a, **kw)      # noqa: E731
+        twin_counter = counter.replace("two_nn_oneblock_",
+                                       "two_nn_oneblock_mma_")
     before = dict(MV.LAUNCHES)
     got = new(tab, counts, pi, pj)
     twin = old(tab, counts, pi, pj)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in MV.LAUNCHES.items() if v != before[k]}
-    assert moved == {counter: 1, "two_nn_variants_prepass": 1,
-                     counter.replace("two_nn_oneblock_",
-                                     "two_nn_oneblock_mma_")
-                     if kw else "two_nn_blockmerge_bf16_mma": 1}
-    for g, w, p in zip(got, twin, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
+    expect = {counter: 1, twin_counter: 1}
+    if counter != "two_nn_ablation_matmul_max":
+        expect["two_nn_variants_prepass"] = 1
+    assert moved == expect
+    ref = (MV.ablation_plain(tab, counts, pi, pj, kw["mode"])
+           if kw and "mode" in kw
+           else MC.two_nn_pairs(tab, tab, counts, pi, pj))
+    for g, w, p in zip(got, twin, ref):
         assert torch.equal(g, w) and torch.equal(g, p)
-    assert not got[1][pj == 5].any()                # no valid db row: i0 = 0
+    if counter != "two_nn_ablation_matmul_max":
+        assert not got[1][pj == 5].any()            # no valid db row: i0 = 0
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])

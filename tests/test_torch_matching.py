@@ -141,3 +141,42 @@ def test_prune_and_symmetrize_match_jax():
     assert js.keys() == ts.keys()
     for k in js:
         np.testing.assert_array_equal(js[k], ts[k])
+
+
+def _bad_pairs_call(what):
+    """A call of the pair wrappers' checks with one bad input.  The wrappers
+    run them on CUDA tensors before any launch (on the CPU they take the
+    plain path, which accepts any shape); CPU tensors pass the device
+    check, so the messages are held here."""
+    tab = torch.zeros((2, 256, 128), dtype=torch.int8)
+    c = torch.tensor([256, 256], dtype=torch.int32)
+    p = torch.zeros(1, dtype=torch.int32)
+    dt = (torch.int8, torch.float32)
+    check = TC._check_tables
+    return {
+        "nq": (lambda: check(tab[:, :200], tab, c, p, p, dt), "Nq % 128"),
+        "nd": (lambda: check(tab, tab[:, :100], c, p, p, dt), "Nd % 64"),
+        "dtype": (lambda: check(tab, tab.float(), c, p, p, dt),
+                  "both be int8 or f32"),
+        "int8_only": (lambda: check(tab.float(), tab.float(), c, p, p,
+                                    (torch.int8,)), "both be int8,"),
+        "dim": (lambda: check(tab[..., :64], tab[..., :64], c, p, p, dt),
+                "128 elements"),
+        "index": (lambda: check(tab, tab, c, p, p + 2, dt), "out of range"),
+        "count": (lambda: check(tab, tab, c + 1, p, p, dt), "out of range"),
+        "index_dtype": (lambda: check(tab, tab, c, p.long(), p, dt),
+                        "must be int32"),
+        "pair_shape": (lambda: check(tab, tab, c, p, torch.zeros(
+            2, dtype=torch.int32), dt), "pi, pj must be"),
+        "device": (lambda: TC.two_nn_pairs(*(t.to("meta") for t in (
+            tab, tab, c, p, p))), "unsupported device"),
+    }[what]
+
+
+@pytest.mark.parametrize("what", ["nq", "nd", "dtype", "int8_only", "dim",
+                                  "index", "count", "index_dtype",
+                                  "pair_shape", "device"])
+def test_two_nn_pairs_checks_reject_bad_inputs(what):
+    fn, msg = _bad_pairs_call(what)
+    with pytest.raises(ValueError, match=msg):
+        fn()

@@ -19,6 +19,15 @@ blockmerge the tiles merge into a 512-row block state that folds into the
 running one at each block boundary.  Only a pair's last tile holds rows past
 the count; there keys of poisoned columns are raised to KEY_POISON.  The
 four lanes of a row are merged at the end and |q|² is added back.
+
+The ablations run the same kernel at tq 128 with the int8 dot.  "top1"
+keeps one running key a row: each thread folds the keys of its columns into
+a tile-local minimum (one IMAD and one min a score) and merges it into the
+running (e0, i0) once per tile, ties keeping the running entry; counts 0
+and 1 give i0 = 0 and 3e38 from KEY_POISON as the top-2 kernels do.
+"matmul_max" takes one max a score of the int32 accumulators over every
+tile of the db image, the rows past the count included and none poisoned,
+as the TPU kernel does; it reads no pre-pass.
 Tolerance: exact.
 """
 
@@ -171,6 +180,65 @@ def emulate(table, counts, pi, pj, tq, dot, merge=False):
     return tuple(out)
 
 
+def _lane_merge(e0, i0, mask):
+    """(e0, i0) of lane ^ mask merged in; ties go to the lower index."""
+    perm = torch.arange(4) ^ mask
+    o0, oi = e0[:, perm], i0[:, perm]
+    other = (o0 < e0) | ((o0 == e0) & (oi < i0))
+    return torch.where(other, o0, e0), torch.where(other, oi, i0)
+
+
+def emulate_ablation(table, counts, pi, pj, mode):
+    """(d0, i0, d1) [B, K] of an ablation on the `wgmma` design by its
+    arithmetic: per-thread column pairs of every 128-column tile, a
+    tile-local fold, a once-per-tile merge, then the lane merge."""
+    K = table.shape[1]
+    if mode == "top1":
+        norms, qsq, _ = V.prepass_plain(table, counts, False)
+    out = [torch.zeros((len(pi), K)), torch.zeros((len(pi), K),
+                                                  dtype=torch.int32),
+           torch.zeros((len(pi), K))]
+    full = lambda v: torch.full((K, 4), v, dtype=torch.long)  # noqa: E731
+    for b, (qi, dj) in enumerate(zip(pi.tolist(), pj.tolist())):
+        acc = table[qi].long() @ table[dj].long().T
+        if mode == "matmul_max":
+            m = full(-2 ** 31)
+            for n in range(K // NT):           # every tile, whatever the count
+                a = acc[:, n * NT:(n + 1) * NT].view(K, NT // 8, 4, 2)
+                for i in range(NT // 8):
+                    m = torch.maximum(m, torch.maximum(a[:, i, :, 0],
+                                                       a[:, i, :, 1]))
+            for mask in (1, 2):
+                m = torch.maximum(m, m[:, torch.arange(4) ^ mask])
+            out[0][b] = m[:, 0].float()
+            continue
+        c = norms[dj].long()
+        key = _wrap32(c - 512 * acc)
+        count = int(counts[dj])
+        n_tiles = -(-count // NT)
+        if count % NT:
+            cols = slice((n_tiles - 1) * NT, n_tiles * NT)
+            key[:, cols] = torch.where((c[cols] != KEY_POISON).expand(K, -1),
+                                       key[:, cols], torch.tensor(KEY_POISON))
+        e0, i0 = full(E_POISON), full(0)
+        for n in range(n_tiles):
+            k = key[:, n * NT:(n + 1) * NT].view(K, NT // 8, 4, 2)
+            b0 = full(KEY_POISON)
+            for i in range(NT // 8):
+                b0 = torch.minimum(b0, torch.minimum(k[:, i, :, 0],
+                                                     k[:, i, :, 1]))
+            lt = (b0 >> 8) < e0
+            e0 = torch.where(lt, b0 >> 8, e0)
+            i0 = torch.where(lt, n * NT + (b0 & 255), i0)
+        for mask in (1, 2):
+            e0, i0 = _lane_merge(e0, i0, mask)
+        qs = qsq[qi].long()
+        out[0][b] = torch.where(e0[:, 0] >= E_POISON, torch.tensor(BIG),
+                                (qs + e0[:, 0]).float())
+        out[1][b] = i0[:, 0].int()
+    return tuple(out)
+
+
 def _table(K, counts, seed):
     """Centered int8 [5, K, 128]: duplicated db rows (ties), a db of one
     repeated row, query rows equal to db rows (distance-0 hits), extreme
@@ -218,6 +286,35 @@ def test_emulation_matches_plain_and_jax(inst, name):
         np.testing.assert_array_equal(g.numpy(), j)
     n = cnt[pj.long()]
     assert (got[2][n < 2] == BIG).all() and not got[1][n == 0].any()
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+@pytest.mark.parametrize("mode", V.ABLATION_MODES)
+def test_ablation_emulation_matches_plain_and_jax(mode, name):
+    """Both ablation modes on the `wgmma` design, emulated: bit-exact
+    against `ablation_plain` and the JAX composition, on ragged counts (0
+    and 1 included), ties and garbage rows past the counts."""
+    K, counts = TABLES[name]
+    tab, cnt = _table(K, counts, sorted(TABLES).index(name))
+    p = torch.tensor(PAIRS, dtype=torch.int32)
+    pi, pj = p[:, 0].contiguous(), p[:, 1].contiguous()
+    got = emulate_ablation(tab, cnt, pi, pj, mode)
+    plain = V.ablation_plain(tab, cnt, pi, pj, mode)
+    jax_out = _jax_pairs(mode, tab.numpy(), cnt.numpy(), PAIRS)
+    for g, w, j in zip(got, plain, jax_out):
+        assert torch.equal(g, w)
+        np.testing.assert_array_equal(g.numpy(), j)
+    n = cnt[pj.long()]
+    if mode == "top1":
+        assert (got[0][n == 0] == BIG).all() and not got[1][n == 0].any()
+        assert not got[2].any()
+    else:
+        # Rows past the count take part: the garbage there sets some maxima.
+        valid = torch.stack([
+            (tab[i].long() @ tab[j, :max(int(cnt[j]), 1)].long().T).amax(1)
+            for i, j in PAIRS]).float()
+        assert (got[0] != valid)[n < K].any()
+        assert not got[1].any() and not got[2].any()
 
 
 @pytest.mark.parametrize("extreme", [-(2 ** 21), -(2 ** 21) + 1, -1, 0, 1,
