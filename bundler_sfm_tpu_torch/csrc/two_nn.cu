@@ -248,12 +248,9 @@ two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
       int i0lo = 0, i0hi = 0;
       const int n_tiles = (dbc + NT - 1) / NT;
 
-      // Tile n sits in stage (seq + n) % STAGES; its product goes to acc0
-      // for even n and acc1 for odd n.  Tile n+1's product is issued before
-      // tile n's epilogue and waited for after it, so every wgmma group is
-      // retired inside the branch that issued it (ptxas serialises groups
-      // that stay in flight across a branch or a loop's back edge).  Only
-      // a pair's last tile can hold rows past the count.
+      // Tile n sits in stage (seq + n) % STAGES (run_tiles has the order of
+      // products and epilogues).  Only a pair's last tile can hold rows past
+      // the count.
       auto stage_of = [&](int n) { return (seq + n) % STAGES; };
       auto issue = [&](int (&acc)[64], int n) {
         mbar_wait(full + 8 * stage_of(n), ((seq + n) / STAGES) & 1);
@@ -278,26 +275,7 @@ two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
           tile_epilogue(acc, n, std::false_type());
       };
 
-      if (n_tiles > 0) {
-        issue(acc0, 0);
-        wgmma_wait<0>(acc0);
-      }
-      for (int n = 0; n < n_tiles; n += 2) {
-        if (n + 1 == n_tiles) {
-          finish_last(acc0, n);
-          break;
-        }
-        issue(acc1, n + 1);
-        finish(acc0, n);
-        wgmma_wait<0>(acc1);
-        if (n + 2 == n_tiles) {
-          finish_last(acc1, n + 1);
-          break;
-        }
-        issue(acc0, n + 2);
-        finish(acc1, n + 1);
-        wgmma_wait<0>(acc0);
-      }
+      run_tiles(n_tiles, acc0, acc1, issue, finish, finish_last);
       seq += n_tiles;
 
       // The four lanes of a row group hold interleaved columns: merge them.
@@ -827,8 +805,7 @@ two_nn_f32_ws_kernel(const __grid_constant__ CUtensorMap q_map,
       int i0lo = 0, i0hi = 0;
       const int n_tiles = (dbc + NT - 1) / NT;
 
-      // The pipeline of two_nn_ws_kernel: tile n+1's product is issued
-      // before tile n's epilogue and waited for after it.
+      // Tile n sits in stage (seq + n) % STAGES.
       auto stage_of = [&](int n) { return (seq + n) % STAGES; };
       auto issue = [&](float (&acc)[64], int n) {
         mbar_wait(full + 8 * stage_of(n), ((seq + n) / STAGES) & 1);
@@ -855,26 +832,7 @@ two_nn_f32_ws_kernel(const __grid_constant__ CUtensorMap q_map,
       };
 
       mbar_wait(qfull, k & 1);
-      if (n_tiles > 0) {
-        issue(acc0, 0);
-        wgmma_wait<0>(acc0);
-      }
-      for (int n = 0; n < n_tiles; n += 2) {
-        if (n + 1 == n_tiles) {
-          finish_last(acc0, n);
-          break;
-        }
-        issue(acc1, n + 1);
-        finish(acc0, n);
-        wgmma_wait<0>(acc1);
-        if (n + 2 == n_tiles) {
-          finish_last(acc1, n + 1);
-          break;
-        }
-        issue(acc0, n + 2);
-        finish(acc1, n + 1);
-        wgmma_wait<0>(acc0);
-      }
+      run_tiles(n_tiles, acc0, acc1, issue, finish, finish_last);
       mbar_arrive(qempty);     // every product of the item has retired
       seq += n_tiles;
 

@@ -824,55 +824,42 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
       using Body = std::false_type;
       using Last = std::true_type;
 
-      if (n_tiles > 0) {
+      if constexpr (MT == 1) {
+        run_tiles(
+            n_tiles, acc0, acc1,
+            [&](Acc (&acc)[64], int n) { issue(acc, n, 0); },
+            [&](const Acc (&acc)[64], int n) { finish(acc, n, M0(), Body()); },
+            [&](const Acc (&acc)[64], int n) { finish(acc, n, M0(), Last()); });
+      } else if (n_tiles > 0) {
         issue(acc0, 0, 0);
         wgmma_wait<0>(acc0);
-        if constexpr (MT == 1) {
-          for (int n = 0;; n += 2) {
-            if (n + 1 == n_tiles) {
-              finish(acc0, n, M0(), Last());
-              break;
-            }
-            issue(acc1, n + 1, 0);
-            finish(acc0, n, M0(), Body());
-            wgmma_wait<0>(acc1);
-            if (n + 2 == n_tiles) {
-              finish(acc1, n + 1, M0(), Last());
-              break;
-            }
-            issue(acc0, n + 2, 0);
-            finish(acc1, n + 1, M0(), Body());
-            wgmma_wait<0>(acc0);
-          }
-        } else {
-          // MT is even: m-tile mt's product is in acc0 for even mt.
-          int n = 0;
-          for (; n + 1 < n_tiles; ++n) {
-            static_for<MT>([&](auto mtc) {
-              constexpr int mt = decltype(mtc)::value;
-              auto& cur = pick<mt % 2>(acc0, acc1);
-              auto& nxt = pick<(mt + 1) % 2>(acc0, acc1);
-              if constexpr (mt + 1 < MT)
-                issue(nxt, n, mt + 1);
-              else
-                issue(nxt, n + 1, 0);
-              finish(cur, n, mtc, Body());
-              wgmma_wait<0>(nxt);
-            });
-          }
-          static_for<MT>([&](auto mtc) {   // the pair's last db tile
+        // MT is even: m-tile mt's product is in acc0 for even mt.
+        int n = 0;
+        for (; n + 1 < n_tiles; ++n) {
+          static_for<MT>([&](auto mtc) {
             constexpr int mt = decltype(mtc)::value;
             auto& cur = pick<mt % 2>(acc0, acc1);
             auto& nxt = pick<(mt + 1) % 2>(acc0, acc1);
-            if constexpr (mt + 1 < MT) {
+            if constexpr (mt + 1 < MT)
               issue(nxt, n, mt + 1);
-              finish(cur, n, mtc, Last());
-              wgmma_wait<0>(nxt);
-            } else {
-              finish(cur, n, mtc, Last());
-            }
+            else
+              issue(nxt, n + 1, 0);
+            finish(cur, n, mtc, Body());
+            wgmma_wait<0>(nxt);
           });
         }
+        static_for<MT>([&](auto mtc) {   // the pair's last db tile
+          constexpr int mt = decltype(mtc)::value;
+          auto& cur = pick<mt % 2>(acc0, acc1);
+          auto& nxt = pick<(mt + 1) % 2>(acc0, acc1);
+          if constexpr (mt + 1 < MT) {
+            issue(nxt, n, mt + 1);
+            finish(cur, n, mtc, Last());
+            wgmma_wait<0>(nxt);
+          } else {
+            finish(cur, n, mtc, Last());
+          }
+        });
       }
       if constexpr (C::A_SMEM) mbar_arrive(qempty);
       seq += n_tiles;

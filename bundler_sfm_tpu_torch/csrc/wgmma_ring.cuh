@@ -174,6 +174,40 @@ __device__ __forceinline__ uint32_t kstep_addr(uint32_t base, int kk) {
   return base + (kk / 4) * BOX_BYTES + (kk % 4) * 32;
 }
 
+// The consumers' loop over an item's n_tiles db tiles with two accumulator
+// sets: tile n's product goes to acc0 for even n and acc1 for odd n, and
+// tile n+1's product is issued before tile n's epilogue and waited for
+// after it, so every wgmma group is retired inside the branch that issued
+// it (ptxas serialises groups in flight across a branch or a loop's back
+// edge).  issue(acc, n) issues tile n's product; finish(acc, n) runs its
+// epilogue, finish_last(acc, n) that of the item's last tile.
+template <class Acc, class Issue, class Finish, class FinishLast>
+__device__ __forceinline__ void run_tiles(int n_tiles, Acc (&acc0)[64],
+                                          Acc (&acc1)[64], Issue&& issue,
+                                          Finish&& finish,
+                                          FinishLast&& finish_last) {
+  if (n_tiles > 0) {
+    issue(acc0, 0);
+    wgmma_wait<0>(acc0);
+  }
+  for (int n = 0; n < n_tiles; n += 2) {
+    if (n + 1 == n_tiles) {
+      finish_last(acc0, n);
+      break;
+    }
+    issue(acc1, n + 1);
+    finish(acc0, n);
+    wgmma_wait<0>(acc1);
+    if (n + 2 == n_tiles) {
+      finish_last(acc1, n + 1);
+      break;
+    }
+    issue(acc0, n + 2);
+    finish(acc1, n + 1);
+    wgmma_wait<0>(acc0);
+  }
+}
+
 // Fold two keys of distinct columns into a top-2 (b0 <= b1): the second
 // smallest of two sorted pairs is min(max(b0, lo), b1, hi).
 __device__ __forceinline__ void fold2(int ka, int kb, int& b0, int& b1) {
