@@ -11,11 +11,13 @@ options, recursive `--options_file`) and `OnInit` (`:747-1046`).  Usage:
         --variable_focal_length --use_focal_estimate --constrain_focal \\
         --constrain_focal_weight 0.0001 --estimate_distortion
 
-The option table is the JAX package's plus `--device`.  Options whose
-modules are not ported yet stop at parse time with a message naming the
-module: --compute_covariance, --fisheye and --num_devices other than 1.
---optimize_for_fisheye is carried into the config, where nothing reads it,
-as in the JAX package.
+The option table is the JAX package's plus `--device`.  --num_devices
+other than 1 stops at parse time (the multi-device paths are not ported
+yet).  --compute_covariance (with --bundle) writes covariance.txt in
+surgery mode, the Schur system inverted on `--device`; --fisheye
+PARAM_FILE rectifies the keypoints of list entries flagged fisheye once at
+load, on `--device`.  --optimize_for_fisheye is carried into the config,
+where nothing reads it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import sys
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from bundler_sfm_tpu_torch.config import BundlerConfig
 from bundler_sfm_tpu_torch.export import process as ops
@@ -41,6 +44,9 @@ from bundler_sfm_tpu_torch.io.listfile import (
 from bundler_sfm_tpu_torch.io.matchfile import (
     read_match_file, read_match_indexes, read_pair_match_files,
 )
+from bundler_sfm_tpu_torch.ops.fisheye import (
+    read_fisheye_file, undistort_points,
+)
 from bundler_sfm_tpu_torch.pipeline.incremental import (
     bundle_adjust_fast, bundle_adjust_slow, run_sfm, to_bundle_file,
 )
@@ -50,6 +56,9 @@ from bundler_sfm_tpu_torch.pipeline.resume import (
 from bundler_sfm_tpu_torch.pipeline.scene import Scene
 from bundler_sfm_tpu_torch.pipeline.tracks import (
     tracks_from_points, write_track_file,
+)
+from bundler_sfm_tpu_torch.pipeline.two_frame import (
+    scene_covariance, write_covariance_file,
 )
 from bundler_sfm_tpu_torch.pipeline.verify import (
     compute_geometric_constraints,
@@ -198,23 +207,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# Options whose code paths need modules not ported yet, with those modules.
-UNPORTED = (
-    ("compute_covariance",
-     "pipeline/two_frame.py camera_covariance / scene_covariance / "
-     "write_covariance_file"),
-    ("fisheye", "ops/fisheye.py"),
-)
-
-
 def _refuse_unported(parser: argparse.ArgumentParser,
                      args: argparse.Namespace) -> None:
-    """Exit with status 2 and a message naming the missing module when an
-    option needs one."""
-    for dest, module in UNPORTED:
-        if getattr(args, dest) not in (None, False):
-            parser.error(f"--{dest} needs {module}, which "
-                         f"bundler_sfm_tpu_torch does not port yet")
+    """Exit with status 2 and a message naming the missing modules when
+    more than one device is asked for."""
     if args.num_devices != 1:
         parser.error("--num_devices other than 1 needs the multi-device "
                      "paths (parallel/), which bundler_sfm_tpu_torch does "
@@ -291,6 +287,7 @@ def scene_from_args(args) -> Scene:
         point_constraint_file=args.point_constraint_file,
         point_constraint_weight=args.point_constraint_weight,
         use_angular_score=args.use_angular_score,
+        fisheye=args.fisheye is not None,
         optimize_for_fisheye=args.optimize_for_fisheye,
         construct_max_connectivity=args.construct_max_connectivity,
         estimate_ignored=args.estimate_ignored,
@@ -321,6 +318,8 @@ def scene_from_args(args) -> Scene:
                 e.init_focal = rec.focal
         cfg.use_focal_estimate = True
         cfg.trust_focal_estimate = True
+    dev = resolve_device(args.device)
+    fisheye_params = read_fisheye_file(args.fisheye) if args.fisheye else None
     dims: List[tuple] = []
     key_xy: List[np.ndarray] = []
     key_color: List[Optional[np.ndarray]] = []
@@ -337,11 +336,17 @@ def scene_from_args(args) -> Scene:
             key_xy.append(np.zeros((0, 2)))
             key_color.append(None)
             continue
-        key_xy.append(keys_to_centered(info, w, h)[:, 0:2].astype(np.float64))
+        xy = keys_to_centered(info, w, h)[:, 0:2].astype(np.float64)
+        if fisheye_params is not None and e.fisheye:
+            # Rectify fisheye keypoints once at load (UndistortPoint applied
+            # to match geometry, src/ImageData.cpp:1171-1192).
+            xy = undistort_points(torch.as_tensor(xy, device=dev),
+                                  fisheye_params).cpu().numpy()
+        key_xy.append(xy)
         key_color.append(_key_colors(e.name, info))
 
     scene = Scene(config=cfg, entries=entries, dims=dims, key_xy=key_xy,
-                  key_color=key_color, device=str(resolve_device(args.device)))
+                  key_color=key_color, device=str(dev))
     if args.ignore_file:
         with open(args.ignore_file) as f:
             for line in f:
@@ -444,6 +449,13 @@ def _bundle_surgery(args, scene) -> int:
         tracks, _, _, _ = tracks_from_points(views, len(bundle.cameras))
         write_track_file(args.write_tracks, len(bundle.cameras), tracks)
         print(f"[bundler] wrote {len(tracks)} tracks to {args.write_tracks}")
+    if args.compute_covariance:
+        regs, _, blocks = scene_covariance(
+            bundle, estimate_distortion=args.estimate_distortion,
+            device=args.device)
+        write_covariance_file(os.path.join(out_dir, "covariance.txt"),
+                              regs, blocks)
+        print(f"[bundler] wrote covariance.txt ({len(regs)} cameras)")
     if args.compress_list:
         comp, names = ops.compress(bundle, [e.name for e in scene.entries])
         write_bundle_file(os.path.join(out_dir, "bundle.compressed.out"),
@@ -486,7 +498,8 @@ def main(argv: Optional[List[str]] = None, sampler: Callable = None) -> int:
                args.prune_bad_points or args.compress_list or
                args.reposition_scene or args.estimate_up_vector_szeliski or
                args.output_relposes or args.scale_focal_file or
-               args.rotate_cameras or args.write_tracks)
+               args.rotate_cameras or args.write_tracks or
+               args.compute_covariance)
     if args.bundle and surgery and not (args.run_bundle or
                                         args.rerun_bundle):
         return _bundle_surgery(args, scene)

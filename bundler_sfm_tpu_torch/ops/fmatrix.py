@@ -1,6 +1,7 @@
-"""Fundamental matrix estimation — batched 8-point RANSAC; port of
-`bundler_sfm_tpu/ops/fmatrix.py` (`fmatrix_residual`, `_closest_rank2`,
-`fit_fmatrix_linear`, `estimate_fmatrix_ransac`).
+"""Fundamental / essential matrix estimation — batched 8-point RANSAC;
+port of `bundler_sfm_tpu/ops/fmatrix.py` (`fmatrix_residual`,
+`_closest_rank2`, `fit_fmatrix_linear`, `estimate_fmatrix_ransac`,
+`refine_fmatrix_nonlinear`, `estimate_ematrix`).
 
 Reference: `lib/imagelib/fmatrix.c` driven by `src/Epipolar.cpp:118-237`.
 The residual is the reference's symmetric epipolar distance
@@ -10,13 +11,16 @@ The residual is the reference's symmetric epipolar distance
 
 Convention: image-2 points are "r", image-1 points are "l", and the
 returned F satisfies x2ᵀ F x1 = 0.  Every function is batched over a
-leading problem dimension; the RANSAC draw is an input (`samples`).
+leading problem dimension but the two single-pair functions at the end;
+the RANSAC draw is an input (`samples`).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import jacfwd
 
+from bundler_sfm_tpu_torch.ops.essential import ematrix_to_fmatrix
 from bundler_sfm_tpu_torch.ops.linalg_small import cholesky_solve
 from bundler_sfm_tpu_torch.ops.ransac import gather_rows, hartley_normalize
 from bundler_sfm_tpu_torch.ops.svd_utils import svd_small
@@ -139,3 +143,52 @@ def estimate_fmatrix_ransac(samples: torch.Tensor, x1: torch.Tensor,
     F_out = torch.where(better[:, None, None], F2, F)
     inl_out = torch.where(better[:, None], inl2, inl)
     return F_out, inl_out, torch.maximum(n2, cnt)
+
+
+def refine_fmatrix_nonlinear(F0: torch.Tensor, x1: torch.Tensor,
+                             x2: torch.Tensor, mask: torch.Tensor,
+                             num_iters: int = 10) -> torch.Tensor:
+    """Gauss-Newton polish of one F [3, 3] on its inliers, minimizing the
+    symmetric epipolar residual (role of `refine_fmatrix_nonlinear_matches`,
+    `lib/imagelib/fmatrix.h:63-77`): x1/x2 [N, 2], mask [N].  F is kept
+    unit-norm, a step is kept only when it lowers the cost, and the result
+    is projected to rank 2.  The Jacobian is forward-mode AD of the
+    residual, as in the JAX package."""
+    w = mask.to(F0.dtype)
+    eye = torch.eye(9, dtype=F0.dtype, device=F0.device)
+
+    def residuals(fvec):
+        r = fmatrix_residual(fvec.reshape(3, 3), x2, x1)
+        return torch.sqrt(torch.clamp(r, min=1e-300)) * w
+
+    fvec = F0.reshape(9)
+    fvec = fvec / torch.clamp(torch.linalg.norm(fvec), min=1e-12)
+    for _ in range(num_iters):
+        J = jacfwd(residuals)(fvec)                                # [N, 9]
+        r = residuals(fvec)
+        delta = cholesky_solve(J.T @ J + 1e-9 * eye, J.T @ r)
+        fnew = fvec - delta
+        fnew = fnew / torch.clamp(torch.linalg.norm(fnew), min=1e-12)
+        improved = (residuals(fnew) ** 2).sum() < (r ** 2).sum()
+        fvec = torch.where(improved, fnew, fvec)
+    return _closest_rank2(fvec.reshape(3, 3), essential=False)
+
+
+def estimate_ematrix(samples: torch.Tensor, x1: torch.Tensor,
+                     x2: torch.Tensor, n_valid: int, f1: float, f2: float,
+                     threshold_px_sq: float):
+    """Essential matrix of one image pair from pixel coords and known
+    focals (`EstimateEMatrix`, `src/Epipolar.cpp:37-83`).
+
+    samples [R, 8] round draws; x1/x2 [N, 2] centered pixel coords.  The
+    points are NEGATED into ray coordinates (-x/f, the 5-point path's sign
+    flip) and run through essential-constrained F RANSAC with the pixel
+    threshold scaled by (0.5·(f1 + f2))², so the returned E acts on rays
+    and decomposes directly into the bundler-convention pose.  Returns
+    (E_ray [3, 3], F_pixel [3, 3], inliers [N], count)."""
+    scale = 0.5 * (f1 + f2)
+    E, inl, cnt = estimate_fmatrix_ransac(
+        samples[None], (-x1 / f1)[None], (-x2 / f2)[None],
+        torch.tensor([n_valid], device=x1.device),
+        threshold_px_sq / (scale * scale), essential=True)
+    return E[0], ematrix_to_fmatrix(E[0], f1, f2), inl[0], cnt[0]

@@ -53,7 +53,26 @@ Phases (any failure raises, so the exit code is non-zero):
                12 views: 12/12, and --slow_bundle --fix_necker on the first
                8 (the flip must run).  Every bundler run is repeated on
                CUDA and its bundle.out must be byte-identical.
-  5. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) of
+  5. tools — the reference's post-bundle tools on phase 3's render,
+               bundle.out and key files, every run in a fresh directory
+               under build/smoke/tools/, each run's seconds printed: (a)
+               `bundler --bundle --compute_covariance` on CUDA and on the
+               CPU (24 blocks, each SPD; the CUDA inverse within rtol 1e-8
+               of the CPU's); (b) `radialundistort` of the 24 images on
+               CUDA and on the CPU (bundle.rd.out and list.rd.txt
+               byte-identical; the undistorted arrays equal, or off by 1
+               on at most 1e-6 of the values, the count printed); (c)
+               `bundle2pmvs` and `bundle2vis` on bundle.rd.out and
+               `bundle2ply` (24 projection files, each projecting the
+               camera's points onto their observations within a median 1
+               px); (d) the fisheye flow: the key files pushed through a
+               fisheye lens, every list entry flagged fisheye, `keymatch`
+               (launch counts zeroed just before; matches.init.txt
+               byte-identical to run_bundler's) and `bundler
+               --options_file --fisheye` (24/24 cameras, centre error <
+               0.02, reprojection < 1 px), then `fisheyeundistort` on CUDA
+               and on the CPU, compared as in (b).
+  6. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) of
                both designs (the `wgmma` design and its `mma.sync` twins,
                `_mma`; both ablation modes included) bit-exact against its
                plain version,
@@ -949,6 +968,12 @@ HELD_OUT = [20, 21, 22, 23]
 NUM_ANCHORS = 8
 
 
+def fresh_dir(path):
+    check(not os.path.exists(path), f"{path} is not a fresh directory")
+    os.makedirs(path)
+    return path
+
+
 def write_options(path, match_table):
     with open(path, "w") as f:
         f.write("\n".join([f"--match_table {match_table}"]
@@ -963,8 +988,7 @@ def bundler_run(wdir, argv, label, gt=None):
     bundle/bundle.out against `gt`)."""
     from bundler_sfm_tpu_torch import bundler
     from bundler_sfm_tpu_torch.utils import get_telemetry
-    check(not os.path.exists(wdir), f"{wdir} is not a fresh directory")
-    os.makedirs(wdir)
+    fresh_dir(wdir)
     cwd = os.getcwd()
     os.chdir(wdir)
     try:
@@ -1252,6 +1276,275 @@ def phase_staged():
     log(f"[staged] phase {time.time() - t_phase:.1f} s; 2-NN launches "
         f"{json.dumps(total)}")
     return total, failures
+
+
+# The fisheye lens the tools phase pushes the key files through
+# (tests/test_fisheye.py's end-to-end parameters).
+FISHEYE = dict(fCx=0.0, fCy=0.0, fRad=480.0, fAngle=160.0, fFocal=420.0)
+
+
+def timed(label, fn):
+    """fn() with stdout captured; logs its seconds; returns its result."""
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    torch.cuda.synchronize()
+    log(f"[tools] {label}: {time.time() - t0:.2f} s")
+    return out
+
+
+def compare_images(jobs, what, check_later):
+    """Each (image path, undistort(arr, device)) job's array on CUDA and on
+    the CPU: equal, or off by at most 1 on at most 1e-6 of the values (the
+    count printed)."""
+    from PIL import Image
+    n_off, n_all, worst = 0, 0, 0
+    for path, undistort in jobs:
+        with Image.open(path) as im:
+            arr = np.asarray(im.convert("RGB"))
+        d = np.abs(undistort(arr, "cuda").astype(np.int16)
+                   - undistort(arr, "cpu").astype(np.int16))
+        n_off += int((d > 0).sum())
+        n_all += d.size
+        worst = max(worst, int(d.max()))
+    log(f"[tools] {what}: CUDA vs CPU arrays of {len(jobs)} images, "
+        f"{n_off} of {n_all} values differ (largest difference {worst})")
+    check_later(worst <= 1 and n_off <= 1e-6 * n_all,
+                f"{what}: {n_off} values differ by up to {worst}")
+
+
+def pmvs_projection_error(pmvs_dir, bundle_path, W, H):
+    """Median pixel distance, per exported camera, between each point the
+    camera sees projected by its txt/%08d.txt matrix and the observation
+    (top-left pixel coordinates; the matrix leaves out distortion)."""
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    b = read_bundle_file(bundle_path)
+    reg = [i for i, c in enumerate(b.cameras) if c.registered]
+    pos = {i: [] for i in reg}
+    obs = {i: [] for i in reg}
+    for p in b.points:
+        for v in p.views:
+            pos[int(v[0])].append(p.pos)
+            obs[int(v[0])].append(v[2:4])
+    med = []
+    for k, i in enumerate(reg):
+        with open(os.path.join(pmvs_dir, "txt", f"{k:08d}.txt")) as f:
+            lines = f.read().splitlines()
+        check(lines[0] == "CONTOUR", f"txt/{k:08d}.txt has no CONTOUR line")
+        P = np.array([[float(x) for x in ln.split()] for ln in lines[1:4]])
+        X = np.concatenate([np.array(pos[i]), np.ones((len(pos[i]), 1))], 1)
+        q = X @ P.T
+        xy = np.array(obs[i])
+        ref = np.stack([xy[:, 0] + 0.5 * (W - 1),
+                        (H - 1) - (xy[:, 1] + 0.5 * (H - 1))], 1)
+        med.append(float(np.median(np.linalg.norm(q[:, :2] / q[:, 2:3] - ref,
+                                                  axis=1))))
+    return med
+
+
+def phase_tools():
+    """The reference's post-bundle tools on phase 3's render, bundle.out
+    and key files, every run in a fresh directory under build/smoke/tools/:
+    (a) `bundler --bundle --compute_covariance` on CUDA and on the CPU;
+    (b) `radialundistort` on CUDA and on the CPU; (c) `bundle2pmvs`,
+    `bundle2vis` on bundle.rd.out and `bundle2ply`; (d) the fisheye flow:
+    the key files pushed through a fisheye lens, every list entry flagged
+    fisheye, `keymatch` and `bundler --options_file --fisheye` with the
+    launch counts zeroed, then `fisheyeundistort` on CUDA and on the CPU.
+    Returns the 2-NN launch counts of (d) and the failed checks, which
+    main() raises once every phase has run."""
+    from bundler_sfm_tpu_torch import (
+        bundle2ply, bundle2pmvs, bundle2vis, bundler, fisheyeundistort,
+        keymatch, radialundistort,
+    )
+    from bundler_sfm_tpu_torch.export.undistort import undistort_image
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    from bundler_sfm_tpu_torch.io.keyfile import (
+        centered_to_image, keys_to_centered, read_key_file, write_key_file_bin,
+    )
+    from bundler_sfm_tpu_torch.io.listfile import (
+        read_list_file, write_list_file,
+    )
+    from bundler_sfm_tpu_torch.ops import fisheye
+    from bundler_sfm_tpu_torch.pipeline.two_frame import scene_covariance
+    work = os.path.join(ROOT, "build", "smoke")
+    tools = os.path.join(work, "tools")
+    if os.path.exists(tools):
+        import shutil
+        shutil.rmtree(tools)
+    os.makedirs(tools)
+    with open(os.path.join(work, "images", "gt.json")) as f:
+        gt = json.load(f)
+    lst = os.path.join(work, "list.txt")
+    bundle_out = os.path.join(work, "bundle", "bundle.out")
+    entries = read_list_file(lst, work)
+    from PIL import Image
+    with Image.open(entries[0].name) as im:
+        dims = im.size
+    t_phase = time.time()
+    failures = []
+
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+
+    # (a) --compute_covariance in surgery mode, on CUDA and on the CPU.
+    covs = {}
+    bundle = read_bundle_file(bundle_out)
+    for dev in ("cuda", "cpu"):
+        d = fresh_dir(os.path.join(tools, f"a-{dev}"))
+        rc = timed(f"(a) bundler --compute_covariance on {dev}",
+                   lambda: bundler.main([
+                       lst, "--bundle", bundle_out, "--compute_covariance",
+                       "--estimate_distortion", "--key_dir", work,
+                       "--output_dir", d, "--device", dev]))
+        check(rc == 0, f"(a) bundler --compute_covariance on {dev}: rc {rc}")
+        with open(os.path.join(d, "covariance.txt")) as f:
+            lines = f.read().splitlines()
+        check_later(len(lines) == 3 * 24, f"(a) {dev}: covariance.txt has "
+                    f"{len(lines) // 3} cameras")
+        covs[dev] = timed(f"(a) scene_covariance on {dev}",
+                          lambda: scene_covariance(bundle, device=dev))
+    regs, cov, blocks = covs["cuda"]
+    eig = min(float(np.linalg.eigvalsh(C).min()) for C in blocks)
+    rel = float(np.abs(cov - covs["cpu"][1]).max() / np.abs(cov).max())
+    with open(os.path.join(tools, "a-cuda", "covariance.txt"), "rb") as a, \
+            open(os.path.join(tools, "a-cpu", "covariance.txt"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"[tools] (a) {len(blocks)} blocks, smallest eigenvalue {eig:.6e}, "
+        f"CUDA vs CPU inverse: largest difference {rel:.3e} of its largest "
+        f"entry; covariance.txt byte-identical {same}")
+    check_later(len(blocks) == 24 and eig > 0,
+                f"(a) {len(blocks)} blocks, smallest eigenvalue {eig}")
+    check_later(np.allclose(cov, covs["cpu"][1], rtol=1e-8,
+                            atol=1e-8 * np.abs(cov).max()),
+                f"(a) CUDA covariance differs from the CPU's by {rel}")
+
+    # (b) RadialUndistort on CUDA and on the CPU, each writing rd/ in its
+    # own directory (list.rd.txt names the images by that path).
+    rd = {}
+    cwd = os.getcwd()
+    for dev in ("cuda", "cpu"):
+        d = fresh_dir(os.path.join(tools, f"b-{dev}"))
+        rd[dev] = os.path.join(d, "rd")
+        os.chdir(d)
+        try:
+            timed(f"(b) radialundistort of 24 images on {dev}",
+                  lambda: radialundistort.main([lst, bundle_out, "rd",
+                                                "--device", dev]))
+        finally:
+            os.chdir(cwd)
+    for name in ("bundle.rd.out", "list.rd.txt"):
+        with open(os.path.join(rd["cuda"], name), "rb") as a, \
+                open(os.path.join(rd["cpu"], name), "rb") as b:
+            x, y = a.read(), b.read()
+        log(f"[tools] (b) {name} byte-identical CUDA vs CPU: {x == y}")
+        check_later(x == y, f"(b) {name} differs between CUDA and the CPU")
+    with open(os.path.join(rd["cuda"], "list.rd.txt")) as f:
+        check_later(len(f.read().split()) == 24, "(b) list.rd.txt does not "
+                    "list 24 images")
+    compare_images([(e.name, lambda arr, dev, c=c: undistort_image(
+        arr, c.f, c.k1, c.k2, device=dev))
+        for e, c in zip(entries, bundle.cameras) if c.registered],
+        "(b)", check_later)
+
+    # (c) Bundle2PMVS and Bundle2Vis on bundle.rd.out, Bundle2Ply.
+    rd_bundle = os.path.join(rd["cuda"], "bundle.rd.out")
+    pmvs = os.path.join(tools, "c", "pmvs")
+    os.makedirs(os.path.dirname(pmvs))
+    timed("(c) bundle2pmvs", lambda: bundle2pmvs.main([lst, rd_bundle, pmvs]))
+    txts = sorted(os.listdir(os.path.join(pmvs, "txt")))
+    med = pmvs_projection_error(pmvs, rd_bundle, *dims)
+    log(f"[tools] (c) {len(txts)} projection files; median distance of "
+        f"projected points to their observations per camera: "
+        f"{min(med):.4f}..{max(med):.4f} px")
+    check_later(len(txts) == 24 and max(med) < 1.0,
+                f"(c) {len(txts)} projection files, median distances "
+                f"up to {max(med)} px")
+    vis = os.path.join(pmvs, "vis.dat")
+    timed("(c) bundle2vis", lambda: bundle2vis.main([rd_bundle, vis]))
+    with open(vis) as f:
+        rows = f.read().splitlines()
+    check_later(rows[:2] == ["VISDATA", "24"] and len(rows) == 26,
+                f"(c) vis.dat header {rows[:2]}, {len(rows)} lines")
+    ply = os.path.join(tools, "c", "points.ply")
+    timed("(c) bundle2ply", lambda: bundle2ply.main([bundle_out, ply]))
+    with open(ply) as f:
+        head = f.read(200)
+    n_vert = int(re.search(r"element vertex (\d+)", head).group(1))
+    log(f"[tools] (c) vis.dat {len(rows)} lines; points.ply {n_vert} "
+        f"vertices")
+    check_later(n_vert >= 48, f"(c) points.ply has {n_vert} vertices")
+
+    # (d) The fisheye flow: key files through the lens, keymatch, bundler
+    # --fisheye, FisheyeUndistort.
+    fd = fresh_dir(os.path.join(tools, "d"))
+    keys = fresh_dir(os.path.join(fd, "keys"))
+    params = fisheye.FisheyeParams(**FISHEYE)
+    fish_txt = os.path.join(fd, "fisheye.txt")
+    with open(fish_txt, "w") as f:
+        f.write(f"FisheyeCenter: {params.fCx} {params.fCy}\n"
+                f"FisheyeRadius: {params.fRad}\nFisheyeAngle: "
+                f"{params.fAngle}\nFisheyeFocal: {params.fFocal}\n")
+    t0 = time.time()
+    key_paths = []
+    for e in entries:
+        base = os.path.splitext(os.path.basename(e.name))[0]
+        info, desc = read_key_file(os.path.join(work, base + ".key.gz"))
+        cent = keys_to_centered(info, *dims)[:, :2].astype(np.float64)
+        fish = fisheye.distort_points(torch.as_tensor(cent, device="cuda"),
+                                      params).cpu().numpy()
+        info = info.copy()
+        info[:, :2] = centered_to_image(fish, *dims)
+        key_paths.append(os.path.join(keys, base + ".key.bin"))
+        write_key_file_bin(key_paths[-1], info, desc)
+    for e in entries:
+        e.fisheye = True
+    fish_list = os.path.join(fd, "list.txt")
+    write_list_file(fish_list, entries)
+    with open(os.path.join(fd, "list_keys.txt"), "w") as f:
+        f.write("".join(k + "\n" for k in key_paths))
+    log(f"[tools] (d) 24 key files through the fisheye lens: "
+        f"{time.time() - t0:.2f} s")
+    matches = os.path.join(fd, "matches.init.txt")
+    zero_launches()
+    rc = timed("(d) keymatch", lambda: keymatch.main([
+        os.path.join(fd, "list_keys.txt"), matches]))
+    launches = dict(matching_cuda.LAUNCHES)
+    check(rc == 0, f"(d) keymatch returned {rc}")
+    check(launches["two_nn"] > 0 and launches["two_nn_mma"] == 0,
+          f"(d) keymatch launches {launches}")
+    with open(matches, "rb") as a, open(os.path.join(
+            work, "matches.init.txt"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"[tools] (d) keymatch launches {json.dumps(launches)}; "
+        f"matches.init.txt byte-identical with run_bundler's: {same}")
+    check_later(same, "(d) keymatch on the fisheye keys matched otherwise")
+    opts = os.path.join(fd, "options.txt")
+    write_options(opts, matches)
+    rec = bundler_run(os.path.join(fd, "run"), [
+        fish_list, "--options_file", opts, "--key_dir", keys, "--fisheye",
+        fish_txt], "(d) bundler --fisheye", gt)
+    for k, v in rec["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    check_later(rec["cameras"] == 24 and rec["ate"] < 0.02
+                and rec["reproj_px"] < 1.0,
+                f"(d) fisheye: {rec['cameras']} cameras, centre error "
+                f"{rec['ate']}, reprojection {rec['reproj_px']} px")
+    for dev in ("cuda", "cpu"):
+        timed(f"(d) fisheyeundistort of 24 images on {dev}",
+              lambda: fisheyeundistort.main([
+                  lst, fish_txt, os.path.join(fd, f"fd-{dev}"),
+                  "--device", dev]))
+    check_later(len(os.listdir(os.path.join(fd, "fd-cuda"))) == 24,
+                "(d) fisheyeundistort did not write 24 images")
+    compare_images([(e.name, lambda arr, dev: fisheye.undistort_image(
+        arr, params, device=dev)) for e in entries], "(d)", check_later)
+    log(f"[tools] phase {time.time() - t_phase:.1f} s; 2-NN launches "
+        f"{json.dumps(launches)}")
+    return launches, failures
 
 
 # The TPU kernel each variant kernel replaces, by its wrapper's name.
@@ -1592,11 +1885,15 @@ def main(argv=None):
     t32 = phase_kernels()
     kernels, failures, main_launches = phase_main(args.dump_scene)
     staged_launches, staged_failures = phase_staged()
+    tools_launches, tools_failures = phase_tools()
     variant_records, probe_launches = phase_variants()
     check(not failures, f"stage-5 checks failed: {failures}")
     check(not staged_failures, f"staged checks failed: {staged_failures}")
+    check(not tools_failures, f"tools checks failed: {tools_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
     kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
+    kernels[0]["tools_launches"] = tools_launches["two_nn"]
+    kernels[1]["tools_launches"] = tools_launches["two_nn_norms"]
     kernels.append(
         {"name": "two_nn_f32", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": main_launches["two_nn_f32"],

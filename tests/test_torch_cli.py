@@ -67,8 +67,6 @@ def test_options_file_recursion(tmp_path):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["--compute_covariance"], "two_frame"),
-    (["--fisheye", "fisheye.txt"], "ops/fisheye.py"),
     (["--num_devices", "4"], "multi-device"),
     (["--num_devices", "0"], "multi-device"),
 ])

@@ -54,7 +54,10 @@ def test_import_leaves_jax_out():
         "pipeline.incremental", "io.bundlefile", "io.plyfile", "bundler",
         "keymatch", "keymatchsingle", "creatematchscript", "io.intrinsics",
         "export.process", "export.scene_geometry", "pipeline.resume",
-        "pipeline.register")]
+        "pipeline.register", "pipeline.two_frame", "ops.fisheye",
+        "ops.homography_decompose", "ops.resample", "export.undistort",
+        "export.pmvs", "export.vis", "radialundistort", "fisheyeundistort",
+        "bundle2pmvs", "bundle2vis", "bundle2ply")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
@@ -69,7 +72,15 @@ def test_import_leaves_jax_out():
 
 
 def _entry_points(tmp_path):
-    from bundler_sfm_tpu_torch import bundler, keymatch, run_bundler
+    from bundler_sfm_tpu_torch import (
+        bundler, fisheyeundistort, keymatch, radialundistort, run_bundler,
+    )
+    from bundler_sfm_tpu_torch.export.undistort import undistort_image
+    from bundler_sfm_tpu_torch.ops.fisheye import FisheyeParams
+    from bundler_sfm_tpu_torch.ops.fisheye import (
+        undistort_image as fisheye_undistort_image,
+    )
+    from bundler_sfm_tpu_torch.pipeline.two_frame import scene_covariance
     from bundler_sfm_tpu_torch.config import BundlerConfig
     from bundler_sfm_tpu_torch.convert import (
         ba_problem_from_numpy, scene_from_numpy,
@@ -108,6 +119,20 @@ def _entry_points(tmp_path):
         "bundler.main": lambda: bundler.main(["list.txt", "--run_bundle"]),
         "register_image": lambda: register_image(
             BundleFile(cameras=[], points=[]), d, d, np.zeros((4, 2))),
+        "radialundistort": lambda: radialundistort.main(
+            ["list.txt", "bundle.out", "rd"]),
+        "fisheyeundistort": lambda: fisheyeundistort.main(
+            ["list.txt", "fisheye.txt", "fd"]),
+        "bundler --compute_covariance": lambda: bundler.main(
+            ["list.txt", "--bundle", "bundle.out", "--compute_covariance"]),
+        "bundler --fisheye": lambda: bundler.main(
+            ["list.txt", "--run_bundle", "--fisheye", "fisheye.txt"]),
+        "scene_covariance": lambda: scene_covariance(
+            BundleFile(cameras=[], points=[])),
+        "undistort_image": lambda: undistort_image(img[..., None], 1.0, 0.0,
+                                                   0.0),
+        "fisheye.undistort_image": lambda: fisheye_undistort_image(
+            img, FisheyeParams(0.0, 0.0, 1.0, 90.0, 1.0)),
     }
 
 
@@ -116,7 +141,12 @@ def _entry_points(tmp_path):
                                   "run_bundler", "probe_two_nn_variants",
                                   "ba_problem_from_numpy",
                                   "bundle_adjust_fast", "keymatch.match_full",
-                                  "bundler.main", "register_image"])
+                                  "bundler.main", "register_image",
+                                  "radialundistort", "fisheyeundistort",
+                                  "bundler --compute_covariance",
+                                  "bundler --fisheye", "scene_covariance",
+                                  "undistort_image",
+                                  "fisheye.undistort_image"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, the default device raises instead of falling back
     (each entry point runs on the CPU only when asked: see the other
