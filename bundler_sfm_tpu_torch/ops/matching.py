@@ -18,6 +18,8 @@ Public entry points:
   match_pair           — one image pair, host-friendly wrapper
   DescriptorTable      — device-resident table matched over a pair list
                          (the KeyMatchFull replacement)
+  match_pairs_batched  — a pair list in chunks of `batch` pairs, each chunk
+                         one kernel call on its own two tables
   prune_double_matches — keep-first dedup of many-to-one matches
                          (src/MatchTracks.cpp:394-452)
   symmetrize           — reversed lists for every pair
@@ -25,7 +27,7 @@ Public entry points:
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +182,84 @@ class DescriptorTable:
             if b - a >= min_matches:
                 out[(i, j)] = np.stack([cols[a:b], vals[a:b]], axis=1)
         return out
+
+
+def pad_images(descs: Sequence[np.ndarray], pairs: Sequence[Tuple[int, int]],
+               block: int):
+    """`match_pairs_batched`'s layout: every image of `pairs` prepped and
+    zero-padded to the largest key count over `pairs` rounded up to `block`
+    (and to the kernel's query tile).  Returns ({image: [K, 128]},
+    {image: key count})."""
+    kmax = _round_up(max(max(len(descs[i]), len(descs[j]))
+                         for i, j in pairs), block)
+    kmax = _round_up(max(kmax, 1), QUERY_TILE)
+    used = sorted({i for p in pairs for i in p})
+    return ({i: _pad_to(_prep_desc(descs[i]), kmax) for i in used},
+            {i: len(descs[i]) for i in used})
+
+
+def batch_tables(padded: Mapping[int, np.ndarray], counts: Mapping[int, int],
+                 chunk: Sequence[Tuple[int, int]], device):
+    """The two tables one `match_pairs_batched` chunk gives the kernel: the
+    chunk's query images and its db images, each image once, uploaded to
+    `device` (`padded`, `counts` from `pad_images`).  Returns (qtab, dbtab,
+    q_counts [B], db_counts, pi, pj)."""
+    qimg = sorted({i for i, _ in chunk})
+    dimg = sorted({j for _, j in chunk})
+    qrow = {i: r for r, i in enumerate(qimg)}
+    drow = {j: r for r, j in enumerate(dimg)}
+
+    def up(x, dtype=None):
+        return torch.from_numpy(np.asarray(x, dtype=dtype)).to(device)
+    qtab = up(np.stack([padded[i] for i in qimg]))
+    dbtab = up(np.stack([padded[j] for j in dimg]))
+    q_counts = up([counts[i] for i, _ in chunk], np.int32)
+    db_counts = up([counts[j] for j in dimg], np.int32)
+    pi = up([qrow[i] for i, _ in chunk], np.int32)
+    pj = up([drow[j] for _, j in chunk], np.int32)
+    return qtab, dbtab, q_counts, db_counts, pi, pj
+
+
+def match_pairs_batched(
+    descs: Sequence[np.ndarray],
+    pairs: Sequence[Tuple[int, int]],
+    ratio: float = 0.6,
+    batch: int = 32,
+    block: int = 1024,
+    min_matches: int = 0,
+    device="cuda",
+) -> Dict[Tuple[int, int], np.ndarray]:
+    """Match many image pairs, `batch` pairs to one 2-NN kernel call.
+
+    descs: per-image uint8 (centered int8 tables, the int8 kernel) or float
+    (f32 tables, the f32 kernel) [k_i, 128] arrays.  pairs: (i, j) with
+    i < j — image i queries image j (KeyMatchFull direction:
+    `src/KeyMatchFull.cpp` matches j<i querying into tree_i, emitting pairs
+    (j, i)).  Images are padded as `pad_images` says; the db count masks
+    the padding, so the result does not depend on `block` or `batch`.
+    Applies keep-first dedup (PruneDoubleMatches) and the >= min_matches
+    pair cutoff (`src/KeyMatchFull.cpp:131` uses 16).  Returns
+    {(i, j): int32 [m, 2]} in ascending idx1 order.
+    """
+    dev = resolve_device(device)
+    if not pairs:
+        return {}
+    padded, counts = pad_images(descs, pairs, block)
+    out: Dict[Tuple[int, int], np.ndarray] = {}
+    for start in range(0, len(pairs), batch):
+        chunk = pairs[start:start + batch]
+        qtab, dbtab, q_counts, db_counts, pi, pj = batch_tables(
+            padded, counts, chunk, dev)
+        d0, i0, d1 = two_nn_pairs(qtab, dbtab, db_counts, pi, pj)
+        acc = _ratio_accept(d0, d1, q_counts, ratio * ratio).cpu().numpy()
+        i0 = i0.cpu().numpy()
+        for p, (i, j) in enumerate(chunk):
+            idx1 = np.nonzero(acc[p])[0].astype(np.int32)
+            m = np.stack([idx1, i0[p, idx1].astype(np.int32)], axis=1)
+            m = prune_double_matches(m)
+            if len(m) >= min_matches:
+                out[(i, j)] = m
+    return out
 
 
 def prune_double_matches(matches: np.ndarray) -> np.ndarray:

@@ -88,6 +88,33 @@ Phases (any failure raises, so the exit code is non-zero):
                twin in turns, its plain version, a library yardstick, the
                int8 and bf16 bounds and the pre-pass at 2208 pairs x
                2048^2.
+  7. library — the JAX package's library modules on phase 3's bundle.out
+               (24 cameras, 13402 points) and its 24 x 4096-key
+               descriptors, under build/smoke/library/, each step's
+               seconds printed: (a) `match_pairs_batched` over all 276
+               pairs on the uint8 descriptors and on the same values as
+               float32, each with the launch counts zeroed just before
+               (int8: one two_nn and one norms launch per chunk of 32
+               pairs; f32: one two_nn_f32 and two pre-pass launches), both
+               dicts and match files identical to
+               `DescriptorTable.match_pairs(..., min_matches=16)`, each
+               chunk's kernels bit-exact against their plain versions, ms
+               per call and in the kernels beside the bound; (b)
+               `knn_plane_normals` and `estimate_point_normals` (k=32) on
+               CUDA and on the CPU (at most 1 in 1000 normals more than
+               1e-6 rad apart, unoriented resp. oriented); (c)
+               `setup_scene_ground_plane`, `fit_plane_to_points` in its
+               three modes and `compute_image_rotations` with one draw of
+               samples on both devices (same inliers and rotations, planes
+               within 1e-9; a 2D line up to its sign) and
+               `estimate_point_normals_confidence`; (d)
+               `estimate_similarity_ransac` on the pair with the most
+               matches (same inliers, model within 1e-9); (e) every
+               observation through the four camera models (CUDA vs CPU
+               within 1e-6 px; the quaternion and known-intrinsics models
+               within 1e-4 px of the Snavely model, < 1 px from the
+               observations); (f) cameras.xml / points.xml byte-identical
+               with each device's plane.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
 power limit as nvidia-smi reports them.  `--dump-scene PATH` also writes
@@ -1871,6 +1898,327 @@ def phase_variants():
     return records, launches
 
 
+def library_matching(descs, lib, check_later):
+    """(a) of the library phase: `match_pairs_batched` over every pair, on
+    the uint8 descriptors and on the same values as float32, each with the
+    launch counts zeroed just before; both dicts (and match files)
+    identical to `DescriptorTable.match_pairs`; each kernel of a chunk held
+    against its plain version; per-call times beside the bound.  Returns
+    the launches of both runs, summed, and the kernels' times."""
+    from bundler_sfm_tpu_torch.io.matchfile import write_match_file
+    from bundler_sfm_tpu_torch.ops import matching
+    M = matching_cuda
+    pairs = all_pairs(len(descs))
+    want = DescriptorTable(descs, device="cuda").match_pairs(
+        pairs, min_matches=16)
+    write_match_file(os.path.join(lib, "matches.table.txt"), want)
+    with open(os.path.join(lib, "matches.table.txt"), "rb") as f:
+        want_bytes = f.read()
+    batch = 32
+    n_chunks = -(-len(pairs) // batch)
+    launches, times = {}, {}
+    for name, dtype, peak in (("uint8", np.uint8, INT8_TOPS),
+                              ("float32", np.float32, BF16_TOPS)):
+        ds = [d.astype(dtype) for d in descs]
+        zero_launches()
+        t0 = time.time()
+        got = matching.match_pairs_batched(ds, pairs, batch=batch,
+                                           min_matches=16, device="cuda")
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        run = {k: v for k, v in M.LAUNCHES.items() if v}
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+        path = os.path.join(lib, f"matches.{name}.txt")
+        write_match_file(path, got)
+        with open(path, "rb") as f:
+            same = f.read() == want_bytes
+        same &= got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want)
+        expect = ({"two_nn": n_chunks, "two_nn_norms": n_chunks}
+                  if name == "uint8" else
+                  {"two_nn_f32": n_chunks, "two_nn_f32_prepass": 2 * n_chunks})
+        log(f"[library] (a) match_pairs_batched {name}: {len(got)} matched "
+            f"pairs, {sum(len(m) for m in got.values())} matches, identical "
+            f"to DescriptorTable.match_pairs (dict and file bytes): {same}; "
+            f"launches {json.dumps(run)}")
+        check_later(same, f"(a) match_pairs_batched {name} differs from "
+                    f"DescriptorTable.match_pairs")
+        check(run == expect, f"(a) match_pairs_batched {name}: launches "
+              f"{run}, expected {expect}")
+        # The kernels of each chunk against their plain versions.
+        padded, counts = matching.pad_images(ds, pairs, 1024)
+        tables = [matching.batch_tables(padded, counts,
+                                        pairs[s:s + batch], "cuda")
+                  for s in range(0, len(pairs), batch)]
+        err = 0.0
+        for c, (qtab, dbtab, _, db_counts, pi, pj) in enumerate(tables):
+            got_k = M.two_nn_pairs(qtab, dbtab, db_counts, pi, pj)
+            torch.cuda.synchronize()
+            err = max(err, compare_outputs(
+                got_k, M._two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj),
+                f"[library] (a) chunk {c} {name}: {len(pi)} pairs, "
+                f"{qtab.shape[0]} x {dbtab.shape[0]} images x "
+                f"{qtab.shape[1]} keys"))
+            if name == "uint8":
+                bad = int((M.two_nn_norms(dbtab, db_counts)
+                           != M.two_nn_norms_plain(dbtab, db_counts)).sum())
+                check(bad == 0, f"(a) two_nn_norms chunk {c}: {bad} "
+                      f"mismatches")
+            else:
+                compare_prepass_f32(dbtab, db_counts, f"library chunk {c}")
+                got_p = M.prepass_f32(qtab)[:2]
+                bad = [int((g != w).sum()) for g, w in
+                       zip(got_p, M.prepass_f32_plain(qtab)[:2])]
+                check(not any(bad), f"(a) two_nn_f32_prepass of the query "
+                      f"table, chunk {c}: mismatches {bad}")
+        reps = 5
+        t0 = time.time()
+        for _ in range(reps):
+            matching.match_pairs_batched(ds, pairs, batch=batch,
+                                         min_matches=16, device="cuda")
+        torch.cuda.synchronize()
+        call_ms = (time.time() - t0) / reps * 1e3
+        kernel_ms = cuda_ms(lambda: [M.two_nn_pairs(q, d, c, a, b) for
+                                     q, d, _, c, a, b in tables], 10)
+        table = DescriptorTable(ds, device="cuda")
+        bound, by = two_nn_bound_ms(table.table, table.counts,
+                                    *pair_tensors(pairs), peak)
+        times[name] = dict(call_ms=call_ms, kernel_ms=kernel_ms,
+                           bound_ms=bound, bound_by=by, max_abs_err=err)
+        log(f"[library] (a) match_pairs_batched {name}, {len(pairs)} pairs "
+            f"in {n_chunks} chunks of {batch}: first call {first_s:.3f} s; "
+            f"{call_ms:.2f} ms a call (host clock, {reps} calls); its "
+            f"{n_chunks} two_nn_pairs calls {kernel_ms:.4f} ms (CUDA "
+            f"events); bound {bound:.4f} ms ({by}), "
+            f"{100 * bound / kernel_ms:.2f} % of it in the kernels, "
+            f"{100 * bound / call_ms:.3f} % in the call")
+    return launches, times
+
+
+def unit_angles(a, b, signed):
+    """Angle (rad) between the rows of two unit-vector arrays (up to sign
+    unless `signed`)."""
+    c = (a * b).sum(1)
+    c = c if signed else np.abs(c)
+    return np.arccos(np.clip(c, -1.0, 1.0))
+
+
+def phase_library():
+    """Phase 7: the JAX package's library modules the port now has, on
+    phase 3's bundle.out and descriptors, on CUDA against the CPU:
+    (a) matching (`library_matching`); (b) point normals; (c) scene
+    geometry with one draw of samples; (d) similarity RANSAC on one matched
+    pair; (e) every observation through each camera model; (f) the XML
+    writers.  Returns the 2-NN launches of (a), the kernels' times and the
+    failed checks, which main() raises once every phase has run."""
+    from bundler_sfm_tpu_torch import models
+    from bundler_sfm_tpu_torch.export import scene_geometry as SG
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    from bundler_sfm_tpu_torch.io.xmlfile import (
+        write_cameras_xml, write_points_xml,
+    )
+    from bundler_sfm_tpu_torch.models.camera import _quat_from_matrix
+    from bundler_sfm_tpu_torch.ops import horn, plane
+    from bundler_sfm_tpu_torch.ops.fisheye import FisheyeParams
+    from bundler_sfm_tpu_torch.ops.ransac import sample_indices
+    work = os.path.join(ROOT, "build", "smoke")
+    lib = os.path.join(work, "library")
+    if os.path.exists(lib):
+        import shutil
+        shutil.rmtree(lib)
+    os.makedirs(lib)
+    t_phase = time.time()
+    failures = []
+
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+
+    def step(label, fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"[library] {label}: {time.time() - t0:.3f} s")
+        return out
+
+    entries, dims, key_xy, descs, matches = read_scene(work)
+    bundle = read_bundle_file(os.path.join(work, "bundle", "bundle.out"))
+    regs = [i for i, c in enumerate(bundle.cameras) if c.registered]
+    pos = np.stack([p.pos for p in bundle.points])
+    n_obs = sum(len(p.views) for p in bundle.points)
+    log(f"[library] bundle.out: {len(regs)} cameras, {len(pos)} points, "
+        f"{n_obs} observations; {len(descs)} x "
+        f"{max(len(d) for d in descs)} keys")
+    launches, times = step("(a) matching", lambda: library_matching(
+        descs, lib, check_later))
+
+    # (b) point normals: unoriented kNN normals and the oriented ones.
+    knn, oriented = {}, {}
+    for dev in ("cuda", "cpu"):
+        knn[dev] = step(f"(b) knn_plane_normals k=32 on {dev}",
+                        lambda: plane.knn_plane_normals(
+                            pos, np.ones(len(pos)), k=32,
+                            device=dev).cpu().numpy())
+        oriented[dev] = step(f"(b) estimate_point_normals k=32 on {dev}",
+                             lambda: SG.estimate_point_normals(
+                                 bundle, k=32, device=dev))
+    for what, d, signed in (("knn_plane_normals", knn, False),
+                            ("estimate_point_normals", oriented, True)):
+        ang = unit_angles(d["cuda"], d["cpu"], signed)
+        off = int((ang > 1e-6).sum())
+        log(f"[library] (b) {what}: {len(ang)} normals, CUDA vs CPU largest "
+            f"angle {ang.max():.3e} rad, median {np.median(ang):.3e}, "
+            f"{off} above 1e-6 rad")
+        check_later(np.isfinite(d["cuda"]).all() and off <= len(ang) // 1000,
+                    f"(b) {what}: {off} normals differ by more than 1e-6 rad")
+
+    # (c) scene geometry, one draw of samples for both devices.
+    gen = torch.Generator().manual_seed(0)
+    s_cams = plane.draw_samples(gen, 1024, 3, torch.ones(len(regs)))
+    s3 = plane.draw_samples(gen, 1024, 3, torch.ones(len(pos)))
+    s2 = plane.draw_samples(gen, 1024, 2, torch.ones(len(pos)))
+    spread = float(np.sqrt(((pos - pos.mean(0)) ** 2).sum(1).mean()))
+    thr = 0.01 * spread
+    up = np.array([0.0, 1.0, 0.0])
+    geo = {}
+    for dev in ("cuda", "cpu"):
+        r = {}
+        r["ground"] = step(f"(c) setup_scene_ground_plane on {dev}",
+                           lambda: SG.setup_scene_ground_plane(
+                               bundle, samples=s_cams, device=dev))
+        for mode, s in (("free", s3), ("perp_to_up", s3),
+                        ("par_to_up", s2)):
+            r[mode] = step(f"(c) fit_plane_to_points {mode} on {dev}",
+                           lambda: SG.fit_plane_to_points(
+                               pos, ransac_threshold=thr, samples=s, up=up,
+                               par_to_up=mode == "par_to_up",
+                               perp_to_up=mode == "perp_to_up", device=dev))
+        r["rotations"] = step(f"(c) compute_image_rotations on {dev}",
+                              lambda: SG.compute_image_rotations(
+                                  bundle, samples=s_cams, device=dev))
+        geo[dev] = r
+    diff = max(float(np.abs(a - b).max()) for a, b in
+               zip(geo["cuda"]["ground"], geo["cpu"]["ground"]))
+    log(f"[library] (c) setup_scene_ground_plane: up "
+        f"{np.round(geo['cuda']['ground'][1], 6).tolist()}, CUDA vs CPU "
+        f"largest difference {diff:.3e}")
+    check_later(diff <= 1e-9, f"(c) ground plane: CUDA vs CPU {diff}")
+    for mode in ("free", "perp_to_up", "par_to_up"):
+        (pc, ic), (pp, ip) = geo["cuda"][mode], geo["cpu"][mode]
+        # A 2D line's sign is the eigensolver's (cuSOLVER's or LAPACK's).
+        sign = np.sign(pc @ pp) if mode == "par_to_up" else 1.0
+        d = float(np.abs(sign * pc - pp).max())
+        same = np.array_equal(ic, ip)
+        log(f"[library] (c) fit_plane_to_points {mode} (threshold {thr:.4e}):"
+            f" plane {np.round(pp, 6).tolist()}, {len(ip)} of {len(pos)} "
+            f"inliers; CUDA vs CPU: same inliers {same}, largest plane "
+            f"difference {d:.3e}")
+        check_later(same and d <= 1e-9, f"(c) fit_plane_to_points {mode}: "
+                    f"same inliers {same}, plane difference {d}")
+    rots = geo["cuda"]["rotations"]
+    log(f"[library] (c) compute_image_rotations: {rots}; CUDA == CPU "
+        f"{rots == geo['cpu']['rotations']}")
+    check_later(rots == geo["cpu"]["rotations"],
+                "(c) compute_image_rotations differ between CUDA and CPU")
+    normals, conf = step("(c) estimate_point_normals_confidence (host)",
+                         lambda: SG.estimate_point_normals_confidence(bundle))
+    log(f"[library] (c) confidence: mean {conf.mean():.4f}, "
+        f"{int((conf > 0).sum())} of {len(conf)} above 0")
+    check_later(np.isfinite(normals).all() and np.isfinite(conf).all(),
+                "(c) estimate_point_normals_confidence is not finite")
+
+    # (d) similarity RANSAC on the pair with the most matches.
+    (i, j), m = max(matches.items(), key=lambda kv: len(kv[1]))
+    p1, p2 = key_xy[i][m[:, 0]], key_xy[j][m[:, 1]]
+    samples = sample_indices(gen, 256, 3, torch.tensor([len(m)]), len(m))[0]
+    sim = {dev: step(f"(d) estimate_similarity_ransac on {dev}",
+                     lambda: [x.cpu().numpy() for x in
+                              horn.estimate_similarity_ransac(
+                                  p1, p2, len(m), 8.0, samples=samples,
+                                  device=dev)])
+           for dev in ("cuda", "cpu")}
+    same = np.array_equal(sim["cuda"][1], sim["cpu"][1])
+    d = float(np.abs(sim["cuda"][0] - sim["cpu"][0]).max()
+              / np.abs(sim["cpu"][0]).max())
+    log(f"[library] (d) pair {(i, j)}, {len(m)} matches: {int(sim['cpu'][2])}"
+        f" inliers at 8 px; CUDA vs CPU same inliers {same}, model "
+        f"difference {d:.3e} of its largest entry")
+    check_later(same and d <= 1e-9, f"(d) similarity RANSAC: same inliers "
+                f"{same}, model difference {d}")
+
+    # (e) every observation through each camera model.
+    views = np.concatenate([p.views for p in bundle.points])
+    obs_pt = np.repeat(np.arange(len(pos)), [len(p.views)
+                                             for p in bundle.points])
+    cam = views[:, 0].astype(int)
+    R = np.stack([c.R for c in bundle.cameras])[cam]
+    C = np.stack([c.center for c in bundle.cameras])[cam]
+    fk = np.array([[c.f, c.k1, c.k2] for c in bundle.cameras])[cam]
+    X = pos[obs_pt]
+    fp = FisheyeParams(fCx=0.0, fCy=0.0, fRad=480.0, fAngle=160.0,
+                       fFocal=420.0)
+    # The quaternion layout [q, t, f, k1, k2], q by Shepperd's method (every
+    # branch: the orbit holds rotations near 180 degrees).
+    q = np.stack([np.concatenate([_quat_from_matrix(c.R), c.t,
+                                  [c.f, c.k1, c.k2]])
+                  for c in bundle.cameras])[cam]
+
+    def project_all(dev):
+        tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        p9 = tt(np.concatenate([C, np.zeros_like(C), fk], 1))
+        out = {"snavely": models.SnavelyModel.project(p9, tt(R), tt(X)),
+               "snavely_quaternion": models.SnavelyQuaternionModel.project(
+                   tt(q), None, tt(X)),
+               "known_intrinsics": models.KnownIntrinsicsModel.project(
+                   p9[:, :6], (tt(R), tt(fk[:, 0]), tt(fk[:, 1]),
+                               tt(fk[:, 2])), tt(X)),
+               "fisheye": models.FisheyeModel.project(p9, (tt(R), fp),
+                                                      tt(X))}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    proj = {dev: step(f"(e) {len(X)} observations through 4 camera models "
+                      f"on {dev}", lambda: project_all(dev))
+            for dev in ("cuda", "cpu")}
+    for name in models.CAMERA_MODELS:
+        d = float(np.abs(proj["cuda"][name] - proj["cpu"][name]).max())
+        ref = float(np.abs(proj["cpu"][name] - proj["cpu"]["snavely"]).max())
+        err = np.linalg.norm(proj["cuda"][name] - views[:, 2:4], axis=1)
+        log(f"[library] (e) {name}: CUDA vs CPU largest difference {d:.3e} "
+            f"px; vs the Snavely model {ref:.3e} px; mean distance to the "
+            f"observations {err.mean():.4f} px"
+            + (" (a lens the scene was not taken with)"
+               if name == "fisheye" else ""))
+        check_later(d <= 1e-6, f"(e) {name}: CUDA vs CPU {d} px")
+        # The quaternion is of a rotation read from text (10 digits), so
+        # it agrees with the Snavely model to ~1e-6 px, not to rounding.
+        if name != "fisheye":
+            check_later(ref <= 1e-4 and err.mean() < 1.0,
+                        f"(e) {name}: {ref} px from the Snavely model, "
+                        f"{err.mean()} px from the observations")
+
+    # (f) the XML writers, with each device's fitted plane.
+    names = [os.path.basename(e.name) for e in entries]
+    body = {}
+    for dev in ("cuda", "cpu"):
+        cams = os.path.join(lib, f"cameras.{dev}.xml")
+        pts = os.path.join(lib, f"points.{dev}.xml")
+        step(f"(f) write_cameras_xml / write_points_xml ({dev} plane)",
+             lambda: (write_cameras_xml(cams, bundle, names, dims,
+                                        fit_plane=geo[dev]["free"][0]),
+                      write_points_xml(pts, bundle)))
+        with open(cams, "rb") as f1, open(pts, "rb") as f2:
+            body[dev] = (f1.read(), f2.read())
+    same = body["cuda"] == body["cpu"]
+    log(f"[library] (f) cameras.xml ({body['cpu'][0].count(b'<camera>')} "
+        f"cameras) and points.xml ({body['cpu'][1].count(b'<point>')} points)"
+        f" byte-identical CUDA vs CPU: {same}")
+    check_later(same, "(f) the XML files differ between CUDA and CPU")
+    log(f"[library] phase {time.time() - t_phase:.1f} s; 2-NN launches "
+        f"{json.dumps(launches)}")
+    return launches, times, failures
+
+
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(description="smoke test of the port on one "
@@ -1887,13 +2235,18 @@ def main(argv=None):
     staged_launches, staged_failures = phase_staged()
     tools_launches, tools_failures = phase_tools()
     variant_records, probe_launches = phase_variants()
+    lib_launches, lib_times, lib_failures = phase_library()
     check(not failures, f"stage-5 checks failed: {failures}")
     check(not staged_failures, f"staged checks failed: {staged_failures}")
     check(not tools_failures, f"tools checks failed: {tools_failures}")
+    check(not lib_failures, f"library checks failed: {lib_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
     kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
     kernels[1]["tools_launches"] = tools_launches["two_nn_norms"]
+    kernels[0]["library_path_launches"] = lib_launches["two_nn"]
+    kernels[1]["library_path_launches"] = lib_launches["two_nn_norms"]
+    kernels[0]["library_path_ms"] = lib_times["uint8"]["kernel_ms"]
     kernels.append(
         {"name": "two_nn_f32", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": main_launches["two_nn_f32"],
@@ -1903,7 +2256,9 @@ def main(argv=None):
          "ms_before": t32["ms_before"], "product_ms": t32["product_ms"],
          "tolerance_ratio": t32["tolerance_ratio"],
          "staged_launches": staged_launches["two_nn_f32"],
-         "probe_launches": probe_launches["two_nn_f32"]})
+         "probe_launches": probe_launches["two_nn_f32"],
+         "library_path_launches": lib_launches["two_nn_f32"],
+         "library_path_ms": lib_times["float32"]["kernel_ms"]})
     kernels.append(
         {"name": "two_nn_f32_prepass", "route": "cuda",
          "source": TWO_NN_SOURCE, "replaces": TWO_NN_REPLACES,
@@ -1912,7 +2267,8 @@ def main(argv=None):
          "bound_ms": t32["prepass_bound"][0],
          "bound_by": t32["prepass_bound"][1], "library_ms": None,
          "staged_launches": staged_launches["two_nn_f32_prepass"],
-         "probe_launches": probe_launches["two_nn_f32_prepass"]})
+         "probe_launches": probe_launches["two_nn_f32_prepass"],
+         "library_path_launches": lib_launches["two_nn_f32_prepass"]})
     kernels += variant_records
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -57,7 +57,9 @@ def test_import_leaves_jax_out():
         "pipeline.register", "pipeline.two_frame", "ops.fisheye",
         "ops.homography_decompose", "ops.resample", "export.undistort",
         "export.pmvs", "export.vis", "radialundistort", "fisheyeundistort",
-        "bundle2pmvs", "bundle2vis", "bundle2ply")]
+        "bundle2pmvs", "bundle2vis", "bundle2ply", "models", "models.camera",
+        "models.snavely", "models.fisheye", "ops.plane", "ops.horn",
+        "io.xmlfile")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
@@ -93,6 +95,10 @@ def _entry_points(tmp_path):
     from bundler_sfm_tpu_torch.pipeline.register import register_image
     from bundler_sfm_tpu_torch.pipeline.scene import Scene
     from bundler_sfm_tpu_torch.probes import probe_two_nn_variants
+    from bundler_sfm_tpu_torch.ops.matching import match_pairs_batched
+    from bundler_sfm_tpu_torch.ops.plane import knn_plane_normals
+    from bundler_sfm_tpu_torch.ops.horn import estimate_similarity_ransac
+    from bundler_sfm_tpu_torch.export import scene_geometry
     d = np.zeros((4, 128), np.uint8)
     img = np.zeros((64, 64), np.float32)
     from PIL import Image
@@ -133,7 +139,31 @@ def _entry_points(tmp_path):
                                                    0.0),
         "fisheye.undistort_image": lambda: fisheye_undistort_image(
             img, FisheyeParams(0.0, 0.0, 1.0, 90.0, 1.0)),
+        "match_pairs_batched": lambda: match_pairs_batched([d, d], [(0, 1)]),
+        "knn_plane_normals": lambda: knn_plane_normals(np.eye(3),
+                                                       np.ones(3), k=2),
+        "fit_plane_to_points": lambda: scene_geometry.fit_plane_to_points(
+            np.eye(3)),
+        "setup_scene_ground_plane": lambda:
+            scene_geometry.setup_scene_ground_plane(_three_cameras()),
+        "compute_image_rotations": lambda:
+            scene_geometry.compute_image_rotations(_three_cameras()),
+        "estimate_point_normals": lambda:
+            scene_geometry.estimate_point_normals(_three_cameras()),
+        "estimate_similarity_ransac": lambda: estimate_similarity_ransac(
+            np.eye(3)[:, :2], np.eye(3)[:, :2], 3, 1.0),
     }
+
+
+def _three_cameras():
+    from bundler_sfm_tpu_torch.io.bundlefile import (
+        BundleCamera, BundleFile, BundlePoint,
+    )
+    cams = [BundleCamera(f=1.0, k1=0.0, k2=0.0, R=np.eye(3),
+                         t=np.array([float(i), 0.0, 0.0])) for i in range(3)]
+    pts = [BundlePoint(pos=np.eye(3)[i], color=np.zeros(3),
+                       views=np.zeros((1, 4))) for i in range(3)]
+    return BundleFile(cameras=cams, points=pts)
 
 
 @pytest.mark.parametrize("name", ["DescriptorTable", "match_pair",
@@ -146,7 +176,13 @@ def _entry_points(tmp_path):
                                   "bundler --compute_covariance",
                                   "bundler --fisheye", "scene_covariance",
                                   "undistort_image",
-                                  "fisheye.undistort_image"])
+                                  "fisheye.undistort_image",
+                                  "match_pairs_batched", "knn_plane_normals",
+                                  "fit_plane_to_points",
+                                  "setup_scene_ground_plane",
+                                  "compute_image_rotations",
+                                  "estimate_point_normals",
+                                  "estimate_similarity_ransac"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, the default device raises instead of falling back
     (each entry point runs on the CPU only when asked: see the other
