@@ -96,7 +96,9 @@ class SnavelyQuaternionModel:
     @staticmethod
     def from_rt(R, t, f, k1=0.0, k2=0.0):
         """Quaternion from a rotation matrix [3, 3] (w>0 branch; adequate
-        for well-conditioned R) + the Ceres block layout."""
+        for well-conditioned R) + the Ceres block layout.  The branch loses
+        precision as R nears a half turn (1 + trace -> 0); for such R take
+        the quaternion from `models.camera._quat_from_matrix` (Shepperd)."""
         R = torch.as_tensor(R, dtype=torch.float64)
         tr = R[0, 0] + R[1, 1] + R[2, 2]
         w = torch.sqrt(torch.clamp(1.0 + tr, min=1e-12)) / 2.0

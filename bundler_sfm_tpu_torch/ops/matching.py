@@ -18,8 +18,8 @@ Public entry points:
   match_pair           — one image pair, host-friendly wrapper
   DescriptorTable      — device-resident table matched over a pair list
                          (the KeyMatchFull replacement)
-  match_pairs_batched  — a pair list in chunks of `batch` pairs, each chunk
-                         one kernel call on its own two tables
+  match_pairs_batched  — the JAX package's signature of
+                         DescriptorTable.match_pairs
   prune_double_matches — keep-first dedup of many-to-one matches
                          (src/MatchTracks.cpp:394-452)
   symmetrize           — reversed lists for every pair
@@ -27,7 +27,7 @@ Public entry points:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,15 +46,6 @@ def _prep_desc(x: np.ndarray) -> np.ndarray:
     if np.issubdtype(a.dtype, np.integer):
         return (a.astype(np.int16) - 128).astype(np.int8)
     return a.astype(np.float32)
-
-
-def _pad_to(x: np.ndarray, n: int, axis: int = 0) -> np.ndarray:
-    pad = n - x.shape[axis]
-    if pad <= 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return np.pad(x, widths)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -184,42 +175,6 @@ class DescriptorTable:
         return out
 
 
-def pad_images(descs: Sequence[np.ndarray], pairs: Sequence[Tuple[int, int]],
-               block: int):
-    """`match_pairs_batched`'s layout: every image of `pairs` prepped and
-    zero-padded to the largest key count over `pairs` rounded up to `block`
-    (and to the kernel's query tile).  Returns ({image: [K, 128]},
-    {image: key count})."""
-    kmax = _round_up(max(max(len(descs[i]), len(descs[j]))
-                         for i, j in pairs), block)
-    kmax = _round_up(max(kmax, 1), QUERY_TILE)
-    used = sorted({i for p in pairs for i in p})
-    return ({i: _pad_to(_prep_desc(descs[i]), kmax) for i in used},
-            {i: len(descs[i]) for i in used})
-
-
-def batch_tables(padded: Mapping[int, np.ndarray], counts: Mapping[int, int],
-                 chunk: Sequence[Tuple[int, int]], device):
-    """The two tables one `match_pairs_batched` chunk gives the kernel: the
-    chunk's query images and its db images, each image once, uploaded to
-    `device` (`padded`, `counts` from `pad_images`).  Returns (qtab, dbtab,
-    q_counts [B], db_counts, pi, pj)."""
-    qimg = sorted({i for i, _ in chunk})
-    dimg = sorted({j for _, j in chunk})
-    qrow = {i: r for r, i in enumerate(qimg)}
-    drow = {j: r for r, j in enumerate(dimg)}
-
-    def up(x, dtype=None):
-        return torch.from_numpy(np.asarray(x, dtype=dtype)).to(device)
-    qtab = up(np.stack([padded[i] for i in qimg]))
-    dbtab = up(np.stack([padded[j] for j in dimg]))
-    q_counts = up([counts[i] for i, _ in chunk], np.int32)
-    db_counts = up([counts[j] for j in dimg], np.int32)
-    pi = up([qrow[i] for i, _ in chunk], np.int32)
-    pj = up([drow[j] for _, j in chunk], np.int32)
-    return qtab, dbtab, q_counts, db_counts, pi, pj
-
-
 def match_pairs_batched(
     descs: Sequence[np.ndarray],
     pairs: Sequence[Tuple[int, int]],
@@ -231,35 +186,21 @@ def match_pairs_batched(
 ) -> Dict[Tuple[int, int], np.ndarray]:
     """Match many image pairs, `batch` pairs to one 2-NN kernel call.
 
-    descs: per-image uint8 (centered int8 tables, the int8 kernel) or float
-    (f32 tables, the f32 kernel) [k_i, 128] arrays.  pairs: (i, j) with
+    descs: per-image uint8 (centered int8 table, the int8 kernel) or float
+    (f32 table, the f32 kernel) [k_i, 128] arrays.  pairs: (i, j) with
     i < j — image i queries image j (KeyMatchFull direction:
     `src/KeyMatchFull.cpp` matches j<i querying into tree_i, emitting pairs
-    (j, i)).  Images are padded as `pad_images` says; the db count masks
-    the padding, so the result does not depend on `block` or `batch`.
-    Applies keep-first dedup (PruneDoubleMatches) and the >= min_matches
-    pair cutoff (`src/KeyMatchFull.cpp:131` uses 16).  Returns
-    {(i, j): int32 [m, 2]} in ascending idx1 order.
+    (j, i)).  Applies keep-first dedup (PruneDoubleMatches) and the
+    >= min_matches pair cutoff (`src/KeyMatchFull.cpp:131` uses 16).
+    Returns {(i, j): int32 [m, 2]} in ascending idx1 order.
+
+    This is `DescriptorTable.match_pairs` on a table of `descs`; `block`
+    (the JAX package's padded width) is accepted for its signature and has
+    no effect: the db count masks the padding, so the result depends on
+    neither the padded width nor `batch`.
     """
-    dev = resolve_device(device)
-    if not pairs:
-        return {}
-    padded, counts = pad_images(descs, pairs, block)
-    out: Dict[Tuple[int, int], np.ndarray] = {}
-    for start in range(0, len(pairs), batch):
-        chunk = pairs[start:start + batch]
-        qtab, dbtab, q_counts, db_counts, pi, pj = batch_tables(
-            padded, counts, chunk, dev)
-        d0, i0, d1 = two_nn_pairs(qtab, dbtab, db_counts, pi, pj)
-        acc = _ratio_accept(d0, d1, q_counts, ratio * ratio).cpu().numpy()
-        i0 = i0.cpu().numpy()
-        for p, (i, j) in enumerate(chunk):
-            idx1 = np.nonzero(acc[p])[0].astype(np.int32)
-            m = np.stack([idx1, i0[p, idx1].astype(np.int32)], axis=1)
-            m = prune_double_matches(m)
-            if len(m) >= min_matches:
-                out[(i, j)] = m
-    return out
+    return DescriptorTable(descs, device=device).match_pairs(
+        pairs, ratio, batch, min_matches)
 
 
 def prune_double_matches(matches: np.ndarray) -> np.ndarray:

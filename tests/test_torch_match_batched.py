@@ -8,7 +8,8 @@ another `block` or `batch`, on uint8 descriptors (centered int8 tables)
 and on the same values as float32 (f32 tables: integer-valued, so the
 kernel's bf16 operands are exact).  The assertions of
 `tests/test_matching.py::test_match_pairs_batched` / `test_min_matches_cutoff`
-run as port cases too.
+run as port cases too.  `block` is the JAX signature's and has no
+effect on the result.
 """
 
 import numpy as np
@@ -80,28 +81,24 @@ def test_independent_of_block_and_batch(rng, block, batch):
 
 
 def test_one_kernel_call_per_chunk(rng, monkeypatch):
-    """Each chunk of `batch` pairs is one two_nn_pairs call on two tables:
-    the chunk's query images and its db images, each once, padded to the
-    block (int8 for uint8 descriptors, f32 for float ones)."""
+    """Each chunk of `batch` pairs is one two_nn_pairs call on one table of
+    every image, padded as `DescriptorTable` pads it (int8 for uint8
+    descriptors, f32 for float ones), as query table and db table both."""
     descs = collection(rng)
     calls = []
     real = T.two_nn_pairs
 
     def spy(qtab, dbtab, db_counts, pi, pj):
-        calls.append((qtab.shape, qtab.dtype, dbtab.shape, dbtab.dtype,
-                      len(pi)))
+        calls.append((qtab.shape, qtab.dtype, dbtab is qtab, len(pi)))
         return real(qtab, dbtab, db_counts, pi, pj)
     monkeypatch.setattr(T, "two_nn_pairs", spy)
     T.match_pairs_batched(descs, PAIRS, batch=8, block=256, device="cpu")
-    assert [c[4] for c in calls] == [8, 8, 5]
-    # Chunk 1: pairs (0,1) (0,2) (1,2) (0,3) (1,3) (2,3) (0,4) (1,4).
-    assert calls[0][:4] == ((3, 512, 128), torch.int8, (4, 512, 128),
-                            torch.int8)
+    assert [c[3] for c in calls] == [8, 8, 5]
+    assert all(c[:3] == ((7, 512, 128), torch.int8, True) for c in calls)
     calls.clear()
     T.match_pairs_batched([d.astype(np.float32) for d in descs], PAIRS[:3],
                           device="cpu")
-    assert calls == [((2, 1024, 128), torch.float32, (2, 1024, 128),
-                      torch.float32, 3)]
+    assert calls == [((7, 512, 128), torch.float32, True, 3)]
 
 
 def test_against_brute_force(rng):
