@@ -11,13 +11,17 @@ options, recursive `--options_file`) and `OnInit` (`:747-1046`).  Usage:
         --variable_focal_length --use_focal_estimate --constrain_focal \\
         --constrain_focal_weight 0.0001 --estimate_distortion
 
-The option table is the JAX package's plus `--device`.  --num_devices
-other than 1 stops at parse time (the multi-device paths are not ported
-yet).  --compute_covariance (with --bundle) writes covariance.txt in
-surgery mode, the Schur system inverted on `--device`; --fisheye
-PARAM_FILE rectifies the keypoints of list entries flagged fisheye once at
-load, on `--device`.  --optimize_for_fisheye is carried into the config,
-where nothing reads it, as in the JAX package.
+The option table is the JAX package's plus `--device` and the multihost
+options of `run_bundler`.  --num_devices D > 1 (0: every visible card)
+runs one process per device with `run_bundler`'s launch rules: `main`
+starts D ranks, or joins the process group that exists (torchrun,
+--multihost_coordinator); every rank runs the same reconstruction with
+point-sharded bundle adjustment, and only rank 0 writes files (bundle
+surgery runs on rank 0 alone).  --compute_covariance (with --bundle)
+writes covariance.txt in surgery mode, the Schur system inverted on
+`--device`; --fisheye PARAM_FILE rectifies the keypoints of list entries
+flagged fisheye once at load, on `--device`.  --optimize_for_fisheye is
+carried into the config, where nothing reads it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ from bundler_sfm_tpu_torch.pipeline.two_frame import (
 from bundler_sfm_tpu_torch.pipeline.verify import (
     compute_geometric_constraints,
 )
+from bundler_sfm_tpu_torch.parallel.mesh import (
+    entry_mesh, initialize_multihost, launch, needs_launch,
+)
 from bundler_sfm_tpu_torch.utils import resolve_device
 
 
@@ -85,8 +92,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image_dir", default=".")
     p.add_argument("--output_dir", default=".")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="device-mesh size for sharded matching/BA "
-                        "(0 = all visible devices); only 1 is ported")
+                   help="ranks (one process and one device each) for "
+                        "point-sharded BA (0 = every visible card)")
+    p.add_argument("--multihost_coordinator", default=None,
+                   help="host:port of rank 0 — start ONE bundler per GPU, "
+                        "on every host, with identical arguments plus "
+                        "--process_id")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="with --multihost_coordinator: the number of GPUs "
+                        "over all hosts (one process each)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="with --multihost_coordinator: this process's rank")
     p.add_argument("--output", default=None)
     p.add_argument("--output_all", default=None)
     p.add_argument("--bundle", default=None)
@@ -203,18 +219,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="accepted for reference CLI parity "
                             "(inert in the reference; see SURVEY.md §2.1)")
     p.add_argument("--device", default="cuda",
-                   help="torch device of every stage (default cuda)")
+                   help="torch device of every stage (default cuda; a bare "
+                        "'cuda' is each rank's own card)")
     return p
-
-
-def _refuse_unported(parser: argparse.ArgumentParser,
-                     args: argparse.Namespace) -> None:
-    """Exit with status 2 and a message naming the missing modules when
-    more than one device is asked for."""
-    if args.num_devices != 1:
-        parser.error("--num_devices other than 1 needs the multi-device "
-                     "paths (parallel/), which bundler_sfm_tpu_torch does "
-                     "not port yet")
 
 
 def parse_with_options_file(argv: List[str]) -> argparse.Namespace:
@@ -244,14 +251,14 @@ def parse_with_options_file(argv: List[str]) -> argparse.Namespace:
         args = parser.parse_args(argv + extra, namespace=args)
         if args.options_file == path:
             args.options_file = None
-    _refuse_unported(parser, args)
     return args
 
 
-def scene_from_args(args) -> Scene:
-    """The Scene of a bundler run: config from the options, list.txt, key
-    files (centered coordinates and colors), ignore list, known intrinsics
-    and the match source, on `args.device`."""
+def scene_from_args(args, device=None, num_devices: int = 1) -> Scene:
+    """The Scene of a bundler run: config from the options (num_devices
+    ranks), list.txt, key files (centered coordinates and colors), ignore
+    list, known intrinsics and the match source, on `device` (default
+    `args.device`)."""
     cfg = BundlerConfig(
         fixed_focal_length=not args.variable_focal_length,
         init_focal_length=args.init_focal_length,
@@ -300,7 +307,7 @@ def scene_from_args(args) -> Scene:
         bundle_output_file=args.output or "bundle.out",
         bundle_output_base=args.output_all or "bundle_",
         output_all=args.output_all is not None,
-        num_devices=args.num_devices,
+        num_devices=num_devices,
     ).validate()
 
     entries = read_list_file(args.list_file, args.image_dir)
@@ -318,7 +325,7 @@ def scene_from_args(args) -> Scene:
                 e.init_focal = rec.focal
         cfg.use_focal_estimate = True
         cfg.trust_focal_estimate = True
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device if device is None else device)
     fisheye_params = read_fisheye_file(args.fisheye) if args.fisheye else None
     dims: List[tuple] = []
     key_xy: List[np.ndarray] = []
@@ -489,8 +496,29 @@ def main(argv: Optional[List[str]] = None, sampler: Callable = None) -> int:
     """Run bundler.  `sampler` replaces every RANSAC draw (verification and
     reconstruction) for tests that replay another implementation's draw;
     the command line never sets it."""
-    args = parse_with_options_file(argv if argv is not None else sys.argv[1:])
-    scene = scene_from_args(args)
+    argv = list(argv if argv is not None else sys.argv[1:])
+    args = parse_with_options_file(argv)
+    if args.multihost_coordinator:
+        initialize_multihost(args.multihost_coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+    if needs_launch(args.num_devices):
+        return max(launch(_rank_main, args.num_devices, args.device,
+                          args=(argv,)))
+    return _run(args, entry_mesh(args.num_devices, args.device), sampler)
+
+
+def _rank_main(mesh, argv) -> int:
+    """One rank started by `launch`."""
+    return _run(parse_with_options_file(argv), mesh)
+
+
+def _run(args, mesh, sampler: Callable = None) -> int:
+    """bundler on this rank: one device when `mesh` is None."""
+    sharded = mesh is not None and mesh.size > 1
+    writer = mesh is None or mesh.rank == 0
+    scene = scene_from_args(
+        args, device=None if mesh is None else str(mesh.device),
+        num_devices=mesh.size if sharded else 1)
     print(f"[bundler] {scene.num_images} images, "
           f"{len(scene.matches)} matched pairs")
     # Pure bundle-surgery mode (ProcessBundle.cpp ops on a loaded bundle).
@@ -502,20 +530,32 @@ def main(argv: Optional[List[str]] = None, sampler: Callable = None) -> int:
                args.compute_covariance)
     if args.bundle and surgery and not (args.run_bundle or
                                         args.rerun_bundle):
-        return _bundle_surgery(args, scene)
+        return _bundle_surgery(args, scene) if writer else 0
 
     if not (args.run_bundle or args.rerun_bundle or args.bundle):
         print("[bundler] --run_bundle not given; nothing to do")
         return 0
-    os.makedirs(args.output_dir, exist_ok=True)
+    out_dir = args.output_dir if writer else None
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
     # constraints.txt checkpoint in the working directory, like the
     # reference (BundlerGeometry.cpp:105); .prune/.ransac/.corresp
     # match-table snapshots for < 40000 images (BundlerGeometry.cpp:112-188).
-    snap = "." if scene.num_images < 40000 else None
+    # Every rank reads the checkpoint if it was there before any rank
+    # started (the barrier: rank 0 writes it after verifying); rank 0 alone
+    # writes.
+    cache = "constraints.txt"
+    if sharded:
+        cached = os.path.exists(cache)
+        mesh.barrier()
+        if not writer and not cached:
+            cache = None
+    snap = "." if scene.num_images < 40000 and writer else None
     compute_geometric_constraints(scene, seed=args.seed,
-                                  cache_path="constraints.txt",
+                                  cache_path=cache,
                                   snapshot_dir=snap,
-                                  scores_path="pairwise_scores.txt",
+                                  scores_path="pairwise_scores.txt"
+                                  if writer else None,
                                   sampler=sampler)
     print(f"[bundler] {len(scene.tracks)} tracks")
 
@@ -540,20 +580,20 @@ def main(argv: Optional[List[str]] = None, sampler: Callable = None) -> int:
                                                  recon)
             run_sfm(recon, scene, pt_constraints=pt_con,
                     pt_weight=args.point_constraint_weight)
-        recon = continue_reconstruction(scene, recon,
-                                        out_dir=args.output_dir,
+        recon = continue_reconstruction(scene, recon, out_dir=out_dir,
                                         seed=args.seed, sampler=sampler)
-        out = os.path.join(args.output_dir,
-                           scene.config.bundle_output_file or "bundle.out")
-        write_bundle_file(out, to_bundle_file(recon, scene))
-        print(f"[bundler] wrote {out}")
+        if writer:
+            out = os.path.join(args.output_dir, scene.config.
+                               bundle_output_file or "bundle.out")
+            write_bundle_file(out, to_bundle_file(recon, scene))
+            print(f"[bundler] wrote {out}")
         return 0
 
     if args.slow_bundle:
-        bundle_adjust_slow(scene, out_dir=args.output_dir, seed=args.seed,
+        bundle_adjust_slow(scene, out_dir=out_dir, seed=args.seed,
                            sampler=sampler)
     else:
-        bundle_adjust_fast(scene, out_dir=args.output_dir, seed=args.seed,
+        bundle_adjust_fast(scene, out_dir=out_dir, seed=args.seed,
                            sampler=sampler)
     return 0
 

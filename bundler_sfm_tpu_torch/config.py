@@ -126,8 +126,9 @@ class BundlerConfig:
     ba_dtype: str = "float64"      # bundle-adjustment / verification precision
     ransac_dtype: str = "float32"  # hypothesis scoring precision
     max_point_views: int = 32      # padded per-point view count in BA
-    # Device count for the (not yet ported) multi-device paths; carried so
-    # configs round-trip between the two packages.
+    # Ranks of the default process group that share each bundle
+    # adjustment (points sharded, cameras replicated; parallel/ba_sharded);
+    # 0 = every rank of the group.
     num_devices: int = 1
 
     def validate(self) -> "BundlerConfig":

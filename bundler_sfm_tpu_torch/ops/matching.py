@@ -17,7 +17,8 @@ Public entry points:
   two_nn               — exact 2-NN of one query set against one database
   match_pair           — one image pair, host-friendly wrapper
   DescriptorTable      — device-resident table matched over a pair list
-                         (the KeyMatchFull replacement)
+                         (the KeyMatchFull replacement); with a `mesh`,
+                         each pair batch is split over the ranks
   match_pairs_batched  — the JAX package's signature of
                          DescriptorTable.match_pairs
   prune_double_matches — keep-first dedup of many-to-one matches
@@ -99,13 +100,15 @@ def match_pair(desc1: np.ndarray, desc2: np.ndarray, ratio: float = 0.6,
     return np.stack([idx1, i0[idx1].astype(np.int32)], axis=1)
 
 
-def _match_masked(table, counts, pi, pj, ratio_sq: float) -> torch.Tensor:
-    """Pairs (pi[b], pj[b]) of one table: 2-NN + ratio test + keep-first
-    dedup, as a MASKED nearest-neighbor row per pair: out[b, q] = matched
-    db index, or -1.  The dedup keeps, for each db key, the lowest query
-    index claiming it (segment-min claimer, as `_match_one_masked`)."""
-    d0, i0, d1 = two_nn_pairs(table, table, counts, pi, pj)
-    acc = _ratio_accept(d0, d1, counts[pi.long()], ratio_sq)
+def _match_masked(qtab, qcounts, dbtab, dbcounts, pi, pj,
+                  ratio_sq: float) -> torch.Tensor:
+    """Image qtab[pi[b]] against image dbtab[pj[b]] for each pair b: 2-NN +
+    ratio test + keep-first dedup, as a MASKED nearest-neighbor row per
+    pair: out[b, q] = matched db index, or -1.  The dedup keeps, for each
+    db key, the lowest query index claiming it (segment-min claimer, as
+    `_match_one_masked`)."""
+    d0, i0, d1 = two_nn_pairs(qtab, dbtab, dbcounts, pi, pj)
+    acc = _ratio_accept(d0, d1, qcounts[pi.long()], ratio_sq)
     B, K = acc.shape
     i0 = i0.long()
     qidx = torch.arange(K, device=acc.device).expand(B, K)
@@ -116,12 +119,43 @@ def _match_masked(table, counts, pi, pj, ratio_sq: float) -> torch.Tensor:
     return torch.where(keep, i0, -1).to(torch.int32)
 
 
+def decode_masked_rows(m: np.ndarray, pairs, min_matches: int,
+                       max_out: Optional[int] = None
+                       ) -> Dict[Tuple[int, int], np.ndarray]:
+    """{pairs[p]: int32 [n, 2] (query, db) matches of masked row m[p]} for
+    the pairs with >= min_matches matches (after keeping only the first
+    max_out, when given), in `pairs` order."""
+    out: Dict[Tuple[int, int], np.ndarray] = {}
+    # ONE vectorized nonzero over all pairs (a per-pair loop of
+    # nonzeros costs ~0.1 ms per pair on the host).
+    r, cols = np.nonzero(m >= 0)
+    vals = m[r, cols].astype(np.int32)
+    per_pair = np.bincount(r, minlength=len(m))
+    offs = np.concatenate([[0], np.cumsum(per_pair)])
+    cols = cols.astype(np.int32)
+    for p, (i, j) in enumerate(pairs):
+        a, b = offs[p], offs[p + 1]
+        if max_out is not None:
+            b = min(b, a + max_out)
+        if b - a >= min_matches:
+            out[(i, j)] = np.stack([cols[a:b], vals[a:b]], axis=1)
+    return out
+
+
 class DescriptorTable:
-    """Device-resident padded descriptor store for repeated pair matching."""
+    """Device-resident padded descriptor store for repeated pair matching.
+
+    With `mesh` (`parallel/mesh.py`), the table is replicated on every rank
+    (on mesh.device) and each pair batch is split over the ranks: each
+    matches its slice and the masked rows are all-gathered, so every rank
+    gets the dict `mesh=None` gives.  Every rank must call match_pairs with
+    the same pairs."""
 
     def __init__(self, descs: Sequence[np.ndarray], block: int = 2048,
-                 device="cuda"):
-        self.device = resolve_device(device)
+                 device="cuda", mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         # Shrink the tile to the actual key budget: padding 1k-key images to
         # a 2k block wastes 4x the work of the distance products.
         maxk = max((len(d) for d in descs), default=1) or 1
@@ -147,32 +181,33 @@ class DescriptorTable:
         """Match every (i, j) in `pairs` (image i queries image j); returns
         {(i, j): int32 [m, 2]} for pairs with >= min_matches matches, each
         list deduped keep-first and in ascending idx1 order.  `batch` pairs
-        go to one kernel launch (default 1024)."""
+        go to one kernel launch (default 1024; with a mesh, the batch is
+        split over the ranks)."""
         batch = batch or 1024
-        out: Dict[Tuple[int, int], np.ndarray] = {}
         if not pairs:
-            return out
+            return {}
         rows = []
         for start in range(0, len(pairs), batch):
             chunk = np.asarray(pairs[start:start + batch], dtype=np.int32)
+            n_real = len(chunk)
+            if self.mesh is not None:
+                # Pad to a multiple of the rank count (with the first pair,
+                # as the JAX package does); this rank takes its slice.
+                D, me = self.mesh.size, self.mesh.rank
+                per = -(-n_real // D)
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[:1], per * D - n_real, 0)])
+                chunk = chunk[me * per:(me + 1) * per]
             pi = torch.from_numpy(chunk[:, 0].copy()).to(self.device)
             pj = torch.from_numpy(chunk[:, 1].copy()).to(self.device)
-            rows.append(_match_masked(self.table, self.counts, pi, pj,
-                                      ratio * ratio))
+            m = _match_masked(self.table, self.counts, self.table,
+                              self.counts, pi, pj, ratio * ratio)
+            if self.mesh is not None:
+                m = self.mesh.all_gather(m, 0)[:n_real]
+            rows.append(m)
         # One device->host fetch for all batches.
-        m = torch.cat(rows).cpu().numpy()
-        # ONE vectorized nonzero over all pairs (a per-pair loop of
-        # nonzeros costs ~0.1 ms per pair on the host).
-        r, cols = np.nonzero(m >= 0)
-        vals = m[r, cols].astype(np.int32)
-        per_pair = np.bincount(r, minlength=len(m))
-        offs = np.concatenate([[0], np.cumsum(per_pair)])
-        cols = cols.astype(np.int32)
-        for p, (i, j) in enumerate(pairs):
-            a, b = offs[p], offs[p + 1]
-            if b - a >= min_matches:
-                out[(i, j)] = np.stack([cols[a:b], vals[a:b]], axis=1)
-        return out
+        return decode_masked_rows(torch.cat(rows).cpu().numpy(), pairs,
+                                  min_matches)
 
 
 def match_pairs_batched(

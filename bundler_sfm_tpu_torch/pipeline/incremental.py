@@ -1,4 +1,4 @@
-"""Incremental reconstruction driver — port of the single-device paths of
+"""Incremental reconstruction driver — port of
 `bundler_sfm_tpu/pipeline/incremental.py`: the `BundleAdjustFast` state
 machine (`src/BundleFast.cpp:37-526`) and the one-image-at-a-time
 `BundleAdjust` (`bundle_adjust_slow`, --slow_bundle), with the Necker fix,
@@ -27,6 +27,14 @@ registered on its own: seed + 31·image in the slow bundle and on resume,
 seed + 71·image when ignored cameras are retried, the caller's seed in
 `register_image`).  The default, `StageSampler`, draws from a
 `torch.Generator` seeded with the stage's seed.
+
+With config.num_devices > 1 (0: every rank of the process group), every
+rank of the default process group runs this same driver on the same scene,
+and each bundle adjustment is point-sharded over the ranks
+(`parallel/ba_sharded.py`).  Every host decision comes from replicated
+values (all-reduced BA results, seeded draws), so the ranks take the same
+branches; before and after each sharded BA, `Mesh.check_replicated`
+compares the ranks' inputs and cameras and raises if they drifted apart.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bundler_sfm_tpu_torch.io.bundlefile import (
     BundleCamera, BundleFile, BundlePoint, write_bundle_file,
@@ -54,6 +63,8 @@ from bundler_sfm_tpu_torch.ops.resection import find_and_verify_camera
 from bundler_sfm_tpu_torch.ops.triangulate import (
     triangulate_tracks_pixels, triangulate_two_view,
 )
+from bundler_sfm_tpu_torch.parallel import ba_sharded
+from bundler_sfm_tpu_torch.parallel.mesh import make_mesh
 from bundler_sfm_tpu_torch.pipeline.scene import Scene
 from bundler_sfm_tpu_torch.pipeline.tracks import matches_from_tracks
 from bundler_sfm_tpu_torch.utils import (
@@ -113,6 +124,14 @@ class Reconstruction:
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def resolve_num_devices(cfg) -> int:
+    """config.num_devices with 0 = every rank of the default process group
+    (one without a group)."""
+    if cfg.num_devices == 0:
+        return dist.get_world_size() if dist.is_initialized() else 1
+    return max(1, cfg.num_devices)
 
 
 def _device(scene: Scene) -> torch.device:
@@ -375,26 +394,50 @@ def run_sfm(recon: Reconstruction, scene: Scene,
         if cfg.use_ceres:
             solver = "cholesky" if C <= cfg.ceres_dense_max_cameras else "cg"
             loss = "huber"
-        prob = build_problem(
-            np.stack(recon.cam_R), np.stack(recon.cam_params),
-            np.stack([recon.points[p] for p in live]), obs_cam, obs_pt,
-            obs_xy, est_focal=not cfg.fixed_focal_length,
+        R0, cam0 = np.stack(recon.cam_R), np.stack(recon.cam_params)
+        pts0 = np.stack([recon.points[p] for p in live])
+        ba_kw = dict(
+            max_iters=cfg.sfm_max_iters, fix_points=fix_points,
+            tau=cfg.sfm_mu0_tau, eps1=cfg.sfm_eps1, eps2=cfg.sfm_eps2,
+            loss=loss, huber_param=cfg.ceres_huber_param, solver=solver,
+            outlier_factor=1.2 * cfg.outlier_num_stddev,
+            min_thresh=cfg.min_proj_error_threshold,
+            max_thresh=cfg.max_proj_error_threshold,
+            min_outliers=MIN_OUTLIERS, min_points=MIN_POINTS,
+            max_passes=MAX_PASSES, remove_outliers=remove_outliers)
+        prob_kw = dict(
+            est_focal=not cfg.fixed_focal_length,
             est_distortion=cfg.estimate_distortion,
             cam_constrained=cc, cam_constraints=ct, cam_weights=cw,
             pt_constrained=pc_arr, pt_constraints=pc_con,
-            pt_weight=pt_weight if pt_constraints else 0.0, device=dev)
-        with stage("ba"):
-            res = run_ba_outlier_loop(
-                prob, max_iters=cfg.sfm_max_iters, fix_points=fix_points,
-                tau=cfg.sfm_mu0_tau, eps1=cfg.sfm_eps1, eps2=cfg.sfm_eps2,
-                loss=loss, huber_param=cfg.ceres_huber_param, solver=solver,
-                outlier_factor=1.2 * cfg.outlier_num_stddev,
-                min_thresh=cfg.min_proj_error_threshold,
-                max_thresh=cfg.max_proj_error_threshold,
-                min_outliers=MIN_OUTLIERS, min_points=MIN_POINTS,
-                max_passes=MAX_PASSES, remove_outliers=remove_outliers)
-            cam, Rf, pts = _np(res.cam), _np(res.R), _np(res.pts)
-            removed = _np(res.pt_removed)
+            pt_weight=pt_weight if pt_constraints else 0.0)
+        D = resolve_num_devices(cfg)
+        if D > 1:
+            # Points and their observations sharded over the ranks, cameras
+            # replicated (the JAX package's run_sfm D > 1 branch without
+            # the covisibility-window plan).
+            mesh = make_mesh(D, device=dev)
+            mesh.check_replicated("BA inputs", R0, cam0, pts0, obs_cam,
+                                  obs_pt, obs_xy, cw)
+            prob = ba_sharded.shard_problem(
+                R0, cam0, pts0, obs_cam, obs_pt, obs_xy, mesh, **prob_kw)
+            cam_obs = ba_sharded.build_cam_obs_table_sharded(
+                obs_cam, obs_pt, mesh, C)
+            with stage("ba"):
+                res = ba_sharded.run_ba_outlier_loop_sharded(
+                    prob, cam_obs, mesh, **ba_kw)
+                cam, Rf = _np(res.cam), _np(res.R)
+                pts = ba_sharded.unshard_points(res.pts, mesh, len(live))
+                removed = ba_sharded.unshard_flat(res.pt_removed, mesh,
+                                                  len(live))
+            mesh.check_replicated("cameras after BA", cam, Rf)
+        else:
+            prob = build_problem(R0, cam0, pts0, obs_cam, obs_pt, obs_xy,
+                                 device=dev, **prob_kw)
+            with stage("ba"):
+                res = run_ba_outlier_loop(prob, **ba_kw)
+                cam, Rf, pts = _np(res.cam), _np(res.R), _np(res.pts)
+                removed = _np(res.pt_removed)
         counter("ba_observations", float(len(obs_cam)) * float(res.iters))
         for s in range(C):
             recon.cam_params[s] = cam[s]
@@ -1002,8 +1045,6 @@ def bundle_adjust_slow(scene: Scene, out_dir: Optional[str] = None,
     seen, or with --construct_max_connectivity the largest frontier gain)
     before re-bundling."""
     cfg = scene.config
-    if cfg.num_devices > 1:
-        raise NotImplementedError("num_devices > 1 is not ported")
     sampler = sampler or StageSampler(_device(scene))
     with stage("init_pair"):
         i_best, j_best = pick_initial_pair(scene, True)
@@ -1137,8 +1178,6 @@ def bundle_adjust_fast(scene: Scene, out_dir: Optional[str] = None,
 
 def _bundle_adjust_fast(scene: Scene, out_dir, seed, sampler):
     cfg = scene.config
-    if cfg.num_devices > 1:
-        raise NotImplementedError("num_devices > 1 is not ported")
     sampler = sampler or StageSampler(_device(scene))
     with stage("init_pair"):
         i_best, j_best = pick_initial_pair(scene, True)

@@ -6,7 +6,8 @@ in-process on the device:
 
     python -m bundler_sfm_tpu_torch.run_bundler <image_dir>
         [--init_focal F | --no_exif] [--window N] [--max_keys N]
-        [--out DIR] [--seed S] [--device cuda|cpu]
+        [--out DIR] [--seed S] [--device cuda|cpu] [--num_devices D]
+    torchrun --nproc_per_node D -m bundler_sfm_tpu_torch.run_bundler <dir>
 
 Stages:
   1. list.txt — EXIF focal extraction (bin/extract_focal.pl port)
@@ -20,6 +21,14 @@ Artifacts (list.txt, .key.gz, matches.init.txt, pairwise_scores.txt) are
 written in the reference's formats into the working directory; the
 reconstruction (bundle.out, bundle_NNN.out and pointsNNN.ply per round)
 into --out (default `bundle`).
+
+With --num_devices D > 1 (0: every visible card) one process runs per
+device: `main` starts D ranks (`parallel.mesh.launch`, rank r on cuda:r),
+or, inside a process group that already exists (torchrun, or
+--multihost_coordinator), runs as this process's rank of it.  Every rank
+runs the same pipeline: matching on the image-sharded ring
+(`ShardedDescriptorTable`), bundle adjustment point-sharded; only rank 0
+writes files.
 """
 
 from __future__ import annotations
@@ -32,8 +41,12 @@ from typing import List
 
 import numpy as np
 
+from bundler_sfm_tpu_torch.parallel.mesh import (
+    entry_mesh, initialize_multihost, launch, needs_launch,
+)
 
-def main(argv=None) -> int:
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="run_bundler", description=__doc__)
     p.add_argument("image_dir")
     p.add_argument("--init_focal", type=float, default=0.0,
@@ -50,9 +63,42 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="bundle",
                    help="output directory of the reconstruction")
     p.add_argument("--device", default="cuda",
-                   help="torch device of every stage")
-    args = p.parse_args(argv if argv is not None else sys.argv[1:])
+                   help="torch device of every stage (a bare 'cuda' is "
+                        "each rank's own card)")
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="ranks (one process and one device each) for "
+                        "sharded matching and BA (0 = every visible card)")
+    p.add_argument("--multihost_coordinator", default=None,
+                   help="host:port of rank 0 — start ONE run_bundler per "
+                        "GPU, on every host, with identical arguments plus "
+                        "--process_id; the ranks form one process group")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="with --multihost_coordinator: the number of GPUs "
+                        "over all hosts (one process each)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="with --multihost_coordinator: this process's rank")
+    return p
 
+
+def main(argv=None) -> int:
+    argv = list(argv if argv is not None else sys.argv[1:])
+    args = build_parser().parse_args(argv)
+    if args.multihost_coordinator:
+        initialize_multihost(args.multihost_coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+    if needs_launch(args.num_devices):
+        return max(launch(_rank_main, args.num_devices, args.device,
+                          args=(argv,)))
+    return _run(args, entry_mesh(args.num_devices, args.device))
+
+
+def _rank_main(mesh, argv) -> int:
+    """One rank started by `launch`."""
+    return _run(build_parser().parse_args(argv), mesh)
+
+
+def _run(args, mesh) -> int:
+    """The pipeline on this rank: one device when `mesh` is None."""
     from PIL import Image
 
     from bundler_sfm_tpu_torch.config import default_pipeline_config
@@ -69,16 +115,25 @@ def main(argv=None) -> int:
     from bundler_sfm_tpu_torch.pipeline.verify import (
         compute_geometric_constraints,
     )
+    from bundler_sfm_tpu_torch.parallel.matching_sharded import (
+        ShardedDescriptorTable,
+    )
     from bundler_sfm_tpu_torch.utils import resolve_device, stage
 
-    device = str(resolve_device(args.device))
+    device = str(mesh.device if mesh is not None else
+                 resolve_device(args.device))
+    # SPMD: every rank runs the same pipeline (the collectives must line
+    # up); only rank 0 writes.
+    sharded = mesh is not None and mesh.size > 1
+    writer = mesh is None or mesh.rank == 0
     images = sorted(
         f for f in os.listdir(args.image_dir)
         if f.lower().endswith((".jpg", ".jpeg")))
     if not images:
         print(f"[RunBundler] no jpegs in {args.image_dir}")
         return 1
-    print(f"[RunBundler] {len(images)} images on {device}")
+    print(f"[RunBundler] {len(images)} images on {device}"
+          + (f", rank {mesh.rank} of {mesh.size}" if sharded else ""))
 
     # 1. Focal estimates -> list.txt
     entries: List[ImageEntry] = []
@@ -91,7 +146,8 @@ def main(argv=None) -> int:
         else:
             focal = 0.0
         entries.append(ImageEntry(path, init_focal=focal))
-    write_list_file("list.txt", entries)
+    if writer:
+        write_list_file("list.txt", entries)
 
     # 2. SIFT (batched: same-shape images run each octave as one batch)
     t0 = time.time()
@@ -105,7 +161,7 @@ def main(argv=None) -> int:
     descs = [r[1] for r in results]
     for e, info, desc in zip(entries, infos, descs):
         print(f"[RunBundler] {os.path.basename(e.name)}: {len(info)} keys")
-        if args.write_keys:
+        if args.write_keys and writer:
             base = os.path.splitext(os.path.basename(e.name))[0]
             write_key_file(base + ".key.gz", info, desc)
     print(f"[RunBundler] SIFT took {time.time()-t0:.1f}s")
@@ -119,14 +175,18 @@ def main(argv=None) -> int:
             pairs.append((j, i))
     t0 = time.time()
     with stage("match"):
-        table = DescriptorTable(descs, device=device)
+        # Several ranks: the image-sharded ring, each rank holding 1/D of
+        # the descriptor table.
+        table = ShardedDescriptorTable(descs, mesh) if sharded else \
+            DescriptorTable(descs, device=device)
         matches = table.match_pairs(pairs, min_matches=16)
     print(f"[RunBundler] matched {len(matches)}/{len(pairs)} pairs in "
           f"{time.time()-t0:.1f}s")
-    write_match_file("matches.init.txt", matches)
+    if writer:
+        write_match_file("matches.init.txt", matches)
 
     # 4. Geometric verification + tracks (f64 on every device).
-    cfg = default_pipeline_config()
+    cfg = default_pipeline_config(num_devices=mesh.size if sharded else 1)
     key_xy = [keys_to_centered(info, w, h)[:, :2].astype(np.float64)
               for info, (w, h) in zip(infos, dims)]
     key_color = []
@@ -140,14 +200,17 @@ def main(argv=None) -> int:
     scene = Scene(config=cfg, entries=entries, dims=dims, key_xy=key_xy,
                   key_color=key_color, matches=matches, device=device)
     t0 = time.time()
-    compute_geometric_constraints(scene, seed=args.seed,
-                                  scores_path="pairwise_scores.txt")
+    compute_geometric_constraints(
+        scene, seed=args.seed,
+        scores_path="pairwise_scores.txt" if writer else None)
     print(f"[RunBundler] {len(scene.tracks)} tracks "
           f"({time.time()-t0:.1f}s)")
 
     # 5. Reconstruction (f64 on every device).
-    bundle_adjust_fast(scene, out_dir=args.out, seed=args.seed)
-    print(f"[RunBundler] output in {args.out}/bundle.out")
+    bundle_adjust_fast(scene, out_dir=args.out if writer else None,
+                       seed=args.seed)
+    if writer:
+        print(f"[RunBundler] output in {args.out}/bundle.out")
     return 0
 
 

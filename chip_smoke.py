@@ -726,6 +726,7 @@ def capture_stage5():
         torch.cuda.synchronize()
         box["wall"] = time.time() - t0
         box["peak"] = torch.cuda.max_memory_allocated()
+        box["recon"] = recon
         return recon
     return incremental, real, wrapped, box
 
@@ -2223,6 +2224,342 @@ def phase_library():
     return launches, times, failures
 
 
+def ba_problem_from_bundle(bundle_path, entries, seed=0):
+    """Phase 3's final bundle as a bundle-adjustment problem (host arrays):
+    every registered camera (w = 0, R0 = its rotation), every point moved
+    by seeded noise of 1e-3 of the scene's spread (so LM has work to do),
+    every observation; the focal and distortion priors of run_sfm under
+    RunBundler.sh's options.  Returns (problem kwargs, run kwargs of the
+    outlier loop)."""
+    from bundler_sfm_tpu_torch.config import default_pipeline_config
+    from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
+    cfg = default_pipeline_config()
+    b = read_bundle_file(bundle_path)
+    regs = [i for i, c in enumerate(b.cameras) if c.registered]
+    slot = {img: s for s, img in enumerate(regs)}
+    cams = [b.cameras[i] for i in regs]
+    C = len(cams)
+    cam0 = np.zeros((C, 9))
+    cam0[:, 0:3] = np.stack([c.center for c in cams])
+    cam0[:, 6:9] = [[c.f, c.k1, c.k2] for c in cams]
+    pos = np.stack([p.pos for p in b.points])
+    views = [np.atleast_2d(p.views) for p in b.points]
+    obs_pt = np.concatenate([np.full(len(v), k) for k, v in
+                             enumerate(views)])
+    v = np.concatenate(views)
+    obs_cam = np.array([slot[int(i)] for i in v[:, 0]])
+    cc = np.zeros((C, 9)); ct = np.zeros((C, 9)); cw = np.zeros((C, 9))
+    cc[:, 6] = 1.0
+    ct[:, 6] = [entries[i].init_focal for i in regs]
+    cw[:, 6] = cfg.constrain_focal_weight
+    cc[:, 7:9] = 1.0
+    cw[:, 7:9] = cfg.distortion_weight
+    spread = float(np.sqrt(((pos - pos.mean(0)) ** 2).sum(1).mean()))
+    rng = np.random.default_rng(seed)
+    host = dict(R0=np.stack([c.R for c in cams]), cam0=cam0,
+                pts0=pos + rng.normal(size=pos.shape) * 1e-3 * spread,
+                obs_cam=obs_cam, obs_pt=obs_pt, obs_xy=v[:, 2:4],
+                est_focal=not cfg.fixed_focal_length,
+                est_distortion=cfg.estimate_distortion,
+                cam_constrained=cc, cam_constraints=ct, cam_weights=cw)
+    run = dict(max_iters=cfg.sfm_max_iters, tau=cfg.sfm_mu0_tau,
+               eps1=cfg.sfm_eps1, eps2=cfg.sfm_eps2,
+               outlier_factor=1.2 * cfg.outlier_num_stddev,
+               min_thresh=cfg.min_proj_error_threshold,
+               max_thresh=cfg.max_proj_error_threshold,
+               min_outliers=cfg.sfm_min_outliers,
+               min_points=cfg.sfm_min_points, max_passes=8)
+    return host, run
+
+
+def _ba_outcome(res, cam, R, pts, ov, removed, secs, peak):
+    """What phase 8 (b) holds and prints of one outlier-loop run, as host
+    arrays (global point and observation order)."""
+    return dict(cam=cam, R=R, pts=pts, obs_valid=ov, pt_removed=removed,
+                cost=float(res.cost), passes=int(res.passes),
+                iters=int(res.iters), stats=res.stats.cpu().numpy(),
+                secs=secs, peak_gib=peak / 2 ** 30)
+
+
+def _multi_device_rank(mesh, descs, pairs, host, run, workdir, imgs):
+    """Phase 8 on one rank (world 1 over NCCL in the smoke's process, world
+    2 over gloo in two spawned processes sharing cuda:0): (a) the ring
+    matcher and the pair-split table with the launch counts zeroed just
+    before each, then the 2-NN kernel on one rotation's tensors against
+    its plain version; (b) the point-sharded outlier loop on phase 3's
+    final problem; (c) at world 2, run_bundler.main --num_devices 2 in a
+    directory of this rank's own.  Returns host values only."""
+    from bundler_sfm_tpu_torch.ops.matching import DescriptorTable as Table
+    from bundler_sfm_tpu_torch.parallel import ba_sharded as S
+    from bundler_sfm_tpu_torch.parallel.matching_sharded import (
+        ShardedDescriptorTable,
+    )
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend}
+    M = matching_cuda
+    for name, make in (("ring", lambda: ShardedDescriptorTable(descs, mesh)),
+                       ("split", lambda: Table(descs, mesh=mesh))):
+        # The counted call, then a second one timed warm (the first call
+        # of a group also sets up its communicators).
+        secs = []
+        for rep in range(2):
+            if rep == 0:
+                zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            table = make()
+            got = table.match_pairs(pairs, min_matches=16)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            if rep == 0:
+                out[name] = dict(matches=got, launches={
+                    k: v for k, v in M.LAUNCHES.items() if v})
+        out[name]["secs"] = secs
+    # The kernel on the tensors of rotation 1 (rotation 0 at world 1): the
+    # query shard this rank keeps and the db shard it receives.
+    ring = ShardedDescriptorTable(descs, mesh)
+    q, qc = ring.table, ring.counts
+    db = mesh.ring_shift(q)
+    dbc = torch.from_numpy(ring.counts_host[(mesh.rank + 1) % mesh.size]).to(
+        mesh.device)
+    I = q.shape[0]
+    grid = torch.arange(I * I, dtype=torch.int32, device=mesh.device)
+    pi, pj = (grid // I).contiguous(), (grid % I).contiguous()
+    got = M.two_nn_pairs(q, db, dbc, pi, pj)
+    torch.cuda.synchronize()
+    want = M._two_nn_pairs_plain(q, db, dbc, pi, pj)
+    out["kernel_mismatches"] = [int((g != w).sum()) for g, w in zip(got, want)]
+    out["kernel_pairs"] = int(len(pi))
+
+    # (b) the outlier loop, point-sharded: run twice, timed warm (the
+    # first BA of a process also loads the solver libraries).
+    P = len(host["pts0"])
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    prob = S.shard_problem(mesh=mesh, **host)
+    co = S.build_cam_obs_table_sharded(host["obs_cam"], host["obs_pt"], mesh,
+                                       len(host["cam0"]))
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = S.run_ba_outlier_loop_sharded(prob, co, mesh, **run)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    # This rank's observations are the global ones of its points, in input
+    # order: gather every rank's obs_valid (padded to the longest).
+    shard_of = np.asarray(host["obs_pt"]) % mesh.size
+    n_obs = np.bincount(shard_of, minlength=mesh.size)
+    ov = torch.zeros(int(n_obs.max()), dtype=torch.bool, device=mesh.device)
+    ov[:n_obs[mesh.rank]] = res.obs_valid
+    ov_all = mesh.all_gather(ov[None], 0).cpu().numpy()
+    obs_valid = np.zeros(len(shard_of), bool)
+    for s in range(mesh.size):
+        obs_valid[shard_of == s] = ov_all[s, :n_obs[s]]
+    out["ba"] = _ba_outcome(
+        res, res.cam.cpu().numpy(), res.R.cpu().numpy(),
+        S.unshard_points(res.pts, mesh, P), obs_valid,
+        S.unshard_flat(res.pt_removed, mesh, P), secs,
+        torch.cuda.max_memory_allocated(mesh.device))
+
+    if imgs is None:
+        return out
+    # (c) the whole pipeline on this rank, in a directory of its own.
+    from bundler_sfm_tpu_torch import run_bundler
+    from bundler_sfm_tpu_torch.utils import get_telemetry
+    wdir = os.path.join(workdir, f"rank{mesh.rank}")
+    os.makedirs(wdir)
+    incremental, real_baf, wrapped, box = capture_stage5()
+    os.chdir(wdir)
+    get_telemetry().reset()
+    zero_launches()
+    incremental.bundle_adjust_fast = wrapped
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = run_bundler.main([imgs, "--max_keys", "4096", "--init_focal",
+                               "896", "--device", str(mesh.device),
+                               "--num_devices", str(mesh.size), "--out",
+                               "bundle"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    incremental.bundle_adjust_fast = real_baf
+    rec = box["recon"]
+    out["e2e"] = dict(
+        rc=rc, wall=wall, stage5_wall=box["wall"], peak_gib=box["peak"] / 2 ** 30,
+        launches={k: v for k, v in matching_cuda.LAUNCHES.items() if v},
+        stages=dict(get_telemetry().stage_seconds),
+        counters=dict(get_telemetry().counters),
+        order=list(rec.added_order), cams=np.stack(rec.cam_params),
+        R=np.stack(rec.cam_R), points=sum(1 for v in rec.pt_views if v),
+        files=sorted(os.path.relpath(os.path.join(d, f), wdir)
+                     for d, _, fs in os.walk(wdir) for f in fs),
+        log_tail=buf.getvalue()[-2000:])
+    return out
+
+
+def phase_multi_device():
+    """Phase 8: the multi-device paths (`bundler_sfm_tpu_torch/parallel/`) on
+    phase 3's data, against the single-device port: world 1 over NCCL in
+    this process, world 2 over gloo in two ranks sharing cuda:0 (NCCL takes
+    one rank a card).  (a) the ring matcher and the pair-split table over
+    the 276 pairs: dicts identical to DescriptorTable.match_pairs; the
+    2-NN kernel bit-exact on one rotation's tensors; (b) the point-sharded
+    outlier loop on phase 3's final bundle (points moved by seeded noise):
+    identical to run_ba_outlier_loop at world 1; at world 2 the same
+    obs_valid, pt_removed and passes, the final cost within rtol 1e-9 and
+    every observation's reprojection within 1e-6 px; (c) run_bundler
+    --num_devices 2 on the render: 24/24 cameras, centre error < 0.02,
+    reprojection < 1 px, both ranks' cameras identical, files from rank 0
+    only.  Returns the 2-NN launches of the phase's counted runs and the
+    failed checks."""
+    import shutil
+    import torch.distributed as dist
+    from bundler_sfm_tpu_torch.ops.ba import (
+        _predict_obs, build_problem, run_ba_outlier_loop,
+    )
+    from bundler_sfm_tpu_torch.parallel.mesh import launch, make_mesh
+    work = os.path.join(ROOT, "build", "smoke")
+    md = os.path.join(work, "multi")
+    if os.path.exists(md):
+        shutil.rmtree(md)
+    os.makedirs(md)
+    imgs = os.path.join(work, "images")
+    t_phase = time.time()
+    failures = []
+
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+
+    entries, dims, key_xy, descs, matches = read_scene(work)
+    pairs = all_pairs(len(descs))
+    want = DescriptorTable(descs, device="cuda").match_pairs(pairs,
+                                                             min_matches=16)
+    host, run = ba_problem_from_bundle(
+        os.path.join(work, "bundle", "bundle.out"), entries)
+    P, O = len(host["pts0"]), len(host["obs_cam"])
+    log(f"[multi] {len(descs)} x {max(len(d) for d in descs)} keys, "
+        f"{len(pairs)} pairs ({len(want)} with >= 16 matches, "
+        f"{sum(len(m) for m in want.values())} matches); BA problem {len(host['cam0'])} cameras, {P} "
+        f"points, {O} observations")
+
+    # The single-device outlier loop the sharded runs are held to.
+    prob1 = build_problem(**host, device="cuda")
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(2):
+        t0 = time.time()
+        res1 = run_ba_outlier_loop(prob1, **run)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    one = _ba_outcome(res1, res1.cam.cpu().numpy(), res1.R.cpu().numpy(),
+                      res1.pts.cpu().numpy(), res1.obs_valid.cpu().numpy(),
+                      res1.pt_removed.cpu().numpy(), secs, 0)
+    log(f"[multi] (b) one device: {one['passes']} passes, {one['iters']} LM "
+        f"iterations, {1e3 * secs[1] / max(one['iters'], 1):.2f} ms an "
+        f"iteration warm ({secs[1]:.4f} s a run; the first {secs[0]:.4f} "
+        f"s), cost {one['cost']!r}")
+
+    def reprojection(o):
+        pred, _ = _predict_obs(*(torch.as_tensor(o[k], device="cuda")
+                                 for k in ("cam", "pts", "R")), prob1)
+        return pred.cpu().numpy()
+    pred1 = reprojection(one)
+
+    t0 = time.time()
+    mesh = make_mesh(1, device="cuda:0")
+    w1 = _multi_device_rank(mesh, descs, pairs, host, run, md, None)
+    dist.destroy_process_group()
+    log(f"[multi] world 1 ({w1['backend']}) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    w2 = launch(_multi_device_rank, 2, "cuda:0", backend="gloo",
+                args=(descs, pairs, host, run, md, imgs))
+    log(f"[multi] world 2 (gloo, both ranks on cuda:0) {time.time() - t0:.1f}"
+        f" s with the ranks' start")
+    counted = {}
+    for r in [w1] + w2:
+        tag = f"world {r['size']} rank {r['rank']}"
+        for name in ("ring", "split"):
+            x = r[name]
+            same = list(x["matches"]) == list(want) and all(
+                np.array_equal(x["matches"][p], want[p]) for p in want)
+            log(f"[multi] (a) {tag} {name}: {len(x['matches'])} pairs, "
+                f"{sum(len(m) for m in x['matches'].values())} matches, "
+                f"identical to DescriptorTable.match_pairs {same}; a call "
+                f"(table upload included) {x['secs'][0]:.4f} s first, "
+                f"{x['secs'][1]:.4f} s warm; launches "
+                f"{json.dumps(x['launches'])}")
+            check_later(same, f"(a) {tag} {name} differs from "
+                        "DescriptorTable.match_pairs")
+            for k, v in x["launches"].items():
+                counted[k] = counted.get(k, 0) + v
+        log(f"[multi] (a) {tag}: two_nn on one rotation's tensors "
+            f"({r['kernel_pairs']} pairs x 4096 keys) vs its plain version: "
+            f"mismatches d0/i0/d1 {r['kernel_mismatches']}")
+        check_later(not any(r["kernel_mismatches"]),
+                    f"(a) {tag}: two_nn disagrees with its plain version")
+        b = r["ba"]
+        pred = reprojection(b)
+        dpx = float(np.abs(pred - pred1).max())
+        same_sets = (np.array_equal(b["obs_valid"], one["obs_valid"])
+                     and np.array_equal(b["pt_removed"], one["pt_removed"]))
+        log(f"[multi] (b) {tag}: {b['passes']} passes, {b['iters']} LM "
+            f"iterations, {1e3 * b['secs'][1] / max(b['iters'], 1):.2f} ms "
+            f"an iteration warm ({b['secs'][1]:.4f} s a run; the first "
+            f"{b['secs'][0]:.4f} s), "
+            f"cost {b['cost']!r} (rel. difference "
+            f"{abs(b['cost'] - one['cost']) / abs(one['cost']):.3e}), "
+            f"largest reprojection difference {dpx:.3e} px, same obs_valid "
+            f"and pt_removed {same_sets}, peak device memory "
+            f"{b['peak_gib']:.3f} GiB")
+        if r["size"] == 1:
+            ident = all(np.array_equal(b[k], one[k]) for k in (
+                "cam", "R", "pts", "obs_valid", "pt_removed", "stats")) and \
+                (b["cost"], b["passes"], b["iters"]) == \
+                (one["cost"], one["passes"], one["iters"])
+            log(f"[multi] (b) {tag}: bit-identical to run_ba_outlier_loop "
+                f"{ident}")
+            check_later(ident, "(b) world 1 differs from run_ba_outlier_loop")
+        else:
+            check_later(same_sets and b["passes"] == one["passes"]
+                        and abs(b["cost"] - one["cost"])
+                        <= 1e-9 * abs(one["cost"]) and dpx <= 1e-6,
+                        f"(b) {tag} outside its tolerance")
+    e = [r["e2e"] for r in w2]
+    for r, x in zip(w2, e):
+        print(x["log_tail"] if x["rc"] else "", end="")
+        log(f"[multi] (c) rank {r['rank']}: rc {x['rc']}, wall "
+            f"{x['wall']:.2f} s, stage 5 {x['stage5_wall']:.2f} s, "
+            f"{len(x['order'])} cameras, {x['points']} points, LM iterations "
+            f"{int(x['counters'].get('lm_iters', 0))}, peak device memory "
+            f"(stage 5) {x['peak_gib']:.3f} GiB, launches "
+            f"{json.dumps(x['launches'])}, stage seconds "
+            + json.dumps({k: round(v, 4) for k, v in x["stages"].items()}))
+        for k, v in x["launches"].items():
+            counted[k] = counted.get(k, 0) + v
+    check_later(all(x["rc"] == 0 for x in e), "(c) run_bundler failed")
+    same = (e[0]["order"] == e[1]["order"]
+            and np.array_equal(e[0]["cams"], e[1]["cams"])
+            and np.array_equal(e[0]["R"], e[1]["R"]))
+    log(f"[multi] (c) both ranks' cameras identical {same}; files of rank 0 "
+        f"{e[0]['files'][:6]}... ({len(e[0]['files'])}), of rank 1 "
+        f"{e[1]['files']}")
+    check_later(same, "(c) the ranks' cameras differ")
+    check_later(e[1]["files"] == [] and "bundle/bundle.out" in e[0]["files"],
+                "(c) rank 1 wrote files, or rank 0 wrote no bundle.out")
+    with open(os.path.join(imgs, "gt.json")) as f:
+        gt = json.load(f)
+    q = bundle_quality(os.path.join(md, "rank0", "bundle", "bundle.out"), gt)
+    log(f"[multi] (c) bundle.out: {q['cameras']} cameras, {q['points']} "
+        f"points, {q['observations']} observations, reprojection "
+        f"{q['reproj_px']:.4f} px, centre error {q['ate']:.6f}")
+    check_later(q["cameras"] == len(entries) and q["ate"] < 0.02
+                and q["reproj_px"] < 1.0, "(c) outside phase 3's bounds")
+    log(f"[multi] phase {time.time() - t_phase:.1f} s; 2-NN launches of the "
+        f"counted runs {json.dumps(counted)}")
+    return counted, failures
+
+
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(description="smoke test of the port on one "
@@ -2240,10 +2577,12 @@ def main(argv=None):
     tools_launches, tools_failures = phase_tools()
     variant_records, probe_launches = phase_variants()
     lib_launches, lib_times, lib_failures = phase_library()
+    md_launches, md_failures = phase_multi_device()
     check(not failures, f"stage-5 checks failed: {failures}")
     check(not staged_failures, f"staged checks failed: {staged_failures}")
     check(not tools_failures, f"tools checks failed: {tools_failures}")
     check(not lib_failures, f"library checks failed: {lib_failures}")
+    check(not md_failures, f"multi-device checks failed: {md_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
     kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
@@ -2251,6 +2590,8 @@ def main(argv=None):
     kernels[0]["library_path_launches"] = lib_launches["two_nn"]
     kernels[1]["library_path_launches"] = lib_launches["two_nn_norms"]
     kernels[0]["library_path_ms"] = lib_times["uint8"]["kernel_ms"]
+    kernels[0]["multi_device_launches"] = md_launches.get("two_nn", 0)
+    kernels[1]["multi_device_launches"] = md_launches.get("two_nn_norms", 0)
     kernels.append(
         {"name": "two_nn_f32", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": main_launches["two_nn_f32"],
@@ -2262,7 +2603,8 @@ def main(argv=None):
          "staged_launches": staged_launches["two_nn_f32"],
          "probe_launches": probe_launches["two_nn_f32"],
          "library_path_launches": lib_launches["two_nn_f32"],
-         "library_path_ms": lib_times["float32"]["kernel_ms"]})
+         "library_path_ms": lib_times["float32"]["kernel_ms"],
+         "multi_device_launches": md_launches.get("two_nn_f32", 0)})
     kernels.append(
         {"name": "two_nn_f32_prepass", "route": "cuda",
          "source": TWO_NN_SOURCE, "replaces": TWO_NN_REPLACES,
@@ -2272,7 +2614,8 @@ def main(argv=None):
          "bound_by": t32["prepass_bound"][1], "library_ms": None,
          "staged_launches": staged_launches["two_nn_f32_prepass"],
          "probe_launches": probe_launches["two_nn_f32_prepass"],
-         "library_path_launches": lib_launches["two_nn_f32_prepass"]})
+         "library_path_launches": lib_launches["two_nn_f32_prepass"],
+         "multi_device_launches": md_launches.get("two_nn_f32_prepass", 0)})
     kernels += variant_records
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -3,9 +3,9 @@
 `keymatchsingle` outputs, `creatematchscript`, `io/intrinsics` and the
 `export/process` bundle-surgery operations (also through `bundler --bundle`
 surgery mode, --estimate_up_vector_szeliski, --output_relposes and
---optimize_for_fisheye included).  Files are held byte-identical; options
-the port does not carry yet must stop the parser with a non-zero exit
-naming the module."""
+--optimize_for_fisheye included).  Files are held byte-identical;
+--num_devices other than 1 parses, and on a host without a card `main`
+stops where it would start the ranks on CUDA."""
 
 import io
 import os
@@ -31,6 +31,9 @@ from bundler_sfm_tpu_torch.io import intrinsics as T_intr
 from bundler_sfm_tpu_torch.io.keyfile import write_key_file
 
 
+MULTIHOST = ("multihost_coordinator", "num_processes", "process_id")
+
+
 def _actions(parser):
     return {a.dest: a for a in parser._actions if a.dest != "help"}
 
@@ -38,7 +41,7 @@ def _actions(parser):
 def test_option_table_matches_jax():
     jax_opts = _actions(J_bundler.build_parser())
     port_opts = _actions(T_bundler.build_parser())
-    assert set(port_opts) == set(jax_opts) | {"device"}
+    assert set(port_opts) == set(jax_opts) | {"device"} | set(MULTIHOST)
     for dest, ja in jax_opts.items():
         ta = port_opts[dest]
         for attr in ("option_strings", "default", "type", "nargs", "const",
@@ -47,6 +50,13 @@ def test_option_table_matches_jax():
         assert type(ta) is type(ja), dest
     dev = port_opts["device"]
     assert dev.option_strings == ["--device"] and dev.default == "cuda"
+    # run_bundler's multihost options, with the same table entries.
+    from bundler_sfm_tpu_torch import run_bundler as T_rb
+    rb_opts = _actions(T_rb.build_parser())
+    for dest in MULTIHOST:
+        for attr in ("option_strings", "default", "type"):
+            assert getattr(port_opts[dest], attr) == \
+                getattr(rb_opts[dest], attr), (dest, attr)
 
 
 def test_options_file_recursion(tmp_path):
@@ -61,6 +71,7 @@ def test_options_file_recursion(tmp_path):
     j = vars(J_bundler.parse_with_options_file(argv))
     t = vars(T_bundler.parse_with_options_file(argv))
     assert t.pop("device") == "cuda"
+    assert [t.pop(k) for k in MULTIHOST] == [None, None, None]
     assert t == j
     assert t["fmatrix_rounds"] == 512 and t["up_image"] == 2
     assert t["run_bundle"] and t["estimate_distortion"]
@@ -71,14 +82,18 @@ def test_options_file_recursion(tmp_path):
     (["--num_devices", "0"], "multi-device"),
 ])
 def test_unported_options_exit_nonzero(argv, module, tmp_path, capsys):
+    """The multi-device options parse (no exit at parse time); with no
+    process group `main` would start the ranks on CUDA, which this host
+    lacks, so it raises there."""
     opts = tmp_path / "options.txt"
     opts.write_text(" ".join(argv) + "\n")
     for args in (["list.txt"] + argv,
                  ["list.txt", "--options_file", str(opts)]):
-        with pytest.raises(SystemExit) as e:
+        assert T_bundler.parse_with_options_file(args).num_devices == \
+            int(argv[1])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             T_bundler.main(args)
-        assert e.value.code != 0
-        assert module in capsys.readouterr().err
+        assert module not in capsys.readouterr().err
 
 
 def _write_keys(root, n_images=6, n_keys=300, seed=0):

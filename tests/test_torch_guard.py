@@ -59,7 +59,8 @@ def test_import_leaves_jax_out():
         "export.pmvs", "export.vis", "radialundistort", "fisheyeundistort",
         "bundle2pmvs", "bundle2vis", "bundle2ply", "models", "models.camera",
         "models.snavely", "models.fisheye", "ops.plane", "ops.horn",
-        "io.xmlfile")]
+        "io.xmlfile", "parallel.mesh", "parallel.ba_sharded",
+        "parallel.matching_sharded")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
@@ -99,6 +100,9 @@ def _entry_points(tmp_path):
     from bundler_sfm_tpu_torch.ops.plane import knn_plane_normals
     from bundler_sfm_tpu_torch.ops.horn import estimate_similarity_ransac
     from bundler_sfm_tpu_torch.export import scene_geometry
+    from bundler_sfm_tpu_torch.parallel.mesh import (
+        initialize_multihost, launch, make_mesh,
+    )
     d = np.zeros((4, 128), np.uint8)
     img = np.zeros((64, 64), np.float32)
     from PIL import Image
@@ -152,7 +156,19 @@ def _entry_points(tmp_path):
             scene_geometry.estimate_point_normals(_three_cameras()),
         "estimate_similarity_ransac": lambda: estimate_similarity_ransac(
             np.eye(3)[:, :2], np.eye(3)[:, :2], 3, 1.0),
+        "make_mesh": lambda: make_mesh(),
+        "launch": lambda: launch(_rank_fn, 2),
+        "initialize_multihost": lambda: initialize_multihost(
+            "localhost:29500", 1, 0),
+        "run_bundler --num_devices 2": lambda: run_bundler.main(
+            [str(tmp_path), "--num_devices", "2"]),
+        "bundler --num_devices 2": lambda: bundler.main(
+            ["list.txt", "--run_bundle", "--num_devices", "2"]),
     }
+
+
+def _rank_fn(mesh):
+    return mesh.rank
 
 
 def _three_cameras():
@@ -182,7 +198,10 @@ def _three_cameras():
                                   "setup_scene_ground_plane",
                                   "compute_image_rotations",
                                   "estimate_point_normals",
-                                  "estimate_similarity_ransac"])
+                                  "estimate_similarity_ransac", "make_mesh",
+                                  "launch", "initialize_multihost",
+                                  "run_bundler --num_devices 2",
+                                  "bundler --num_devices 2"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, the default device raises instead of falling back
     (each entry point runs on the CPU only when asked: see the other
@@ -192,6 +211,19 @@ def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tmp_path)[name]()
+
+
+def test_launch_refuses_more_ranks_than_cards(monkeypatch):
+    """launch on "cuda" gives rank r cuda:r, so it raises (before starting
+    any rank) when more ranks are asked for than there are cards, and
+    ranks sharing one indexed card need gloo named."""
+    from bundler_sfm_tpu_torch.parallel.mesh import launch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 ranks asked for, 1 cards"):
+        launch(_rank_fn, 2, "cuda")
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        launch(_rank_fn, 2, "cuda:0")
 
 
 def test_two_nn_pairs_rejects_non_cuda_accelerators():
