@@ -5,6 +5,10 @@ a FileStore under a temporary directory), the JAX package its 8-device
 virtual mesh cut to D (`tests/conftest.py`).  JAX is imported inside the
 tests only, so the ranks never load it.
 
+`Mesh` itself is held on a mock of torch.distributed that records each
+call (gloo stages collectives through the host, NCCL does not; the ring
+sends to rank - 1).
+
 Tolerances:
   * matching (the ring, the pair-split table, match_pairs_sharded):
     dicts identical to the JAX package's and to the port's one-device
@@ -132,6 +136,82 @@ def _same_dicts(a, b):
     assert list(a) == list(b) or set(a) == set(b)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=str(k))
+
+
+# --------------------------------------------------------------------------
+# Mesh
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_mesh_collectives_on_a_recording_group(backend, monkeypatch):
+    """Mesh on a CUDA device, against a mock of torch.distributed that
+    records each call: a gloo group gets host copies of every tensor (bool
+    as uint8), an NCCL group the tensors on their device; ring_shift sends
+    to rank - 1 and receives from rank + 1; results come back in the
+    caller's dtype."""
+    calls = []
+    D, me = 4, 1
+
+    def record(op):
+        def fn(*a, **k):
+            tensors = [t for t in a if torch.is_tensor(t)]
+            tensors += [t for t in (a[0] if a and isinstance(a[0], list)
+                                    else []) if torch.is_tensor(t)]
+            calls.append((op, tensors))
+        return fn
+
+    def all_gather(parts, w, group=None):
+        calls.append(("all_gather", [w]))
+        for i, t in enumerate(parts):
+            t.copy_(w + i)
+
+    class Req:
+        def wait(self):
+            pass
+
+    def batch_isend_irecv(ops):
+        calls.append(("p2p", [(o.op.__name__, o.peer, o.tensor.device)
+                              for o in ops]))
+        return [Req() for _ in ops]
+    class P2POp:
+        def __init__(self, op, tensor, peer, group=None):
+            self.op, self.tensor, self.peer = op, tensor, peer
+    m = dist
+    monkeypatch.setattr(m, "P2POp", P2POp)
+    monkeypatch.setattr(m, "get_rank", lambda g=None: me)
+    monkeypatch.setattr(m, "get_world_size", lambda g=None: D)
+    monkeypatch.setattr(m, "get_backend", lambda g=None: backend)
+    monkeypatch.setattr(m, "get_global_rank", lambda g, r: r)
+    monkeypatch.setattr(m, "all_reduce", record("all_reduce"))
+    monkeypatch.setattr(m, "broadcast", record("broadcast"))
+    monkeypatch.setattr(m, "all_gather", all_gather)
+    monkeypatch.setattr(m, "batch_isend_irecv", batch_isend_irecv)
+    mesh = Mesh(object(), "cuda")
+    assert mesh._via_host == (backend == "gloo")
+    # Where the wire copy goes, shown on a device-less ("meta") tensor: an
+    # NCCL group keeps it on its device; a gloo group copies it to the host,
+    # which a meta tensor refuses.
+    meta = torch.zeros(3, device="meta")
+    if backend == "nccl":
+        assert mesh._wire(meta).device.type == "meta"
+    else:
+        with pytest.raises(NotImplementedError):
+            mesh._wire(meta)
+    x = torch.arange(6.0).reshape(2, 3)
+    flags = torch.tensor([True, False])
+    assert torch.equal(mesh.psum(x), x)
+    assert mesh.all_gather(flags, 0).dtype == torch.bool
+    assert mesh.all_gather(x, 1).shape == (2, 12)
+    assert mesh.ring_shift(x).shape == x.shape
+    assert torch.equal(mesh.broadcast(x), x)
+    wired = [t for op, ts in calls if op != "p2p" for t in ts]
+    assert all(t.device.type == "cpu" for t in wired)
+    assert all(t is not x and t is not flags for t in wired)
+    assert [t.dtype for op, ts in calls if op == "all_gather"
+            for t in ts] == [torch.uint8, torch.float32]
+    (_, p2p), = [c for c in calls if c[0] == "p2p"]
+    assert [(o, peer) for o, peer, _ in p2p] == [("isend", (me - 1) % D),
+                                                  ("irecv", (me + 1) % D)]
 
 
 # --------------------------------------------------------------------------
