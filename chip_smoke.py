@@ -116,6 +116,24 @@ Phases (any failure raises, so the exit code is non-zero):
                within 1e-4 px of the Snavely model, < 1 px from the
                observations); (f) cameras.xml / points.xml byte-identical
                with each device's plane.
+  8. multi_device — the multi-device paths (`parallel/`) on phase 3's data,
+               under build/smoke/multi/, at world 1 over NCCL in this
+               process and at world 2 over gloo in two spawned ranks
+               sharing cuda:0 (NCCL takes one rank a card), the launch
+               counts zeroed just before each counted run: (a) the ring
+               matcher (ShardedDescriptorTable) and the pair-split
+               DescriptorTable(mesh=) over the 276 pairs, each dict
+               identical to DescriptorTable.match_pairs, the 2-NN kernel
+               bit-exact on one rotation's tensors, each call timed first
+               and warm; (b) the point-sharded outlier loop on phase 3's
+               final bundle (points moved by seeded noise): bit-identical
+               to run_ba_outlier_loop at world 1; at world 2 the same
+               obs_valid, pt_removed and passes, the cost within rtol 1e-9
+               and every observation's reprojection within 1e-6 px; LM
+               iterations, ms an iteration warm, peak memory per rank; (c)
+               run_bundler --num_devices 2 on the render in a directory per
+               rank: 24/24, centre error < 0.02, reprojection < 1 px, both
+               ranks' cameras identical, no file from rank 1.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
 power limit as nvidia-smi reports them.  `--dump-scene PATH` also writes
