@@ -13,9 +13,9 @@ options, recursive `--options_file`) and `OnInit` (`:747-1046`).  Usage:
 
 The option table is the JAX package's plus `--device` and the multihost
 options of `run_bundler`.  --num_devices D > 1 (0: every visible card)
-runs one process per device with `run_bundler`'s launch rules: `main`
-starts D ranks, or joins the process group that exists (torchrun,
---multihost_coordinator); every rank runs the same reconstruction with
+runs one process per device under the launch rules that `run_bundler`
+shares (`parallel.mesh.run_entry`): `main` starts D ranks, or joins the
+process group that exists (torchrun, --multihost_coordinator); every rank runs the same reconstruction with
 point-sharded bundle adjustment, and only rank 0 writes files (bundle
 surgery runs on rank 0 alone).  --compute_covariance (with --bundle)
 writes covariance.txt in surgery mode, the Schur system inverted on
@@ -27,6 +27,7 @@ carried into the config, where nothing reads it, as in the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import shlex
 import sys
@@ -67,9 +68,7 @@ from bundler_sfm_tpu_torch.pipeline.two_frame import (
 from bundler_sfm_tpu_torch.pipeline.verify import (
     compute_geometric_constraints,
 )
-from bundler_sfm_tpu_torch.parallel.mesh import (
-    entry_mesh, initialize_multihost, launch, needs_launch,
-)
+from bundler_sfm_tpu_torch.parallel.mesh import run_entry
 from bundler_sfm_tpu_torch.utils import resolve_device
 
 
@@ -496,20 +495,9 @@ def main(argv: Optional[List[str]] = None, sampler: Callable = None) -> int:
     """Run bundler.  `sampler` replaces every RANSAC draw (verification and
     reconstruction) for tests that replay another implementation's draw;
     the command line never sets it."""
-    argv = list(argv if argv is not None else sys.argv[1:])
-    args = parse_with_options_file(argv)
-    if args.multihost_coordinator:
-        initialize_multihost(args.multihost_coordinator, args.num_processes,
-                             args.process_id, device=args.device)
-    if needs_launch(args.num_devices):
-        return max(launch(_rank_main, args.num_devices, args.device,
-                          args=(argv,)))
-    return _run(args, entry_mesh(args.num_devices, args.device), sampler)
-
-
-def _rank_main(mesh, argv) -> int:
-    """One rank started by `launch`."""
-    return _run(parse_with_options_file(argv), mesh)
+    return run_entry(argv if argv is not None else sys.argv[1:],
+                     parse_with_options_file,
+                     functools.partial(_run, sampler=sampler))
 
 
 def _run(args, mesh, sampler: Callable = None) -> int:

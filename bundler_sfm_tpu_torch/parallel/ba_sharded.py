@@ -19,14 +19,12 @@ device, so `shard_problem` and `build_cam_obs_table_sharded` return the
 rank's shard and `unshard_*` all-gather the shards to every rank.  The
 observations keep the port's flat layout (input order within the shard),
 not the JAX package's [P, M] slot layout.  The covisibility-window plan
-(`plan_shard_windows`) is not ported: the sharded path runs the plain
-assembly, as the JAX package does whenever `plan_schur_windows` returns
-None.
+(`plan_shard_windows`) is not ported: points are laid out round-robin and
+the sharded path runs the plain assembly, as the JAX package does whenever
+`plan_schur_windows` returns None.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
@@ -37,81 +35,54 @@ from bundler_sfm_tpu_torch.ops.ba import (
 )
 
 
-def _layout(num_points: int, num_shards: int, shard_of_pt, local_idx):
-    """(shard_of_pt, local_idx, rows per shard): round-robin by default
-    (point p -> shard p % D, row p // D)."""
-    if shard_of_pt is None:
-        shard_of_pt = np.arange(num_points) % num_shards
-        local_idx = np.arange(num_points) // num_shards
-    shard_of_pt = np.asarray(shard_of_pt, np.int64)
-    local_idx = np.asarray(local_idx, np.int64)
-    rows = int(local_idx.max()) + 1 if num_points else 1
-    return shard_of_pt, local_idx, rows
-
-
 def shard_problem(
     R0, cam0, pts0, obs_cam, obs_pt, obs_xy, mesh, *, est_focal=True,
     est_distortion=True, cam_constrained=None, cam_constraints=None,
     cam_weights=None, pt_constrained=None, pt_constraints=None,
-    pt_weight: float = 0.0, shard_of_pt: Optional[np.ndarray] = None,
-    local_idx: Optional[np.ndarray] = None,
+    pt_weight: float = 0.0,
 ) -> BAProblem:
-    """This rank's shard of the problem, on mesh.device: the points of
-    shard mesh.rank at their local rows (every shard padded to one row
-    count, as the JAX package pads to pad_pts_per_shard) and their
-    observations in input order, cameras whole, camera weights / size.
-    Round-robin unless shard_of_pt / local_idx give the layout."""
+    """This rank's shard of the problem, on mesh.device: point p goes to
+    shard p % size at row p // size (every shard padded to one row count,
+    as the JAX package pads to pad_pts_per_shard), with its observations in
+    input order; cameras whole, camera weights / size."""
     D, s = mesh.size, mesh.rank
-    obs_cam = np.asarray(obs_cam, np.int64)
     obs_pt = np.asarray(obs_pt, np.int64)
-    obs_xy = np.asarray(obs_xy)
     pts0 = np.asarray(pts0)
-    shard_of_pt, local_idx, rows = _layout(len(pts0), D, shard_of_pt,
-                                           local_idx)
-    sel = shard_of_pt[obs_pt] == s
-    p_sel = shard_of_pt == s
-    rows_s = local_idx[p_sel]
+    rows = max(1, -(-len(pts0) // D))
+    sel = obs_pt % D == s
 
-    def scatter(x, tail=()):
+    def shard(x, tail=()):
         out = np.zeros((rows,) + tail)
-        out[rows_s] = np.asarray(x)[p_sel]
+        mine = np.asarray(x)[s::D]
+        out[:len(mine)] = mine
         return out
     pc_l = pt_con_l = None
     if pt_constrained is not None:
-        pc_l = scatter(pt_constrained)
-        pt_con_l = scatter(pt_constraints, (3,))
+        pc_l = shard(pt_constrained)
+        pt_con_l = shard(pt_constraints, (3,))
     cw = None if cam_weights is None else np.asarray(cam_weights) / D
     return build_problem(
-        R0, cam0, scatter(pts0, (3,)), obs_cam[sel],
-        local_idx[obs_pt[sel]], obs_xy[sel], est_focal=est_focal,
+        R0, cam0, shard(pts0, (3,)), np.asarray(obs_cam, np.int64)[sel],
+        obs_pt[sel] // D, np.asarray(obs_xy)[sel], est_focal=est_focal,
         est_distortion=est_distortion, cam_constrained=cam_constrained,
         cam_constraints=cam_constraints, cam_weights=cw,
         pt_constrained=pc_l, pt_constraints=pt_con_l, pt_weight=pt_weight,
         device=mesh.device)
 
 
-def build_cam_obs_table_sharded(obs_cam, obs_pt, mesh, num_cams: int,
-                                pad_slots: Optional[int] = None,
-                                shard_of_pt: Optional[np.ndarray] = None,
-                                local_idx: Optional[np.ndarray] = None,
-                                ) -> torch.Tensor:
+def build_cam_obs_table_sharded(obs_cam, obs_pt, mesh,
+                                num_cams: int) -> torch.Tensor:
     """This rank's per-camera observation table [C, S] on mesh.device:
     the ids of its shard's observations (in the order `shard_problem`
     keeps them) of each camera, padded with the shard's observation count.
-    S is the largest per-camera count over every shard (or `pad_slots`),
-    so the stats pass all-gathers rows of one width."""
+    S is the largest per-camera count over every shard, so the stats pass
+    all-gathers rows of one width."""
     D = mesh.size
     obs_cam = np.asarray(obs_cam, np.int64)
-    obs_pt = np.asarray(obs_pt, np.int64)
-    shard_of_pt, _, _ = _layout(int(obs_pt.max()) + 1 if len(obs_pt) else 0,
-                                D, shard_of_pt, local_idx)
-    shard_of = shard_of_pt[obs_pt]
+    shard_of = np.asarray(obs_pt, np.int64) % D
     counts = np.zeros((D, num_cams), np.int64)
     np.add.at(counts, (shard_of, obs_cam), 1)
-    S = max(1, int(counts.max())) if pad_slots is None else pad_slots
-    if counts.max(initial=0) > S:
-        raise ValueError(f"a camera has {counts.max()} observations in one "
-                         f"shard > pad_slots={S}")
+    S = max(1, int(counts.max(initial=0)))
     mine = obs_cam[shard_of == mesh.rank]
     table = _view_table(mine, num_cams)
     table = np.pad(table, ((0, 0), (0, S - table.shape[1])),

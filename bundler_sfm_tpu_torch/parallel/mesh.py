@@ -195,42 +195,50 @@ def make_mesh(num_devices: Optional[int] = None, device="cuda",
 
 
 def initialize_multihost(coordinator: str, num_processes: int,
-                         process_id: int, device="cuda") -> None:
+                         process_id: int, device="cuda") -> Mesh:
     """Join a group of `num_processes` ranks (one per GPU, across hosts)
-    whose rank 0 listens at `coordinator` ("host:port"), with the device's
-    backend."""
+    whose rank 0 listens at `coordinator` ("host:port"): sets torchrun's
+    RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT and returns make_mesh's
+    mesh over them."""
     if num_processes is None or process_id is None:
         raise ValueError("initialize_multihost needs num_processes and "
                          "process_id")
-    dev = _rank_device(device, int(os.environ.get("LOCAL_RANK", process_id)))
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group(default_backend(dev),
-                            init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=_timeout(None))
+    resolve_device(device)
+    addr, port = coordinator.rsplit(":", 1)
+    os.environ.update(RANK=str(process_id), WORLD_SIZE=str(num_processes),
+                      MASTER_ADDR=addr, MASTER_PORT=port)
+    return make_mesh(num_processes, device)
 
 
-def in_process_group() -> bool:
-    """True when this process is (or, under torchrun, will be) one rank of
-    a process group."""
-    return dist.is_initialized() or _torchrun()
+def run_entry(argv: Sequence[str], parse: Callable, run: Callable) -> int:
+    """A command-line entry point under the launch rules; its exit code.
+
+    `parse(argv)` gives the options (num_devices, device and the multihost
+    options); `run(options, mesh)` runs the program on one rank, with mesh
+    None on one device.  With --multihost_coordinator this process joins
+    that group.  Inside a process group (torchrun, or one set up by the
+    caller) it runs as this process's rank, the mesh spanning every rank
+    when num_devices is 1 (as the JAX package's multihost run spans every
+    host).  Else num_devices other than 1 starts that many ranks (`launch`;
+    `parse` and `run` must pickle) and returns the largest exit code; 1
+    runs on one device."""
+    argv = list(argv)
+    args = parse(argv)
+    if args.multihost_coordinator:
+        initialize_multihost(args.multihost_coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+    if not (dist.is_initialized() or _torchrun()):
+        if args.num_devices == 1:
+            return run(args, None)
+        return max(launch(_entry_rank, args.num_devices, args.device,
+                          args=(argv, parse, run)))
+    return run(args, make_mesh(0 if args.num_devices == 1
+                               else args.num_devices, args.device))
 
 
-def needs_launch(num_devices: int) -> bool:
-    """True when an entry point asked for `num_devices` must start its own
-    ranks: more (or every, 0) devices and no process group to join."""
-    return num_devices != 1 and not in_process_group()
-
-
-def entry_mesh(num_devices: int, device) -> Optional[Mesh]:
-    """The mesh a command-line entry point runs on: None with no process
-    group (one device), else the group's, spanning every rank when
-    `num_devices` is 1 (as the JAX package's multihost run spans every
-    host)."""
-    if not in_process_group():
-        return None
-    return make_mesh(0 if num_devices == 1 else num_devices, device)
+def _entry_rank(mesh: Mesh, argv, parse: Callable, run: Callable) -> int:
+    """One rank of an entry point started by `run_entry`."""
+    return run(parse(argv), mesh)
 
 
 def _launched(rank: int, fn: Callable, args: Sequence, size: int,

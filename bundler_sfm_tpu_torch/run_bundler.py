@@ -41,9 +41,7 @@ from typing import List
 
 import numpy as np
 
-from bundler_sfm_tpu_torch.parallel.mesh import (
-    entry_mesh, initialize_multihost, launch, needs_launch,
-)
+from bundler_sfm_tpu_torch.parallel.mesh import run_entry
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,20 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    argv = list(argv if argv is not None else sys.argv[1:])
-    args = build_parser().parse_args(argv)
-    if args.multihost_coordinator:
-        initialize_multihost(args.multihost_coordinator, args.num_processes,
-                             args.process_id, device=args.device)
-    if needs_launch(args.num_devices):
-        return max(launch(_rank_main, args.num_devices, args.device,
-                          args=(argv,)))
-    return _run(args, entry_mesh(args.num_devices, args.device))
+    return run_entry(argv if argv is not None else sys.argv[1:], _parse,
+                     _run)
 
 
-def _rank_main(mesh, argv) -> int:
-    """One rank started by `launch`."""
-    return _run(build_parser().parse_args(argv), mesh)
+def _parse(argv) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
 
 
 def _run(args, mesh) -> int:
