@@ -221,6 +221,51 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def device_us(fn, calls, kernels):
+    """Mean device time per call of fn(), in µs, of each CUDA kernel whose
+    (demangled) name contains one of `kernels`: torch.profiler's kernel
+    events over `calls` calls after one warm-up call, summed by name and
+    divided by `calls`.  A name with no event gives None."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(kernels, 0.0)
+    seen = dict.fromkeys(kernels, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in kernels:
+            if k in e.name:
+                total[k] += e.time_range.end - e.time_range.start
+                seen[k] += 1
+    return {k: total[k] / calls if seen[k] else None for k in kernels}
+
+
+def host_us(fn, calls):
+    """Mean host time of fn() in µs over `calls` calls, each started on a
+    drained device (what a call costs the issuing thread; a wrapper's own
+    device syncs then wait only for its own work)."""
+    fn()
+    t = 0.0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def fmt_us(d):
+    return ", ".join(f"{k} {'none' if v is None else f'{v:.2f}'}"
+                     for k, v in d.items())
+
+
 def all_pairs(n):
     return [(j, i) for i in range(n) for j in range(i)]
 
@@ -383,6 +428,43 @@ def time_two_nn(tab, counts, pi, pj, reps, what):
     return t
 
 
+def split_two_nn_call(tab, counts, pi, pj, what, calls=20):
+    """Where an int8 two_nn_pairs call's time goes: the device time of the
+    norms kernel and of the 2-NN kernel, each launched bare through ctypes
+    on preallocated tensors (torch.profiler's kernel times), and the host
+    time of the norms wrapper, of the wrapper's three output allocations,
+    of the bare 2-NN launch and of the whole wrapper."""
+    M = matching_cuda
+    lib = M._load()
+    stream = torch.cuda.current_stream().cuda_stream
+    B, nq = len(pi), tab.shape[1]
+    n_img, nd = tab.shape[0], tab.shape[1]
+    norms = M.two_nn_norms(tab, counts)
+    d0, i0, d1 = M._outputs(B, nq, tab.device)
+
+    def bare_norms():
+        lib.two_nn_norms_i8(tab.data_ptr(), n_img, nd, counts.data_ptr(),
+                            norms.data_ptr(), stream)
+
+    def bare_main():
+        lib.two_nn_pairs_i8(tab.data_ptr(), nq * 128, nq, tab.data_ptr(),
+                            n_img, nd, counts.data_ptr(), norms.data_ptr(),
+                            pi.data_ptr(), pj.data_ptr(), B, d0.data_ptr(),
+                            i0.data_ptr(), d1.data_ptr(), stream)
+    dev = device_us(lambda: (bare_norms(), bare_main()), calls,
+                    ["two_nn_norms_kernel", "two_nn_ws_kernel"])
+    host = {"norms wrapper": host_us(lambda: M.two_nn_norms(tab, counts),
+                                     calls),
+            "outputs": host_us(lambda: M._outputs(B, nq, tab.device), calls),
+            "bare 2-NN launch": host_us(bare_main, calls),
+            "bare norms launch": host_us(bare_norms, calls),
+            "wrapper": host_us(lambda: M.two_nn_pairs(tab, tab, counts,
+                                                      pi, pj), calls)}
+    log(f"[split] {what}: device µs a call: {fmt_us(dev)}; host µs a call: "
+        f"{fmt_us(host)}")
+    return dev, host
+
+
 def time_two_nn_f32(tab, counts, pi, pj, reps, what):
     """Times of the f32 2-NN at one shape, all in this call: the `wgmma`
     wrapper (pre-pass + kernel) and its `mma.sync` twin in turns (new, old,
@@ -494,6 +576,14 @@ def phase_kernels():
                 f"(a) 2016 pairs x 2048^2 (2*2016*2048^2*128 = "
                 f"{2 * 2016 * 2048**2 * 128:.3e} int8 ops at "
                 f"{INT8_TOPS:.3e}/s)")
+    split_two_nn_call(table.table, table.counts, pi, pj,
+                      "(a) bench 2016 pairs x 2048^2")
+    # The main path's shape on bench.py's generator: 24 images x 4096 keys,
+    # all 276 pairs (phase 3 repeats it on the main path's descriptors).
+    main = DescriptorTable(make_descriptors(np.random.default_rng(24), 24,
+                                            4096), device="cuda")
+    split_two_nn_call(main.table, main.counts, *pair_tensors(all_pairs(24)),
+                      "main-path shape 276 pairs x 4096^2 (generated)")
     # (b) 8 images x 4096 keys, ragged counts (incl. 1 key and none).
     sizes = [4096, 4000, 3001, 2048, 1000, 65, 1, 0]
     descs = [rng.integers(0, 256, (n, 128)).astype(np.uint8) for n in sizes]
@@ -960,6 +1050,9 @@ def phase_main(dump=None):
     err = compare_two_nn(table.table, table.counts, pi, pj, "main path")
     t = time_two_nn(table.table, table.counts, pi, pj, 20,
                     f"main path {len(pi)} pairs x {table.table.shape[1]} keys")
+    split_two_nn_call(table.table, table.counts, pi, pj,
+                      f"main path {len(pi)} pairs x {table.table.shape[1]} "
+                      f"keys")
     nb, nby = norms_bound_ms(table.table)
     records = [
         {"name": "two_nn", "route": "cuda", "source": TWO_NN_SOURCE,
@@ -1776,6 +1869,44 @@ def split_two_nn(tab, counts, pi, pj, base, ragged):
         f"{base['ms']:.4f} ms")
 
 
+def split_variant_calls(rows, tab, counts, pi, pj, calls=10):
+    """Where a variant call's time goes at the timing shape: for each
+    variant, the device time of the pre-pass kernel and of the variant
+    kernel in one wrapper call (torch.profiler's kernel times) and the
+    wrapper's host time; then the host time of the pre-pass wrapper, of
+    the three output allocations and of one bare variant launch (oneblock
+    int8 at tq 128, through ctypes on preallocated tensors)."""
+    V = matching_variants
+    for v in rows:
+        dev = device_us(lambda: v.fn(tab, counts, pi, pj), calls,
+                        ["prepass_kernel", "variant_ws_kernel"])
+        host = host_us(lambda: v.fn(tab, counts, pi, pj), calls)
+        log(f"[split] {v.kernel} at {len(pi)} pairs: device µs a call: "
+            f"{fmt_us(dev)}; wrapper host µs a call {host:.2f}")
+    lib = V._load()
+    stream = torch.cuda.current_stream().cuda_stream
+    B, (n_img, K) = len(pi), tab.shape[:2]
+    norms, qsq, _ = V.variants_prepass(tab, counts, False)
+    out = V._outputs(B, K, tab.device)
+
+    def bare():
+        lib.two_nn_oneblock(tab.data_ptr(), None, n_img, K, counts.data_ptr(),
+                            norms.data_ptr(), qsq.data_ptr(), pi.data_ptr(),
+                            pj.data_ptr(), B, 128, 0,
+                            *(o.data_ptr() for o in out), stream)
+    dev = {f"pre-pass {d}": device_us(
+        lambda b=(d == "bf16"): V.variants_prepass(tab, counts, b), calls,
+        ["prepass_kernel"])["prepass_kernel"] for d in ("int8", "bf16")}
+    host = {"pre-pass int8 wrapper": host_us(
+                lambda: V.variants_prepass(tab, counts, False), calls),
+            "pre-pass bf16 wrapper": host_us(
+                lambda: V.variants_prepass(tab, counts, True), calls),
+            "outputs": host_us(lambda: V._outputs(B, K, tab.device), calls),
+            "bare oneblock_int8_128 launch": host_us(bare, calls)}
+    log(f"[split] variants at {len(pi)} pairs x {K}^2: device µs a call: "
+        f"{fmt_us(dev)}; host µs a call: {fmt_us(host)}")
+
+
 def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
     """A variant kernel at the timing shape: its `mma.sync` twin in turns
     (new, old, old, new; 10 calls each; for oneblock bf16 at tq > 128 both
@@ -1886,6 +2017,8 @@ def phase_variants():
     base = time_two_nn(tab, counts, pi, pj, 10,
                        "probe shape (base), 2208 pairs x 2048^2")
     split_two_nn(tab, counts, pi, pj, base, shapes["ragged"])
+    split_two_nn_call(tab, counts, pi, pj, "probe shape 2208 pairs x 2048^2")
+    split_variant_calls(rows, tab, counts, pi, pj)
     records = []
     for v in rows:
         compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")
@@ -2578,16 +2711,39 @@ def phase_multi_device():
     return counted, failures
 
 
+PHASES = ("build", "kernels", "main", "staged", "tools", "variants", "library",
+          "multi_device")
+
+
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(description="smoke test of the port on one "
                                 "NVIDIA GPU")
     p.add_argument("--dump-scene", default=None,
                    help="also write the main path's verified scene here")
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated phases to run, in their order "
+                        "(default all); a run of fewer than all checks what "
+                        "they check and prints no result line")
     args = p.parse_args(argv)
+    phases = args.phases.split(",")
+    check(set(phases) <= set(PHASES), f"unknown phases in {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if set(phases) != set(PHASES):
+        for name in PHASES:
+            if name in phases:
+                res = (phase_main(args.dump_scene) if name == "main"
+                       else globals()[f"phase_{name}"]())
+                if isinstance(res, tuple) and name != "variants":
+                    check(not res[-2 if name == "main" else -1],
+                          f"{name} checks failed: {res}")
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip()
+        log(f"[partial] phases {phases} passed on {smi}")
+        return 0
     phase_build()
     t32 = phase_kernels()
     kernels, failures, main_launches = phase_main(args.dump_scene)
