@@ -14,7 +14,9 @@
 //
 // Entry points:
 //   two_nn_pairs_i8      — the main path.  Centered int8 descriptors
-//                          (u8 - 128), a warp-specialised wgmma kernel (below).
+//                          (u8 - 128), a warp-specialised wgmma kernel (below),
+//                          one launch; with two_launch != 0 the instantiation
+//                          that reads two_nn_norms_i8's constants instead.
 //   two_nn_pairs_f32     — f32 tables on the same machinery, operands rounded
 //                          to bf16, f32 accumulate, norms from the unrounded
 //                          values, d = (|q|^2 + |b|^2) - 2 q.b and the top-2 in
@@ -46,15 +48,29 @@
 //    warp keeps STAGES 128-row tiles in flight with TMA
 //    (cp.async.bulk.tensor, 128-byte swizzle: a descriptor row is one
 //    swizzle atom, so the box lands in the K-major layout wgmma reads, with
-//    no padding) plus a bulk copy of the tile's norm constants, on an
+//    no padding) plus a bulk copy of the tile's column constants, on an
 //    mbarrier ring; consumers wait on full barriers and release empty ones.
 //    The persistent grid walks (pair, query tile) items in order, so the
 //    ring runs on across items and the pairs that share a db image run
 //    close together while it sits in L2.
-//  * Norms.  Every block recomputed every db row's norm.  two_nn_norms_i8
-//    writes them once per call: c = |b|^2 * 256 + (row % 128) for valid
-//    rows, KEY_POISON for rows at or past the count, [n_img, Kp] int32 with
-//    Kp = K rounded up to 128.
+//  * Norms.  Every block recomputed every db row's norm.  Here they are
+//    written once per call: c = |b|^2 * 256 + (row % 128) for valid rows,
+//    KEY_POISON for rows at or past the count, [n_img, Kp] int32 with Kp =
+//    K rounded up to 128, by the launch itself: a first phase over the
+//    whole grid (eight lanes a row, several loads in flight a thread) into
+//    scratch the wrapper allocates with the outputs, then a grid-wide
+//    barrier (a cooperative launch keeps every block resident; the grid is
+//    one block per SM at most), then the ring copies each tile's constants
+//    beside it.  So an int8 call is one launch.  Two other designs were
+//    measured first (PERF.md, PR 11): a separate norms kernel
+//    (two_nn_norms_i8, kept with the EXT instantiation as the two-launch
+//    yardstick) costs a launch and an allocation, 20-50 us of host time a
+//    call against its 3-6 us of device time; and two idle producer warps
+//    writing each staged tile's constants from shared memory slowed the
+//    kernel by a third at 128 query rows a tile, because they share the
+//    issue slots with the consumers' epilogue, which bounds the kernel and
+//    would pay for 4096 dp4a a tile again for every item.  The pre-phase
+//    costs about 1 % of a call's device time.
 //  * Epilogue.  It took ~6 integer instructions a score (qsq + bsq - 2 acc,
 //    a compare, three selects).  Here the per-row |q|^2 leaves the
 //    comparison: key = c - 512 acc = (|b|^2 - 2 q.b) * 256 + column is one
@@ -154,17 +170,31 @@ __device__ __forceinline__ int dp4a_sq(uint32_t v, int acc) {
   return __dp4a(static_cast<int>(v), static_cast<int>(v), acc);
 }
 
+// The grid barrier's counter (grid_barrier in wgmma_ring.cuh).
+__device__ unsigned int grid_arrived;
+
 // TOP2: the exact 2-NN; else the product-only ablation (row max of q.b,
 // i0 = d1 = 0), which splits the kernel's time between product and top-2.
-template <bool TOP2>
+// EXT: `norms` holds the column constants two_nn_norms_kernel wrote (the
+// two-launch form, kept as a yardstick); else the launch writes them there
+// itself in a pre-phase over the db table, then meets at a grid barrier
+// (a cooperative launch), and the ring loads them as before.
+template <bool TOP2, bool EXT>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
                  const int8_t* __restrict__ qtab, long long q_stride, int nq,
-                 int nd, const int* __restrict__ db_counts,
-                 const int* __restrict__ norms, int kp,
-                 const int* __restrict__ pi, const int* __restrict__ pj,
-                 int num_items, float* __restrict__ d0_out,
-                 int* __restrict__ i0_out, float* __restrict__ d1_out) {
+                 const int8_t* __restrict__ dbtab, int n_img, int nd,
+                 const int* __restrict__ db_counts, int* __restrict__ norms,
+                 int kp, const int* __restrict__ pi,
+                 const int* __restrict__ pj, int num_items,
+                 float* __restrict__ d0_out, int* __restrict__ i0_out,
+                 float* __restrict__ d1_out) {
+  if constexpr (!EXT) {
+    table_constants(dbtab, n_img, nd, kp, db_counts, 0, norms, nullptr);
+    fence_proxy_async_global();
+    grid_barrier(&grid_arrived);
+    fence_proxy_async_global();
+  }
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -577,9 +607,9 @@ int launch(const void* qtab, long long q_stride, int nq, const void* dbtab,
   if (num_pairs == 0 || nq == 0) return 0;
   const int smem = (QT + DT) * T::ROW_BYTES +
                    (QT + DT) * static_cast<int>(sizeof(typename T::dist));
-  cudaError_t err = cudaFuncSetAttribute(
-      two_nn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::atomic<int> cache[MAX_DEVICES];
+  const int sms = sm_count_for(two_nn_kernel<T>, smem, cache);
+  if (sms < 0) return -sms;
   const long long blocks = static_cast<long long>(num_pairs) * (nq / QT);
   two_nn_kernel<T><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const typename T::elem*>(qtab), q_stride, nq,
@@ -935,13 +965,9 @@ int launch_f32(const void* q16, long long q_stride, int n_img_q, int nq,
       !encode_rows(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, db16, DIM,
                    static_cast<long long>(n_img) * nd, 2 * DIM, DIM / 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      two_nn_f32_ws_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_F32);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static std::atomic<int> cache[MAX_DEVICES];
+  const int sms = sm_count_for(two_nn_f32_ws_kernel<TOP2>, SMEM_F32, cache);
+  if (sms < 0) return -sms;
   const long long items = static_cast<long long>(num_pairs) * (nq / QT_WS);
   const int grid = static_cast<int>(items < sms ? items : sms);
   const int kp = (nd + NT - 1) / NT * NT;
@@ -951,9 +977,9 @@ int launch_f32(const void* q16, long long q_stride, int n_img_q, int nq,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TOP2>
+template <bool TOP2, bool EXT>
 int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
-              int n_img, int nd, const int* db_counts, const int* norms,
+              int n_img, int nd, const int* db_counts, int* norms,
               const int* pi, const int* pj, int num_pairs, float* d0, int* i0,
               float* d1, cudaStream_t stream) {
   if (num_pairs == 0 || nq == 0) return 0;
@@ -964,20 +990,19 @@ int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
   if (!encode_rows(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, dbtab, DIM,
                    static_cast<long long>(n_img) * nd, DIM, DIM))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      two_nn_ws_kernel<TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_WS);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int kp = (nd + NT - 1) / NT * NT;
+  if (!EXT && static_cast<long long>(n_img) * kp >= PRE_MAX_ROWS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<int> cache[MAX_DEVICES];
+  const int sms = sm_count_for(two_nn_ws_kernel<TOP2, EXT>, SMEM_WS, cache);
+  if (sms < 0) return -sms;
   const long long items = static_cast<long long>(num_pairs) * (nq / QT_WS);
   const int grid = static_cast<int>(items < sms ? items : sms);
-  const int kp = (nd + NT - 1) / NT * NT;
-  two_nn_ws_kernel<TOP2><<<grid, WS_THREADS, SMEM_WS, stream>>>(
-      map, static_cast<const int8_t*>(qtab), q_stride, nq, nd, db_counts, norms,
-      kp, pi, pj, static_cast<int>(items), d0, i0, d1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(two_nn_ws_kernel<TOP2, EXT>, grid, WS_THREADS, SMEM_WS,
+                       stream, !EXT, map, static_cast<const int8_t*>(qtab),
+                       q_stride, nq, static_cast<const int8_t*>(dbtab), n_img,
+                       nd, db_counts, norms, kp, pi, pj,
+                       static_cast<int>(items), d0, i0, d1);
 }
 
 }  // namespace
@@ -999,29 +1024,31 @@ int two_nn_norms_i8(const void* dbtab, int n_img, int nd, const int* db_counts,
 
 // Centered int8 tables: qtab [*, nq, 128] with per-image element stride
 // q_stride, dbtab [n_img, nd, 128] contiguous and 16-byte aligned, norms
-// from two_nn_norms_i8 on the same table and counts.  nq % 128 == 0,
+// int32 [n_img, kp] (kp = nd rounded up to 128): with two_launch != 0 the
+// constants two_nn_norms_i8 wrote for the same table and counts, else
+// scratch the kernel writes them to itself (one launch).  nq % 128 == 0,
 // db_counts[j] <= nd.  Outputs are [num_pairs, nq].  Returns a CUDA error
 // code (0 on success).
 int two_nn_pairs_i8(const void* qtab, long long q_stride, int nq,
                     const void* dbtab, int n_img, int nd, const int* db_counts,
-                    const int* norms, const int* pi, const int* pj,
+                    int* norms, int two_launch, const int* pi, const int* pj,
                     int num_pairs, float* d0, int* i0, float* d1,
                     void* stream) {
-  return launch_ws<true>(qtab, q_stride, nq, dbtab, n_img, nd, db_counts,
-                         norms, pi, pj, num_pairs, d0, i0, d1,
-                         static_cast<cudaStream_t>(stream));
+  auto launch = two_launch ? launch_ws<true, true> : launch_ws<true, false>;
+  return launch(qtab, q_stride, nq, dbtab, n_img, nd, db_counts, norms, pi, pj,
+                num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
 }
 
 // The same kernel with the top-2 epilogue replaced by one max a score:
 // d0 = max of q.b over the valid db rows (-3e38 if none), i0 = d1 = 0.
 int two_nn_product_max_i8(const void* qtab, long long q_stride, int nq,
                           const void* dbtab, int n_img, int nd,
-                          const int* db_counts, const int* norms,
+                          const int* db_counts, int* norms, int two_launch,
                           const int* pi, const int* pj, int num_pairs,
                           float* d0, int* i0, float* d1, void* stream) {
-  return launch_ws<false>(qtab, q_stride, nq, dbtab, n_img, nd, db_counts,
-                          norms, pi, pj, num_pairs, d0, i0, d1,
-                          static_cast<cudaStream_t>(stream));
+  auto launch = two_launch ? launch_ws<false, true> : launch_ws<false, false>;
+  return launch(qtab, q_stride, nq, dbtab, n_img, nd, db_counts, norms, pi, pj,
+                num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
 }
 
 // The mma.sync instantiations.  Tables are contiguous [n_img, rows, 128];

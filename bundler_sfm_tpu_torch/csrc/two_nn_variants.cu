@@ -44,9 +44,17 @@
 //    TMA and wgmma reads A through a shared-memory descriptor, so nothing is
 //    reloaded through registers per db tile.  The producer puts the next
 //    item's first db tiles into the ring before it waits for the query
-//    buffer to be released.  A per-call pre-pass (prepass_kernel) writes
-//    the column constants c = |b|^2*256 + row%128 (KEY_POISON past the
-//    count) and |q|^2 once.  The epilogue is two_nn.cu's: packed (distance,
+//    buffer to be released.  The launch's first phase writes the column
+//    constants c = |b|^2*256 + row%128 (KEY_POISON past the count) and
+//    |q|^2 of every table row once, into scratch the wrapper allocates
+//    with the outputs, and the grid meets at a barrier (a cooperative
+//    launch) before the ring starts; as in two_nn.cu, neither a separate
+//    pre-pass kernel (prepass_kernel, kept with the EXT instantiations as
+//    the two-launch yardsticks: a launch and 30-60 us of host time for 3-6
+//    us of device work) nor producer warps writing constants per staged
+//    tile (a third slower at TQ 128, twice as slow with the bf16 dot, in
+//    the issue slots the epilogue needs) did as well (PERF.md, PR 11).
+//    The epilogue is two_nn.cu's: packed (distance,
 //    column) int32 keys, one IMAD and three min/max a score into a
 //    tile-local top-2, merged into the running (e0, i0, e1) once per tile;
 //    the epilogue of product n runs while product n+1's wgmma flies (two
@@ -56,17 +64,22 @@
 //    tile can hold rows past the count; its keys of poisoned columns are
 //    raised to KEY_POISON.
 //    The bf16 dot: wgmma m64n128k16.f32.bf16.bf16.  The ring needs bf16 B,
-//    and TMA cannot convert, so the pre-pass also writes a bf16 copy of the
-//    table once per call (12.6 MB at 24 x 2048 rows, a few microseconds of
-//    bytes; it stands in for the TPU kernel's in-VMEM astype(bf16),
-//    probe_pallas_variants.py:71, :121).  A converter warpgroup between an
-//    int8 and a bf16 ring would save those bytes but take registers and
-//    issue slots from the consumers, whose epilogue bounds the kernel.  At
+//    and TMA cannot convert, so it loads a bf16 copy of the table, which
+//    prepass_kernel writes (the table alone: tab16 without norms) once per
+//    table: the caller makes it and passes it to every call on that table
+//    (the probe: one launch for all its bf16 calls), else the wrapper
+//    makes it per call.  It is 12.6 MB at 24 x 2048 rows, a few
+//    microseconds of bytes, and stands in for the TPU kernel's in-VMEM
+//    astype(bf16), probe_pallas_variants.py:71, :121.  Converting int8
+//    stages into bf16 ones in the producer warpgroup instead would take
+//    about half as many instructions again as the epilogue, in the issue
+//    slots the epilogue needs, and its int8 landing stages do not fit
+//    beside blockmerge's query tile and ring in shared memory.  At
 //    TQ 128 the query fragments are converted to bf16 once per item (32
 //    registers); blockmerge reads its 256 bf16 query rows (64 KB) from
 //    shared memory.  The f32 accumulators hold exact integers (|q.b| <=
 //    2^21, products of int8 values exact in bf16 and f32); acc_bits turns
-//    one into its int32 value with one FADD, and the pre-pass adds the
+//    one into its int32 value with one FADD, and the first phase adds the
 //    matching offset to the bf16 column constants, so the key is the same.
 //    Blockmerge: TQ = 256, BD = 512.  A 512-row block does not fit in one
 //    key (the column has 8 bits), so the tile-local keys fold into a block
@@ -80,7 +93,7 @@
 //    from KEY_POISON), MAX one max a score on the int32 accumulator.  MAX
 //    follows the TPU kernel: the row max over all K db rows whatever the
 //    count, so its producer streams every tile of the db image, no column
-//    is poisoned and it needs no pre-pass (no column constants, no |q|^2).
+//    is poisoned and it needs no first phase (no constants, no |q|^2).
 //    Bound on an H100: 2*128*K^2 tensor-core operations per pair (1979 TOP/s
 //    int8, 989 TFLOP/s bf16).  What bounds this design is its epilogue, as
 //    in two_nn.cu: 4 integer instructions a score (5 with the bf16 FADD, 2
@@ -463,10 +476,10 @@ int launch(const Args& x) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (x.num_pairs == 0) return 0;
   const int smem = TQ * Q_ROW + DT * D::DB_ROW + DT * 4 + TQ * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      variant_kernel<TQ, D, MODE, MERGE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::atomic<int> cache[MAX_DEVICES];
+  const int sms = sm_count_for(variant_kernel<TQ, D, MODE, MERGE>, smem,
+                               cache);
+  if (sms < 0) return -sms;
   const long long blocks = static_cast<long long>(x.num_pairs) * (x.K / TQ);
   variant_kernel<TQ, D, MODE, MERGE>
       <<<static_cast<unsigned>(blocks), THREADS, smem, x.stream>>>(
@@ -653,20 +666,33 @@ __device__ __forceinline__ void static_for(F&& f) {
   static_for_impl(f, std::make_integer_sequence<int, N>());
 }
 
+// The grid barrier's counter (grid_barrier in wgmma_ring.cuh).
+__device__ unsigned int grid_arrived;
+
 // MODE TOP2: the exact 2-NN (oneblock, blockmerge).  TOP1 and MAX, at
 // TQ 128 with the int8 dot only: the ablations "top1" (d0, i0 of the
 // nearest valid row, d1 = 0) and "matmul_max" (d0 = row max of q.b over all
 // K db rows, i0 = d1 = 0; the producer streams every tile of the db image
-// and no column constants).
-template <int TQ, bool BF16, bool MERGE, int MODE>
+// and no column constants).  EXT: `norms` and `qsq` hold what
+// prepass_kernel wrote (the two-launch form, kept as a yardstick); else
+// the launch writes them there itself in a pre-phase over the table, then
+// meets at a grid barrier (a cooperative launch).  MAX reads neither.
+template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 variant_ws_kernel(const __grid_constant__ CUtensorMap map,
-                  const int8_t* __restrict__ table, int K,
-                  const int* __restrict__ counts, const int* __restrict__ norms,
-                  const int* __restrict__ qsq, const int* __restrict__ pi,
+                  const int8_t* __restrict__ table, int n_img, int K,
+                  const int* __restrict__ counts, int* __restrict__ norms,
+                  int* __restrict__ qsq, const int* __restrict__ pi,
                   const int* __restrict__ pj, int num_items,
                   float* __restrict__ d0_out, int* __restrict__ i0_out,
                   float* __restrict__ d1_out) {
+  if constexpr (!EXT && MODE != MAX) {
+    table_constants(table, n_img, K, K, counts, BF16 ? F32_MAGIC_BIAS : 0,
+                    norms, qsq);
+    fence_proxy_async_global();
+    grid_barrier(&grid_arrived);
+    fence_proxy_async_global();
+  }
   using C = Ws<TQ, BF16>;
   using Acc = typename C::Acc;
   constexpr int MT = C::MT;
@@ -906,10 +932,11 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-// The warp-specialised design's per-call pre-pass over the table, eight
-// threads a row: the column constants c = |b|^2*256 + row%128 + bias
-// (KEY_POISON at or past the count), |q|^2 of every row, and, when tab16 is
-// given, the table as bf16 (for the bf16 dot: TMA cannot convert).
+// The warp-specialised design's pre-pass over the table, eight threads a
+// row: when norms is given, the column constants c = |b|^2*256 + row%128 +
+// bias (KEY_POISON at or past the count) and |q|^2 of every row (what the
+// two-launch yardstick reads), and when tab16 is given the table as bf16
+// (what the bf16 dot's ring loads: TMA cannot convert).
 __global__ void __launch_bounds__(256)
 prepass_kernel(const int8_t* __restrict__ tab, long long rows, int K,
                const int* __restrict__ counts, int bias, int* __restrict__ norms,
@@ -941,7 +968,7 @@ prepass_kernel(const int8_t* __restrict__ tab, long long rows, int K,
     d[0] = make_uint4(h[0], h[1], h[2], h[3]);
     d[1] = make_uint4(h[4], h[5], h[6], h[7]);
   }
-  if (live && part == 0) {
+  if (live && part == 0 && norms != nullptr) {
     const int j = static_cast<int>(row / K);
     const int r = static_cast<int>(row % K);
     qsq[row] = s;
@@ -958,8 +985,9 @@ struct WsArgs {
   int n_img;
   int K;
   const int* counts;
-  const int* norms;      // [n_img, K] from the pre-pass
-  const int* qsq;        // [n_img, K]
+  int* norms;            // [n_img, K]: from the pre-pass (two_launch), or
+  int* qsq;              // [n_img, K]  scratch the kernel fills itself
+  bool two_launch;
   const int* pi;
   const int* pj;
   int num_pairs;
@@ -969,7 +997,7 @@ struct WsArgs {
   cudaStream_t stream;
 };
 
-template <int TQ, bool BF16, bool MERGE, int MODE = TOP2>
+template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
 int launch_ws(const WsArgs& x) {
   using C = Ws<TQ, BF16>;
   if (x.K <= 0 || x.K % TQ || (MERGE && x.K % BD))
@@ -986,20 +1014,34 @@ int launch_ws(const WsArgs& x) {
                    base, DIM, static_cast<long long>(x.n_img) * x.K,
                    BF16 ? 2 * DIM : DIM, DIM / C::HALVES))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      variant_ws_kernel<TQ, BF16, MERGE, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (MODE != MAX && (x.norms == nullptr || x.qsq == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!EXT && MODE != MAX &&
+      static_cast<long long>(x.n_img) * x.K >= PRE_MAX_ROWS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<int> cache[MAX_DEVICES];
+  const int sms = sm_count_for(variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>,
+                               C::SMEM, cache);
+  if (sms < 0) return -sms;
   const long long items = static_cast<long long>(x.num_pairs) * (x.K / TQ);
   const int grid = static_cast<int>(items < sms ? items : sms);
-  variant_ws_kernel<TQ, BF16, MERGE, MODE>
-      <<<grid, WS_THREADS, C::SMEM, x.stream>>>(
-      map, static_cast<const int8_t*>(x.table), x.K, x.counts, x.norms, x.qsq,
-      x.pi, x.pj, static_cast<int>(items), x.d0, x.i0, x.d1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>, grid,
+                       WS_THREADS, C::SMEM, x.stream, !EXT && MODE != MAX, map,
+                       static_cast<const int8_t*>(x.table), x.n_img, x.K,
+                       x.counts, x.norms, x.qsq, x.pi, x.pj,
+                       static_cast<int>(items), x.d0, x.i0, x.d1);
+}
+
+// The one-launch instantiation, or with two_launch its yardstick; MAX
+// reads no constants and has one instantiation.
+template <int TQ, bool BF16, bool MERGE, int MODE = TOP2>
+int launch_ws_any(const WsArgs& x) {
+  if constexpr (MODE == MAX)
+    return launch_ws<TQ, BF16, MERGE, MODE, false>(x);
+  else if (x.two_launch)
+    return launch_ws<TQ, BF16, MERGE, MODE, true>(x);
+  else
+    return launch_ws<TQ, BF16, MERGE, MODE, false>(x);
 }
 
 }  // namespace
@@ -1012,9 +1054,10 @@ extern "C" {
 // point returns the CUDA error code of the launch (0 on success), or
 // cudaErrorInvalidValue for a shape or parameter it does not take.
 
-// The warp-specialised design's pre-pass: norms and qsq int32 [n_img, K]
-// (column constants with the f32 offset when bf16 != 0, |q|^2); with
-// bf16 != 0 also tab16, the table as bf16 [n_img, K, 128].  K % 128 == 0.
+// The warp-specialised design's pre-pass: with norms (else null, and then
+// counts and qsq are unused) norms and qsq int32 [n_img, K] (column
+// constants with the f32 offset when bf16 != 0, |q|^2); with bf16 != 0
+// also tab16, the table as bf16 [n_img, K, 128].  K % 128 == 0.
 int two_nn_variants_prepass(const void* table, int n_img, int K,
                             const int* counts, int bf16, int* norms, int* qsq,
                             void* tab16, void* stream) {
@@ -1029,38 +1072,43 @@ int two_nn_variants_prepass(const void* table, int n_img, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Exact 2-NN on the warp-specialised design, with norms / qsq (and, for
-// bf16 != 0, tab16) from two_nn_variants_prepass with the same bf16 flag:
-// int8 dot at tq in {128, 256, 512, 1024}, bf16 dot at tq 128; K % tq == 0.
+// Exact 2-NN on the warp-specialised design: int8 dot at tq in {128, 256,
+// 512, 1024}, bf16 dot at tq 128; K % tq == 0.  norms and qsq int32
+// [n_img, K]: with two_launch != 0 what two_nn_variants_prepass wrote with
+// the same bf16 flag (the yardstick), else scratch the kernel writes them
+// to itself (one launch).  The bf16 dot's ring loads tab16, the table as
+// bf16 (two_nn_variants_prepass with bf16 != 0, norms null or not).
 int two_nn_oneblock(const void* table, const void* tab16, int n_img, int K,
-                    const int* counts, const int* norms, const int* qsq,
+                    const int* counts, int* norms, int* qsq, int two_launch,
                     const int* pi, const int* pj, int num_pairs, int tq,
                     int bf16, float* d0, int* i0, float* d1, void* stream) {
-  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, pi, pj,
-                 num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream)};
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
+                 pi, pj, num_pairs, d0, i0, d1,
+                 static_cast<cudaStream_t>(stream)};
   if (bf16) {
-    if (tq == 128) return launch_ws<128, true, false>(x);
+    if (tq == 128) return launch_ws_any<128, true, false>(x);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (tq) {
-    case 128: return launch_ws<128, false, false>(x);
-    case 256: return launch_ws<256, false, false>(x);
-    case 512: return launch_ws<512, false, false>(x);
-    case 1024: return launch_ws<1024, false, false>(x);
+    case 128: return launch_ws_any<128, false, false>(x);
+    case 256: return launch_ws_any<256, false, false>(x);
+    case 512: return launch_ws_any<512, false, false>(x);
+    case 1024: return launch_ws_any<1024, false, false>(x);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Exact 2-NN, bf16 dot, 256 query rows, 512-row db blocks; K % 512 == 0;
-// the pre-pass with bf16 != 0.
+// the other arguments as for two_nn_oneblock's bf16 dot.
 int two_nn_blockmerge_bf16(const void* table, const void* tab16, int n_img,
-                           int K, const int* counts, const int* norms,
-                           const int* qsq, const int* pi, const int* pj,
+                           int K, const int* counts, int* norms, int* qsq,
+                           int two_launch, const int* pi, const int* pj,
                            int num_pairs, float* d0, int* i0, float* d1,
                            void* stream) {
-  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, pi, pj,
-                 num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream)};
-  return launch_ws<256, true, true>(x);
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
+                 pi, pj, num_pairs, d0, i0, d1,
+                 static_cast<cudaStream_t>(stream)};
+  return launch_ws_any<256, true, true>(x);
 }
 
 // The first design (mma.sync): tq in {128, 256, 512, 1024}, K % tq == 0;
@@ -1085,17 +1133,17 @@ int two_nn_blockmerge_bf16_mma(const void* table, int K, const int* counts,
 
 // Epilogue ablations on the warp-specialised design, int8 dot, 128 query
 // rows; K % 128 == 0; the arguments of two_nn_oneblock (tab16 unused).
-// mode 0: "matmul_max" (norms and qsq unused: no pre-pass), mode 1: "top1"
-// (the int8 pre-pass).
+// mode 0: "matmul_max" (norms, qsq and two_launch unused), mode 1: "top1".
 int two_nn_ablation(const void* table, const void* tab16, int n_img, int K,
-                    const int* counts, const int* norms, const int* qsq,
+                    const int* counts, int* norms, int* qsq, int two_launch,
                     const int* pi, const int* pj, int num_pairs, int mode,
                     float* d0, int* i0, float* d1, void* stream) {
-  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, pi, pj,
-                 num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream)};
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
+                 pi, pj, num_pairs, d0, i0, d1,
+                 static_cast<cudaStream_t>(stream)};
   switch (mode) {
-    case 0: return launch_ws<128, false, false, MAX>(x);
-    case 1: return launch_ws<128, false, false, TOP1>(x);
+    case 0: return launch_ws_any<128, false, false, MAX>(x);
+    case 1: return launch_ws_any<128, false, false, TOP1>(x);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,7 +3,9 @@
 // two_nn_variants.cu (the probe variants): mbarrier and TMA helpers for a
 // ring of 128-row tiles in shared memory, the wgmma descriptor of a K-major
 // tile with 128-byte swizzle, the m64n128k32 int8 and m64n128k16 bf16
-// wgmma (A in registers or shared memory), and the packed-key top-2 fold.
+// wgmma (A in registers or shared memory), the packed-key top-2 fold, and
+// what makes a call one launch: the first phase that writes a table's
+// column constants, a grid-wide barrier, and the cooperative launch.
 //
 // Packed keys.  With the per-column constant c = |b|^2 * 256 + (row % 128)
 // (KEY_POISON for a row at or past the count), key = c - 512 (q.b) =
@@ -16,6 +18,9 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <utility>
 
 namespace wsk {
 
@@ -298,6 +303,118 @@ __device__ __forceinline__ float to_dist(int qsq, int e) {
   return e >= E_POISON ? BIG : static_cast<float>(qsq + e);
 }
 
+// The column constants of every row of a centered int8 table [n_img, nd,
+// 128], written to cst [n_img, kp] (kp >= nd, a multiple of NT): c =
+// |b|^2 * 256 + r % NT + bias for rows r < counts[j], KEY_POISON for the
+// rest (the padding to kp included); with sq, also |b|^2 into sq [n_img,
+// nd].  The pre-phase of a one-launch kernel: every thread of the grid
+// takes units of 16 bytes, eight lanes a row (dp4a, then an xor tree over
+// the eight, as two_nn_norms_kernel sums), PRE_UNROLL loads in flight
+// before any is used, since the grid has far fewer threads than units.
+// 32-bit indices: the launcher refuses n_img * kp >= PRE_MAX_ROWS.
+constexpr int PRE_UNROLL = 16;
+constexpr long long PRE_MAX_ROWS = 1LL << 26;
+
+__device__ __forceinline__ void table_constants(
+    const int8_t* __restrict__ tab, int n_img, int nd, int kp,
+    const int* __restrict__ counts, int bias, int* __restrict__ cst,
+    int* __restrict__ sq) {
+  const int units = n_img * kp * 8;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  // The same round count on every lane, so the shuffles see whole warps.
+  const int rounds = (units + stride * PRE_UNROLL - 1) / (stride * PRE_UNROLL);
+  for (int k = 0; k < rounds; ++k) {
+    uint4 v[PRE_UNROLL];
+#pragma unroll
+    for (int i = 0; i < PRE_UNROLL; ++i) {
+      const int u = first + (k * PRE_UNROLL + i) * stride;
+      const int row = u >> 3;
+      const int j = row / kp;
+      const int r = row - j * kp;
+      v[i] = make_uint4(0, 0, 0, 0);
+      if (u < units && r < nd)
+        v[i] = *reinterpret_cast<const uint4*>(
+            tab + (static_cast<long long>(j) * nd + r) * 128 + (u & 7) * 16);
+    }
+#pragma unroll
+    for (int i = 0; i < PRE_UNROLL; ++i) {
+      const int u = first + (k * PRE_UNROLL + i) * stride;
+      int s = 0;
+      s = __dp4a(static_cast<int>(v[i].x), static_cast<int>(v[i].x), s);
+      s = __dp4a(static_cast<int>(v[i].y), static_cast<int>(v[i].y), s);
+      s = __dp4a(static_cast<int>(v[i].z), static_cast<int>(v[i].z), s);
+      s = __dp4a(static_cast<int>(v[i].w), static_cast<int>(v[i].w), s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (u < units && (u & 7) == 0) {
+        const int row = u >> 3;
+        const int j = row / kp;
+        const int r = row - j * kp;
+        cst[row] = r < counts[j]
+                       ? static_cast<int>(static_cast<uint32_t>(s * 256 + r % NT) +
+                                          static_cast<uint32_t>(bias))
+                       : KEY_POISON;
+        if (sq != nullptr && r < nd) sq[static_cast<long long>(j) * nd + r] = s;
+      }
+    }
+  }
+}
+
+// Make this thread's generic-proxy writes to global memory visible to
+// the async proxy (the bulk copies that load them into the ring).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A barrier across the grid of a cooperative launch (every block resident
+// at once).  One thread a block adds to `arrived`: block 0 adds 2^31 -
+// (gridDim.x - 1), the others 1, so the top bit flips exactly when all
+// have arrived and each barrier adds 2^31 in all: the counter needs no
+// reset between launches of any grid size.  Launches that use one counter
+// must not overlap (they share the stream).
+__device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(arrived, add);
+    while (((old ^ *reinterpret_cast<volatile unsigned int*>(arrived)) &
+            0x80000000u) == 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The SM count of the current device, with `kernel`'s dynamic shared
+// memory limit raised to `smem` there: queried and set once per device for
+// each `cache` (one per kernel instantiation), then read from it.  Returns
+// the count, or minus the CUDA error.
+constexpr int MAX_DEVICES = 64;
+
+template <class Kernel>
+inline int sm_count_for(Kernel kernel, int smem,
+                        std::atomic<int> (&cache)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (dev < MAX_DEVICES) {
+    const int sms = cache[dev].load(std::memory_order_relaxed);
+    if (sms > 0) return sms;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  int sms = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (dev < MAX_DEVICES) cache[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -340,6 +457,30 @@ inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch `kernel` on `grid` blocks of `threads` threads with `smem` bytes
+// of dynamic shared memory; with `cooperative`, as a cooperative launch
+// (every block resident at once, which grid_barrier needs: the runtime
+// refuses a grid that cannot be).  Returns the launch's CUDA error.
+template <class... Params, class... Args>
+inline int launch_kernel(void (*kernel)(Params...), int grid, int threads,
+                         int smem, cudaStream_t stream, bool cooperative,
+                         Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cooperative ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace wsk

@@ -18,25 +18,33 @@ m64n128k32 (A in registers, B from a 128-byte-swizzled TMA ring kept
 full by a producer warp: 64 B a clock), folds packed (distance, column)
 keys at 4 integer instructions a score, and overlaps each tile's top-2
 with the next tile's product; that epilogue is what bounds it now (see
-the source note for the arithmetic).  f32 tables run the same machinery
+the source note for the arithmetic).  An int8 call is one launch: its
+first phase writes the column constants of the db table, and the grid
+meets at a barrier before the ring starts.  f32 tables run the same
+machinery
 at the bf16 rate (`wgmma` m64n128k16 on bf16 copies of the tables written
 by a per-call pre-pass, with the norms of the unrounded values) and keep
 the top-2 in f32.
 
 Wrappers, each counting its kernel launches in `LAUNCHES`:
-  two_nn_pairs     the matcher.  int8: `two_nn_norms` then the `wgmma`
-                   kernel ("two_nn"); f32: `prepass_f32` then the bf16
-                   `wgmma` kernel ("two_nn_f32").
-  two_nn_norms     |b|²·256 + row % 128 per table row, poisoned past the
-                   count: the int8 kernel's per-column constants.
-  prepass_f32      the f32 kernel's bf16 table, |x|² and column norms
-                   ("two_nn_f32_prepass").
-  two_nn_pairs_mma the first design (`mma.sync`), int8 ("two_nn_mma") or
-                   f32 ("two_nn_f32_mma"), for comparison only.
+  two_nn_pairs     the matcher.  int8: the `wgmma` kernel, which writes
+                   its column constants itself ("two_nn"); f32:
+                   `prepass_f32` then the bf16 `wgmma` kernel ("two_nn_f32").
   two_nn_product_max  the `wgmma` kernel with one max a score in place of
                    the top-2 (row max of q·b), int8 ("two_nn_product_max")
                    or f32 ("two_nn_product_max_f32"): splits its time, not
                    a matcher.
+  prepass_f32      the f32 kernel's bf16 table, |x|² and column norms
+                   ("two_nn_f32_prepass").
+Yardsticks, for comparison only (no path calls them):
+  two_nn_pairs_two_launch, two_nn_product_max_two_launch  the int8
+                   kernels' two-launch form: `two_nn_norms`, then the same
+                   kernel reading those constants ("two_nn_two_launch",
+                   "two_nn_product_max_two_launch").
+  two_nn_norms     |b|²·256 + row % 128 per table row, poisoned past the
+                   count: the int8 kernel's per-column constants.
+  two_nn_pairs_mma the first design (`mma.sync`), int8 ("two_nn_mma") or
+                   f32 ("two_nn_f32_mma").
 For CPU tensors each runs its plain PyTorch version (`two_nn_reference`,
 `two_nn_norms_plain`, `prepass_f32_plain`, `product_max_plain`); for CUDA
 tensors it launches its kernel or raises.
@@ -71,13 +79,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma`
-# kernel), "two_nn_f32" (the f32 `wgmma` kernel), "two_nn_norms",
-# "two_nn_f32_prepass", "two_nn_mma" / "two_nn_f32_mma" (the first design's
-# `mma.sync` kernels) and "two_nn_product_max" / "two_nn_product_max_f32"
-# (the `wgmma` kernels' product-only ablations).
-LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_norms": 0,
-            "two_nn_f32_prepass": 0, "two_nn_mma": 0, "two_nn_f32_mma": 0,
-            "two_nn_product_max": 0, "two_nn_product_max_f32": 0}
+# kernel), "two_nn_f32" (the f32 `wgmma` kernel), "two_nn_f32_prepass",
+# "two_nn_product_max" / "two_nn_product_max_f32" (the `wgmma` kernels'
+# product-only ablations), and the yardsticks: "two_nn_norms",
+# "two_nn_two_launch" / "two_nn_product_max_two_launch" (the int8 kernels
+# reading the norms kernel's constants) and "two_nn_mma" /
+# "two_nn_f32_mma" (the first design's `mma.sync` kernels).
+LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_f32_prepass": 0,
+            "two_nn_product_max": 0, "two_nn_product_max_f32": 0,
+            "two_nn_norms": 0, "two_nn_two_launch": 0,
+            "two_nn_product_max_two_launch": 0, "two_nn_mma": 0,
+            "two_nn_f32_mma": 0}
 
 _lib = None
 
@@ -126,7 +138,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        ws = [p, ll, i, p, i, i, p, p, p, p, i, p, p, p, p]
+        # qtab, q_stride, nq, dbtab, n_img, nd, counts, norms, two_launch,
+        # pi, pj, B, d0, i0, d1, stream
+        ws = [p, ll, i, p, i, i, p, p, i, p, p, i, p, p, p, p]
         # q16, q_stride, n_img_q, nq, qsq, db16, n_img, nd, counts, bsq,
         # pi, pj, B, d0, i0, d1, stream
         f32 = [p, ll, i, i, p, p, i, i, p, p, p, p, i, p, p, p, p]
@@ -310,10 +324,13 @@ def _check_tables(qtab, dbtab, db_counts, pi, pj, dtypes):
         raise ValueError("two_nn_pairs: image index or db count out of range")
 
 
-def _outputs(B, nq, device):
-    return (torch.empty((B, nq), dtype=torch.float32, device=device),
-            torch.empty((B, nq), dtype=torch.int32, device=device),
-            torch.empty((B, nq), dtype=torch.float32, device=device))
+def _outputs(B, nq, device, scratch=0):
+    """d0 f32, i0 int32, d1 f32 [B, nq] and `scratch` int32 elements for
+    the kernel: views of one allocation."""
+    n = B * nq
+    buf = torch.empty(3 * n + scratch, dtype=torch.int32, device=device)
+    return (buf[:n].view(torch.float32).view(B, nq), buf[n:2 * n].view(B, nq),
+            buf[2 * n:3 * n].view(torch.float32).view(B, nq), buf[3 * n:])
 
 
 def _launched(err, name):
@@ -360,7 +377,8 @@ def prepass_f32(tab: torch.Tensor, counts: Optional[torch.Tensor] = None
 def two_nn_norms(dbtab: torch.Tensor, db_counts: torch.Tensor
                  ) -> torch.Tensor:
     """`two_nn_norms_plain` of a centered int8 table [n_img, Nd, 128] and
-    its int32 counts [n_img]; on CUDA by the norms kernel."""
+    its int32 counts [n_img]; on CUDA by the norms kernel (the two-launch
+    yardstick's first launch: the int8 kernels compute these themselves)."""
     if dbtab.device.type == "cpu":
         return two_nn_norms_plain(dbtab, db_counts)
     if dbtab.device.type != "cuda" or db_counts.device != dbtab.device:
@@ -404,6 +422,22 @@ def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn")
 
 
+def two_nn_pairs_two_launch(qtab: torch.Tensor, dbtab: torch.Tensor,
+                            db_counts: torch.Tensor, pi: torch.Tensor,
+                            pj: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """`two_nn_pairs` of centered int8 tables in its two-launch form: the
+    norms kernel, then the `wgmma` kernel reading its constants
+    ("two_nn_two_launch"); for timing and checks beside the one-launch
+    kernel."""
+    if qtab.device.type == "cpu":
+        return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
+    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
+    return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn_two_launch",
+                      two_launch=True)
+
+
 def product_max_plain(qtab, dbtab, db_counts, pi, pj, chunk_elems=1 << 26):
     """The product-only ablation's plain version: d0 = max of q·b over the
     first db_counts[pj[b]] rows (−3e38 if none), i0 = d1 = 0, on the
@@ -442,6 +476,20 @@ def two_nn_product_max(qtab: torch.Tensor, dbtab: torch.Tensor,
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn_product_max")
 
 
+def two_nn_product_max_two_launch(qtab: torch.Tensor, dbtab: torch.Tensor,
+                                  db_counts: torch.Tensor, pi: torch.Tensor,
+                                  pj: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """`two_nn_product_max` of centered int8 tables in its two-launch form
+    (the norms kernel first; "two_nn_product_max_two_launch")."""
+    if qtab.device.type == "cpu":
+        return product_max_plain(qtab, dbtab, db_counts, pi, pj)
+    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
+    return _launch_ws(qtab, dbtab, db_counts, pi, pj,
+                      "two_nn_product_max_two_launch", two_launch=True)
+
+
 def _launch_f32(qtab, dbtab, db_counts, pi, pj, counter):
     """The f32 `wgmma` kernel: the 2-NN ("two_nn_f32") or its product-only
     ablation; the pre-pass first, once for a query table that is the db
@@ -449,7 +497,7 @@ def _launch_f32(qtab, dbtab, db_counts, pi, pj, counter):
     dbtab, db_counts = dbtab.contiguous(), db_counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
     B, nq = pi.shape[0], qtab.shape[1]
-    d0, i0, d1 = _outputs(B, nq, qtab.device)
+    d0, i0, d1, _ = _outputs(B, nq, qtab.device)
     if B == 0:
         return d0, i0, d1
     db16, sq, bsq = prepass_f32(dbtab, db_counts)
@@ -470,25 +518,31 @@ def _launch_f32(qtab, dbtab, db_counts, pi, pj, counter):
     return d0, i0, d1
 
 
-def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter):
+def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter, two_launch=False):
     """The int8 `wgmma` kernel: the 2-NN ("two_nn") or its product-only
-    ablation; the norms kernel first."""
+    ablation, one launch that writes its column constants into scratch
+    allocated with the outputs; with `two_launch`, the norms kernel first
+    and the kernel's instantiation that reads its constants."""
     qtab, dbtab = qtab.contiguous(), dbtab.contiguous()
     db_counts = db_counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
     B, nq = pi.shape[0], qtab.shape[1]
-    d0, i0, d1 = _outputs(B, nq, qtab.device)
+    n_img, nd = dbtab.shape[0], dbtab.shape[1]
+    kp = -(-nd // NORM_TILE) * NORM_TILE
+    d0, i0, d1, norms = _outputs(B, nq, qtab.device,
+                                 0 if two_launch or B == 0 else n_img * kp)
     if B == 0:
         return d0, i0, d1
-    norms = two_nn_norms(dbtab, db_counts)
+    if two_launch:
+        norms = two_nn_norms(dbtab, db_counts)
     lib = _load()
-    fn = (lib.two_nn_pairs_i8 if counter == "two_nn"
-          else lib.two_nn_product_max_i8)
+    fn = (lib.two_nn_product_max_i8 if "product_max" in counter
+          else lib.two_nn_pairs_i8)
     with torch.cuda.device(qtab.device):
-        err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(),
-                 dbtab.shape[0], dbtab.shape[1], db_counts.data_ptr(),
-                 norms.data_ptr(), pi.data_ptr(), pj.data_ptr(), B,
-                 d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
+        err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(), n_img, nd,
+                 db_counts.data_ptr(), norms.data_ptr(), int(two_launch),
+                 pi.data_ptr(), pj.data_ptr(), B, d0.data_ptr(),
+                 i0.data_ptr(), d1.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     _launched(err, counter)
     return d0, i0, d1
@@ -517,7 +571,7 @@ def _launch_mma(qtab, dbtab, db_counts, pi, pj, counter):
     db_counts = db_counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
     B, nq, nd = pi.shape[0], qtab.shape[1], dbtab.shape[1]
-    d0, i0, d1 = _outputs(B, nq, qtab.device)
+    d0, i0, d1, _ = _outputs(B, nq, qtab.device)
     if B == 0:
         return d0, i0, d1
     lib = _load()

@@ -25,14 +25,20 @@ Outputs d0 f32, i0 int32, d1 f32, each [B, K].  The arithmetic is exact
 
 Two kernel designs (see the source note).  `two_nn_oneblock` (int8 at every
 tq, bf16 at tq 128), `two_nn_blockmerge_bf16` and `two_nn_ablation` run the
-warp-specialised `wgmma` design: a per-call pre-pass kernel
-(`variants_prepass`: column constants, |q|², and for the bf16 dot a bf16
-copy of the table; "matmul_max" needs none), then a persistent kernel with
-a TMA ring of db tiles and a packed-key top-2 (top-1 for "top1", one max a
-score for "matmul_max").  The first design's `mma.sync` kernels stay as
-yardsticks (`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`,
-`two_nn_ablation_mma`), and serve `two_nn_oneblock` at bf16 tq 256–1024
-(launched by no path).
+warp-specialised `wgmma` design: one launch of a persistent kernel whose
+first phase writes the table's column constants and |q|² (scratch
+allocated with the outputs; the grid then meets at a barrier), then a TMA
+ring of db tiles and a packed-key top-2 (top-1 for "top1", one max a score
+and no constants for "matmul_max").  The bf16 dot reads a bf16 copy of the
+table (TMA cannot convert): `bf16_table` makes it, once per table when the
+caller passes it in (`table16=`), else once per call.  Yardsticks, for comparison only: the two-launch form of each
+`wgmma` instantiation that reads constants (`two_nn_oneblock_two_launch`,
+`two_nn_blockmerge_bf16_two_launch`, `two_nn_ablation_two_launch`: the
+pre-pass kernel `variants_prepass`, then the kernel reading its constants
+and |q|²), and the first design's `mma.sync` kernels
+(`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`,
+`two_nn_ablation_mma`), which also serve `two_nn_oneblock` at bf16 tq
+256–1024 (launched by no path).
 
 For CPU tensors a wrapper runs its plain PyTorch version (the query tile,
 the dot type and the design do not change the result); for CUDA tensors it
@@ -64,14 +70,19 @@ ABLATION_TQ = 128
 F32_MAGIC_BIAS = 0x80000000
 
 # Kernel launches, one count per kernel instantiation the wrappers reach:
-# the probe's variants (`wgmma` design where it serves them), the
-# pre-pass kernel that design launches once per call, and the first
-# design's `mma.sync` yardsticks.
+# the probe's variants (`wgmma` design where it serves them), the pre-pass
+# kernel (the bf16 table, and the yardsticks' first launch), the
+# two-launch yardsticks and the first design's `mma.sync` yardsticks.
+TWO_LAUNCH = ([f"two_nn_oneblock_two_launch_int8_{tq}" for tq in ONEBLOCK_TILES]
+              + ["two_nn_oneblock_two_launch_bf16_128",
+                 "two_nn_blockmerge_bf16_two_launch",
+                 "two_nn_ablation_two_launch_top1"])
 LAUNCHES = {**{f"two_nn_oneblock_{d}_{tq}": 0 for d in DOTS
                for tq in ONEBLOCK_TILES},
             "two_nn_blockmerge_bf16": 0,
             **{f"two_nn_ablation_{m}": 0 for m in ABLATION_MODES},
             "two_nn_variants_prepass": 0,
+            **dict.fromkeys(TWO_LAUNCH, 0),
             **{f"two_nn_oneblock_mma_{d}_{tq}": 0 for d in DOTS
                for tq in ONEBLOCK_TILES},
             "two_nn_blockmerge_bf16_mma": 0,
@@ -88,8 +99,8 @@ def _load():
         lib = ctypes.CDLL(build(SOURCE))
         p, i = ctypes.c_void_p, ctypes.c_int
         head = [p, i, p, p, p, i]              # table, K, counts, pi, pj, B
-        # table, tab16, n_img, K, counts, norms, qsq, pi, pj, B
-        ws = [p, p, i, i, p, p, p, p, p, i]
+        # table, tab16, n_img, K, counts, norms, qsq, two_launch, pi, pj, B
+        ws = [p, p, i, i, p, p, p, i, p, p, i]
         tail = [p, p, p, p]                    # d0, i0, d1, stream
         for name, args in (
                 ("two_nn_oneblock", ws + [i, i] + tail),
@@ -238,31 +249,38 @@ def _check(name: str, table, counts, pi, pj, row_multiple: int) -> None:
         raise ValueError(f"{name}: image index or count out of range")
 
 
-def _outputs(B: int, K: int, device) -> Outputs:
-    return (torch.empty((B, K), dtype=torch.float32, device=device),
-            torch.empty((B, K), dtype=torch.int32, device=device),
-            torch.empty((B, K), dtype=torch.float32, device=device))
+def _outputs(B: int, K: int, device, scratch: int = 0):
+    """d0 f32, i0 int32, d1 f32 [B, K] and `scratch` int32 elements for
+    the kernel: views of one allocation."""
+    n = B * K
+    buf = torch.empty(3 * n + scratch, dtype=torch.int32, device=device)
+    return (buf[:n].view(torch.float32).view(B, K), buf[n:2 * n].view(B, K),
+            buf[2 * n:3 * n].view(torch.float32).view(B, K), buf[3 * n:])
 
 
 def _run(name: str, counter: str, plain: Callable[[], Outputs],
-         launch: Callable, table, counts, pi, pj, row_multiple: int
-         ) -> Outputs:
+         launch: Callable, table, counts, pi, pj, row_multiple: int,
+         scratch_per_row: int = 0) -> Outputs:
     """Checks, then the plain version for CPU tensors, or `launch(table,
-    counts, pi, pj, (d0, i0, d1), stream)` for CUDA tensors (raising on a
-    nonzero CUDA error), counted under `counter`."""
+    counts, pi, pj, (d0, i0, d1), scratch, stream)` for CUDA tensors
+    (raising on a nonzero CUDA error), counted under `counter`; `scratch`
+    holds `scratch_per_row` int32 per table row, allocated with the
+    outputs."""
     _check(name, table, counts, pi, pj, row_multiple)
     if table.device.type == "cpu":
         return plain()
     table, counts = table.contiguous(), counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
-    out = _outputs(pi.shape[0], table.shape[1], table.device)
-    if pi.shape[0] == 0:
-        return out
+    B, (n_img, K) = pi.shape[0], table.shape[:2]
+    *out, scratch = _outputs(B, K, table.device,
+                             scratch_per_row * n_img * K if B else 0)
+    if B == 0:
+        return tuple(out)
     with torch.cuda.device(table.device):
-        err = launch(table, counts, pi, pj, out,
+        err = launch(table, counts, pi, pj, out, scratch,
                      torch.cuda.current_stream().cuda_stream)
     _launched(err, name, counter)
-    return out
+    return tuple(out)
 
 
 def _launched(err: int, name: str, counter: str) -> None:
@@ -275,54 +293,93 @@ def variants_prepass(table: torch.Tensor, counts: torch.Tensor,
                      bf16: bool = False):
     """`prepass_plain` of a centered int8 table [n_img, K, 128] (K % 128
     == 0) and its int32 counts; on CUDA by the pre-pass kernel (count
-    "two_nn_variants_prepass")."""
+    "two_nn_variants_prepass"): the two-launch yardsticks' first launch."""
     if table.device.type == "cpu":
         return prepass_plain(table, counts, bf16)
-    if (table.device.type != "cuda" or counts.device != table.device
-            or table.dtype != torch.int8 or table.dim() != 3
-            or table.shape[2] != 128 or table.shape[1] % NORM_TILE
-            or counts.dtype != torch.int32
-            or counts.shape != table.shape[:1]):
-        raise ValueError("variants_prepass: need a CUDA int8 [n_img, K, 128] "
-                         "table with K % 128 == 0 and int32 [n_img] counts "
-                         "on the same device")
+    _check_prepass("variants_prepass", table, counts)
     table, counts = table.contiguous(), counts.contiguous()
-    n_img, K = table.shape[0], table.shape[1]
-    norms = torch.empty((n_img, K), dtype=torch.int32, device=table.device)
+    norms = torch.empty(table.shape[:2], dtype=torch.int32,
+                        device=table.device)
     qsq = torch.empty_like(norms)
-    tab16 = (torch.empty(table.shape, dtype=torch.bfloat16,
-                         device=table.device) if bf16 else None)
-    if table.numel():
-        with torch.cuda.device(table.device):
-            err = _load().two_nn_variants_prepass(
-                table.data_ptr(), n_img, K, counts.data_ptr(), int(bf16),
-                norms.data_ptr(), qsq.data_ptr(),
-                tab16.data_ptr() if bf16 else None,
-                torch.cuda.current_stream().cuda_stream)
-        _launched(err, "variants_prepass", "two_nn_variants_prepass")
+    tab16 = _prepass(table, counts, norms, qsq, bf16)
     return norms, qsq, tab16
 
 
-def _ws_launch(entry: str, bf16: bool, *extra, prepass: bool = True):
-    """The `wgmma` design's launch: the pre-pass (unless the kernel reads
-    none of its outputs), then the kernel."""
-    def launch(table, counts, pi, pj, out, stream):
-        norms = qsq = tab16 = None
-        if prepass:
+def bf16_table(table: torch.Tensor) -> torch.Tensor:
+    """The bf16 copy of a centered int8 table [n_img, K, 128] (K % 128 ==
+    0) that the bf16 dot's ring loads; on CUDA by the pre-pass kernel with
+    the table alone (count "two_nn_variants_prepass").  Make it once per
+    table and pass it to the bf16 variants as `table16`."""
+    if table.device.type == "cpu":
+        return table.to(torch.bfloat16)
+    _check_prepass("bf16_table", table)
+    return _prepass(table.contiguous(), None, None, None, True)
+
+
+def _check_prepass(name, table, counts=None):
+    if (table.device.type != "cuda" or table.dtype != torch.int8
+            or table.dim() != 3 or table.shape[2] != 128
+            or table.shape[1] % NORM_TILE
+            or (counts is not None and (
+                counts.device != table.device or counts.dtype != torch.int32
+                or counts.shape != table.shape[:1]))):
+        raise ValueError(f"{name}: need a CUDA int8 [n_img, K, 128] table "
+                         "with K % 128 == 0 (and int32 [n_img] counts on the "
+                         "same device)")
+
+
+def _prepass(table, counts, norms, qsq, bf16):
+    """Launch the pre-pass kernel; returns the bf16 table (bf16) or None."""
+    n_img, K = table.shape[0], table.shape[1]
+    tab16 = (torch.empty(table.shape, dtype=torch.bfloat16,
+                         device=table.device) if bf16 else None)
+    if table.numel():
+        ptr = (lambda t: None if t is None else t.data_ptr())   # noqa: E731
+        with torch.cuda.device(table.device):
+            err = _load().two_nn_variants_prepass(
+                table.data_ptr(), n_img, K, ptr(counts), int(bf16), ptr(norms),
+                ptr(qsq), ptr(tab16), torch.cuda.current_stream().cuda_stream)
+        _launched(err, "variants_prepass", "two_nn_variants_prepass")
+    return tab16
+
+
+def _ws_launch(entry: str, bf16: bool, *extra, two_launch: bool = False,
+               table16=None):
+    """The `wgmma` design's launch: one launch that writes the column
+    constants and |q|² into the scratch (the bf16 dot reads `table16`,
+    made here if not given), or with `two_launch` the pre-pass and the
+    kernel reading its constants and |q|²."""
+    def launch(table, counts, pi, pj, out, scratch, stream):
+        norms = qsq = None
+        tab16 = table16
+        if two_launch:
             norms, qsq, tab16 = variants_prepass(table, counts, bf16)
+        else:
+            if scratch.numel():                 # not "matmul_max"
+                norms, qsq = scratch.view(2, -1)
+            if bf16 and tab16 is None:
+                tab16 = bf16_table(table)
+            elif bf16:
+                _check_table16(table, tab16)
+        ptr = (lambda t: None if t is None else t.data_ptr())   # noqa: E731
         return getattr(_load(), entry)(
-            table.data_ptr(), tab16.data_ptr() if bf16 else None,
-            table.shape[0], table.shape[1], counts.data_ptr(),
-            norms.data_ptr() if prepass else None,
-            qsq.data_ptr() if prepass else None, pi.data_ptr(),
-            pj.data_ptr(), pi.shape[0], *extra,
-            *(o.data_ptr() for o in out), stream)
+            table.data_ptr(), ptr(tab16) if bf16 else None, table.shape[0],
+            table.shape[1], counts.data_ptr(), ptr(norms), ptr(qsq),
+            int(two_launch), pi.data_ptr(), pj.data_ptr(), pi.shape[0],
+            *extra, *(o.data_ptr() for o in out), stream)
     return launch
+
+
+def _check_table16(table, tab16):
+    if (tab16.dtype != torch.bfloat16 or tab16.shape != table.shape
+            or tab16.device != table.device or not tab16.is_contiguous()):
+        raise ValueError("table16 must be bf16_table(table): a contiguous "
+                         "bf16 tensor of the table's shape on its device")
 
 
 def _mma_launch(entry: str, *extra):
     """The first design's launch."""
-    def launch(table, counts, pi, pj, out, stream):
+    def launch(table, counts, pi, pj, out, scratch, stream):
         return getattr(_load(), entry)(
             table.data_ptr(), table.shape[1], counts.data_ptr(),
             pi.data_ptr(), pj.data_ptr(), pi.shape[0], *extra,
@@ -341,26 +398,60 @@ def _oneblock_args(tq: int, dot: str) -> None:
 
 def two_nn_oneblock(table: torch.Tensor, counts: torch.Tensor,
                     pi: torch.Tensor, pj: torch.Tensor, tq: int = 128,
-                    dot: str = "int8") -> Outputs:
+                    dot: str = "int8", table16=None) -> Outputs:
     """Exact 2-NN with a one-pass top-2 over each score row; tq query rows
     share each staged db tile (K % tq == 0); dot "int8" or "bf16".  On the
-    `wgmma` design, except bf16 at tq > 128 (the `mma.sync` design)."""
+    `wgmma` design, one launch (bf16: `table16` = `bf16_table(table)`, made
+    here if not given), except bf16 at tq > 128 (the `mma.sync` design)."""
     _oneblock_args(tq, dot)
     bf16 = dot == "bf16"
     launch = (_mma_launch("two_nn_oneblock_mma", tq, 1) if bf16 and tq > 128
-              else _ws_launch("two_nn_oneblock", bf16, tq, int(bf16)))
+              else _ws_launch("two_nn_oneblock", bf16, tq, int(bf16),
+                              table16=table16))
     return _run("two_nn_oneblock", f"two_nn_oneblock_{dot}_{tq}",
                 lambda: oneblock_plain(table, counts, pi, pj), launch,
+                table, counts, pi, pj, tq, 0 if bf16 and tq > 128 else 2)
+
+
+def two_nn_oneblock_two_launch(table: torch.Tensor, counts: torch.Tensor,
+                               pi: torch.Tensor, pj: torch.Tensor,
+                               tq: int = 128, dot: str = "int8") -> Outputs:
+    """`two_nn_oneblock` on the `wgmma` design in its two-launch form (the
+    pre-pass, then the kernel reading its constants and |q|²), for timing
+    and checks beside the one-launch kernel; int8 at every tq, bf16 at
+    tq 128."""
+    _oneblock_args(tq, dot)
+    if dot == "bf16" and tq > 128:
+        raise ValueError("two_nn_oneblock_two_launch: bf16 runs on the "
+                         "`wgmma` design at tq 128 only")
+    return _run("two_nn_oneblock_two_launch",
+                f"two_nn_oneblock_two_launch_{dot}_{tq}",
+                lambda: oneblock_plain(table, counts, pi, pj),
+                _ws_launch("two_nn_oneblock", dot == "bf16", tq,
+                           int(dot == "bf16"), two_launch=True),
                 table, counts, pi, pj, tq)
 
 
 def two_nn_blockmerge_bf16(table: torch.Tensor, counts: torch.Tensor,
-                           pi: torch.Tensor, pj: torch.Tensor) -> Outputs:
+                           pi: torch.Tensor, pj: torch.Tensor,
+                           table16=None) -> Outputs:
     """Exact 2-NN with a bf16 dot, 256 query rows per work item and the db
-    in 512-row blocks folded into a running top-2 (K % 512 == 0)."""
+    in 512-row blocks folded into a running top-2 (K % 512 == 0); one
+    launch (`table16` as for `two_nn_oneblock`)."""
     return _run("two_nn_blockmerge_bf16", "two_nn_blockmerge_bf16",
                 lambda: blockmerge_plain(table, counts, pi, pj),
-                _ws_launch("two_nn_blockmerge_bf16", True),
+                _ws_launch("two_nn_blockmerge_bf16", True, table16=table16),
+                table, counts, pi, pj, BLOCKMERGE_BD, 2)
+
+
+def two_nn_blockmerge_bf16_two_launch(table: torch.Tensor,
+                                      counts: torch.Tensor, pi: torch.Tensor,
+                                      pj: torch.Tensor) -> Outputs:
+    """`two_nn_blockmerge_bf16` in its two-launch form."""
+    return _run("two_nn_blockmerge_bf16_two_launch",
+                "two_nn_blockmerge_bf16_two_launch",
+                lambda: blockmerge_plain(table, counts, pi, pj),
+                _ws_launch("two_nn_blockmerge_bf16", True, two_launch=True),
                 table, counts, pi, pj, BLOCKMERGE_BD)
 
 
@@ -396,13 +487,27 @@ def _ablation_mode(mode: str) -> int:
 def two_nn_ablation(table: torch.Tensor, counts: torch.Tensor,
                     pi: torch.Tensor, pj: torch.Tensor, mode: str) -> Outputs:
     """Epilogue ablation (not a matcher), int8 dot, 128 query rows
-    (K % 128 == 0): mode "matmul_max" or "top1", on the `wgmma` design
-    ("matmul_max" without the pre-pass)."""
+    (K % 128 == 0): mode "matmul_max" or "top1", on the `wgmma` design,
+    one launch."""
     m = _ablation_mode(mode)
     return _run("two_nn_ablation", f"two_nn_ablation_{mode}",
                 lambda: ablation_plain(table, counts, pi, pj, mode),
-                _ws_launch("two_nn_ablation", False, m,
-                           prepass=mode != "matmul_max"),
+                _ws_launch("two_nn_ablation", False, m),
+                table, counts, pi, pj, ABLATION_TQ, 2 * m)
+
+
+def two_nn_ablation_two_launch(table: torch.Tensor, counts: torch.Tensor,
+                               pi: torch.Tensor, pj: torch.Tensor,
+                               mode: str = "top1") -> Outputs:
+    """`two_nn_ablation` in its two-launch form: "top1" only ("matmul_max"
+    reads no constants)."""
+    if mode != "top1":
+        raise ValueError(f"two_nn_ablation_two_launch: mode must be 'top1', "
+                         f"got {mode!r}")
+    return _run("two_nn_ablation_two_launch",
+                "two_nn_ablation_two_launch_top1",
+                lambda: ablation_plain(table, counts, pi, pj, mode),
+                _ws_launch("two_nn_ablation", False, 1, two_launch=True),
                 table, counts, pi, pj, ABLATION_TQ)
 
 

@@ -9,6 +9,7 @@ the same variant list, run through the port's kernels:
   oneblock_i8_<tq>   `two_nn_oneblock`, int8 dot, tq in 128..1024
   oneblock_bf16_128  `two_nn_oneblock`, bf16 dot, tq 128
   bf16               `two_nn_blockmerge_bf16`
+(the bf16 dots read one bf16 copy of the table, made once per run)
   ABL_matmul_max     `two_nn_ablation(mode="matmul_max")` (not a matcher)
   ABL_top1           `two_nn_ablation(mode="top1")` (not a matcher)
 
@@ -77,10 +78,13 @@ class Variant(NamedTuple):
     multiple: int         # K must be a multiple of this
 
 
-def variants() -> List[Variant]:
+def variants(table16=None) -> List[Variant]:
+    """The probe's variants; the bf16 ones read `table16`, the table's bf16
+    copy (`matching_variants.bf16_table`), when it is given."""
     def oneblock(tq, dot):
+        t16 = {"table16": table16} if dot == "bf16" else {}
         return Variant(f"oneblock_{'i8' if dot == 'int8' else dot}_{tq}",
-                       lambda *a: V.two_nn_oneblock(*a, tq=tq, dot=dot),
+                       lambda *a: V.two_nn_oneblock(*a, tq=tq, dot=dot, **t16),
                        f"two_nn_oneblock_{dot}_{tq}", True, dot == "bf16", tq)
 
     def ablation(mode):
@@ -92,8 +96,9 @@ def variants() -> List[Variant]:
                      "two_nn", True, False, 128)]
             + [oneblock(tq, "int8") for tq in V.ONEBLOCK_TILES]
             + [oneblock(128, "bf16"),
-               Variant("bf16", V.two_nn_blockmerge_bf16,
-                       "two_nn_blockmerge_bf16", True, True, V.BLOCKMERGE_BD),
+               Variant("bf16", lambda *a: V.two_nn_blockmerge_bf16(
+                   *a, table16=table16),
+                   "two_nn_blockmerge_bf16", True, True, V.BLOCKMERGE_BD),
                ablation("matmul_max"), ablation("top1")])
 
 
@@ -121,6 +126,8 @@ def run(n_pairs: int = 276, keys: int = 2048, device="cuda",
     "ms"}} for the variants that ran; "ms" is None on the CPU."""
     dev = resolve_device(device)
     table, counts = make_table(keys, dev)
+    # The bf16 variants' copy of the table, made once (TMA cannot convert).
+    table16 = V.bf16_table(table) if dev.type == "cuda" else None
     pairs = make_pairs(n_pairs)
     pi = torch.tensor([i for i, _ in pairs], dtype=torch.int32, device=dev)
     pj = torch.tensor([j for _, j in pairs], dtype=torch.int32, device=dev)
@@ -134,7 +141,7 @@ def run(n_pairs: int = 276, keys: int = 2048, device="cuda",
     log(f"device: {where} P={n} K={keys}")
     results: Dict[str, dict] = {}
     base = None
-    for name, fn, _, exact, bf16, multiple in variants():
+    for name, fn, _, exact, bf16, multiple in variants(table16):
         if keys % multiple:
             log(f"{name:18s} skipped: K % {multiple} != 0")
             continue

@@ -5,28 +5,36 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc, in
                parallel; check that ptxas reports no spills for the
-               wgmma kernels (two_nn.cu's int8 two and f32 two,
-               two_nn_variants.cu's eight) and serialises no wgmma.
+               wgmma kernels (two_nn.cu's int8 four: one-launch and
+               two-launch, 2-NN and product-only; its f32 two;
+               two_nn_variants.cu's fifteen: eight one-launch, seven
+               two-launch), serialises no wgmma and drops no setmaxnreg.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
-               on the card: the int8 2-NN (`wgmma`) and its norms kernel,
-               the f32 2-NN (`wgmma`) and its pre-pass kernel, and the first
+               on the card: the int8 2-NN (`wgmma`, one launch), its
+               two-launch form (identical bits) and the norms kernel, the
+               f32 2-NN (`wgmma`) and its pre-pass kernel, and the first
                design's `mma.sync` kernel of each type beside them, at 64
                images x 2048 keys (all 2016 pairs), ragged keys up to 4096,
                duplicated rows (ties), integer-valued f32 tables and
                garbage rows past the counts; the f32 kernels within the
                stated tolerance on a real-valued table; time each `wgmma`
-               kernel and its `mma.sync` twin in turns, the plain version, a
-               library yardstick (f32 matmul + topk), and the bound (the
-               int8 rate; the bf16 rate for f32 tables, timed at 2016 pairs
-               x 2048^2 on integer-valued f32 descriptors with the
-               product-only split and the pre-pass).
+               kernel, the int8 one's two-launch form and the `mma.sync`
+               twin in turns, the plain version, a library yardstick (f32
+               matmul + topk), and the bound (the int8 rate; the bf16 rate
+               for f32 tables, timed at 2016 pairs x 2048^2 on
+               integer-valued f32 descriptors with the product-only split
+               and the pre-pass); split an int8 call's device time (CUDA
+               events around queued bare launches) and host time
+               ("[split]"), one launch against two in turns, at the bench
+               and the main-path shapes.
   3. main    — render a 24-view 1024x768 box room and run
                `bundler_sfm_tpu_torch.run_bundler --out bundle` on CUDA (SIFT,
                matching on the kernels, F/H verification, tracks, and the
                reconstruction: initial pair, resection, Schur-LM bundle
                adjustment with the outlier loop) with every launch count
-               zeroed; check its outputs and the launch counts (the BA's
-               `ba_runs_cuda` count too); hold bundle.out against gt.json
+               zeroed; check its outputs and the launch counts (one two_nn
+               launch a 2-NN call and no yardstick: no norms kernel; the
+               BA's `ba_runs_cuda` count too); hold bundle.out against gt.json
                (similarity-aligned centre error < 0.02, mean reprojection
                error < 1 px, at least as many cameras as the JAX package
                registers on the CPU from the same scene); run the
@@ -73,29 +81,32 @@ Phases (any failure raises, so the exit code is non-zero):
                0.02, reprojection < 1 px), then `fisheyeundistort` on CUDA
                and on the CPU, compared as in (b).
   6. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) of
-               both designs (the `wgmma` design and its `mma.sync` twins,
+               both designs (the `wgmma` design, one launch each, its
+               two-launch forms `_two_launch` and its `mma.sync` twins
                `_mma`; both ablation modes included) bit-exact against its
-               plain version,
-               and the `wgmma` design's pre-pass kernel against its own, at
-               the probe's shape (276 pairs x 2048 keys), at ragged counts,
-               on ties and with garbage rows past the counts; run the probe
-               entry point (`probes/probe_two_nn_variants.py`) with the
-               launch counts zeroed, check every exact variant IDENTICAL to
-               two_nn, every kernel launched once per probe call, no `_mma`
-               yardstick ran and one pre-pass ran per `wgmma`-design call
-               ("matmul_max" needs none); time two_nn, its
-               `mma.sync` kernel, each variant kernel beside its `mma.sync`
-               twin in turns, its plain version, a library yardstick, the
-               int8 and bf16 bounds and the pre-pass at 2208 pairs x
-               2048^2.
+               plain version and each one-launch kernel against its
+               two-launch form, and the pre-pass kernel and bf16_table
+               against their own, at the probe's shape (276 pairs x 2048
+               keys), at ragged counts, on ties and with garbage rows past
+               the counts; run the probe entry point
+               (`probes/probe_two_nn_variants.py`) with the launch counts
+               zeroed, check every exact variant IDENTICAL to two_nn,
+               every kernel launched once per probe call, no yardstick ran
+               and the pre-pass ran once (the bf16 table the probe makes);
+               time two_nn, its two-launch form and `mma.sync` kernel,
+               each variant kernel beside its two-launch form and
+               `mma.sync` twin in turns, its plain version, a library
+               yardstick, the int8 and bf16 bounds and the pre-pass at
+               2208 pairs x 2048^2, and split each call's device and host
+               time, one launch against two.
   7. library — the JAX package's library modules on phase 3's bundle.out
                (24 cameras, 13402 points) and its 24 x 4096-key
                descriptors, under build/smoke/library/, each step's
                seconds printed: (a) `match_pairs_batched` over all 276
                pairs on the uint8 descriptors and on the same values as
                float32, each with the launch counts zeroed just before
-               (int8: one two_nn and one norms launch per chunk of 32
-               pairs; f32: one two_nn_f32 and one pre-pass launch), both
+               (int8: one two_nn launch per chunk of 32 pairs; f32: one
+               two_nn_f32 and one pre-pass launch), both
                dicts and match files identical to
                `DescriptorTable.match_pairs(..., min_matches=16)`, the
                kernels bit-exact against their plain versions on the
@@ -124,8 +135,10 @@ Phases (any failure raises, so the exit code is non-zero):
                matcher (ShardedDescriptorTable) and the pair-split
                DescriptorTable(mesh=) over the 276 pairs, each dict
                identical to DescriptorTable.match_pairs, the 2-NN kernel
-               bit-exact on one rotation's tensors, each call timed first
-               and warm; (b) the point-sharded outlier loop on phase 3's
+               bit-exact on one rotation's tensors (and identical to its
+               two-launch form there), each call timed first and warm, ten
+               two_nn launches in the counted runs and no other 2-NN
+               kernel; (b) the point-sharded outlier loop on phase 3's
                final bundle (points moved by seeded noise): bit-identical
                to run_ba_outlier_loop at world 1; at world 2 the same
                obs_valid, pt_removed and passes, the cost within rtol 1e-9
@@ -134,6 +147,8 @@ Phases (any failure raises, so the exit code is non-zero):
                run_bundler --num_devices 2 on the render in a directory per
                rank: 24/24, centre error < 0.02, reprojection < 1 px, both
                ranks' cameras identical, no file from rank 1.
+`--phases build,kernels,variants` (any subset, in this order) runs only
+those phases, checks what they check and prints no result line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record, and the one before that the card's name and
 power limit as nvidia-smi reports them.  `--dump-scene PATH` also writes
@@ -221,44 +236,40 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_us(fn, calls, kernels):
-    """Mean device time per call of fn(), in µs, of each CUDA kernel whose
-    (demangled) name contains one of `kernels`: torch.profiler's kernel
-    events over `calls` calls after one warm-up call, summed by name and
-    divided by `calls`.  A name with no event gives None."""
-    from torch.profiler import ProfilerActivity, profile
+def device_us(fn, calls=20):
+    """Median device time of one fn() in µs: CUDA events around each of
+    `calls` calls, all queued behind a ~10 ms device sleep, so the device
+    runs them back to back and never waits for the host between an event
+    and the call (fn must not synchronise: bare launches, or wrappers
+    that only allocate and launch).  After one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = dict.fromkeys(kernels, 0.0)
-    seen = dict.fromkeys(kernels, 0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for k in kernels:
-            if k in e.name:
-                total[k] += e.time_range.end - e.time_range.start
-                seen[k] += 1
-    return {k: total[k] / calls if seen[k] else None for k in kernels}
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    torch.cuda._sleep(20_000_000)
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev])) * 1e3
 
 
 def host_us(fn, calls):
-    """Mean host time of fn() in µs over `calls` calls, each started on a
-    drained device (what a call costs the issuing thread; a wrapper's own
-    device syncs then wait only for its own work)."""
+    """Median host time of fn() in µs over max(calls, 30) calls, each
+    started on a drained device (what a call costs the issuing thread; a
+    wrapper's own device syncs then wait only for its own work; the median,
+    since this host's scheduling puts outliers of several times the
+    typical call into a mean)."""
     fn()
-    t = 0.0
-    for _ in range(calls):
+    t = []
+    for _ in range(max(calls, 30)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
-        t += time.perf_counter() - t0
+        t.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return t / calls * 1e6
+    return float(np.median(t)) * 1e6
 
 
 def fmt_us(d):
@@ -290,6 +301,14 @@ def compare_outputs(got, want, what):
     return err
 
 
+def yardstick_launches(launches):
+    """The launches of kernels no path may reach: the int8 2-NN's
+    two-launch form (norms kernel included), every variant's, and the
+    `mma.sync` kernels."""
+    return {k: v for k, v in launches.items() if v and (
+        k == "two_nn_norms" or "two_launch" in k or "_mma" in k)}
+
+
 def compare_prepass_f32(tab, counts, name):
     """The f32 pre-pass kernel (bf16 table, |x|^2, column norms) bit-exact
     against its plain version."""
@@ -306,17 +325,20 @@ def compare_prepass_f32(tab, counts, name):
 
 def compare_two_nn(tab, counts, pi, pj, name):
     """The 2-NN kernels vs the plain version on the same inputs: two_nn
-    (int8 or f32 `wgmma`) and the first design's `mma.sync` kernel of the
-    same type, and the norms kernel (int8) or the pre-pass kernel (f32)
-    against its own plain version.  Bit-exact or raise; returns two_nn's
-    max |err| over finite distances (0)."""
+    (int8 or f32 `wgmma`; for int8 also its two-launch yardstick, which
+    must give the same bits) and the first design's `mma.sync` kernel of
+    the same type, and the norms kernel (int8) or the pre-pass kernel
+    (f32) against its own plain version.  Bit-exact or raise; returns
+    two_nn's max |err| over finite distances (0)."""
+    M = matching_cuda
     label = f"{len(pi)} pairs x {tab.shape[1]} keys {tab.dtype}"
-    want = matching_cuda._two_nn_pairs_plain(tab, tab, counts, pi, pj)
+    want = M._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     f32 = tab.dtype == torch.float32
-    kernels = [("two_nn_f32" if f32 else "two_nn",
-                matching_cuda.two_nn_pairs),
+    kernels = [("two_nn_f32" if f32 else "two_nn", M.two_nn_pairs),
                ("two_nn_f32_mma" if f32 else "two_nn_mma",
-                matching_cuda.two_nn_pairs_mma)]
+                M.two_nn_pairs_mma)]
+    if not f32:
+        kernels.insert(1, ("two_nn_two_launch", M.two_nn_pairs_two_launch))
     if f32:
         compare_prepass_f32(tab, counts, name)
     else:
@@ -328,12 +350,17 @@ def compare_two_nn(tab, counts, pi, pj, name):
             f"{tab.shape[1]} rows, mismatches {bad}")
         check(bad == 0, f"two_nn_norms disagrees with its plain version: "
               f"{name}")
-    errs = []
+    errs, outs = [], []
     for kname, fn in kernels:
-        got = fn(tab, tab, counts, pi, pj)
+        outs.append(fn(tab, tab, counts, pi, pj))
         torch.cuda.synchronize()
-        errs.append(compare_outputs(got, want, f"[kernels] {name} {kname}: "
-                                    f"{label}"))
+        errs.append(compare_outputs(outs[-1], want, f"[kernels] {name} "
+                                    f"{kname}: {label}"))
+    if not f32:
+        same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+        log(f"[kernels] {name} two_nn identical to its two-launch form: "
+            f"{same}")
+        check(same, f"two_nn differs from its two-launch form: {name}")
     return errs[0]
 
 
@@ -397,19 +424,26 @@ def two_nn_bound_ms(tab, counts, pi, pj, peak=INT8_TOPS):
 
 
 def time_two_nn(tab, counts, pi, pj, reps, what):
-    """Times of the int8 2-NN at one shape, all in this call: the `wgmma`
-    wrapper (norms kernel + 2-NN kernel) and the `mma.sync` kernel in turns
-    (wgmma, mma, mma, wgmma; the means are kept), the norms kernel alone,
-    the plain version and the library yardstick; logged beside the bound.
-    Returns a dict of ms."""
-    def new():
-        return matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
+    """Times of the int8 2-NN at one shape, all in this call (CUDA events
+    around back-to-back wrapper calls): the `wgmma` wrapper (one launch),
+    its two-launch form (norms kernel + 2-NN kernel) and the `mma.sync`
+    kernel in turns (one, two, mma, mma, two, one; the means are kept), the
+    norms wrapper alone, the plain version and the library yardstick;
+    logged beside the bound.  Returns a dict of ms."""
+    M = matching_cuda
+
+    def one():
+        return M.two_nn_pairs(tab, tab, counts, pi, pj)
+
+    def two():
+        return M.two_nn_pairs_two_launch(tab, tab, counts, pi, pj)
 
     def old():
-        return matching_cuda.two_nn_pairs_mma(tab, tab, counts, pi, pj)
-    turns = [cuda_ms(f, reps) for f in (new, old, old, new)]
-    t = {"ms": (turns[0] + turns[3]) / 2,
-         "ms_before": (turns[1] + turns[2]) / 2,
+        return M.two_nn_pairs_mma(tab, tab, counts, pi, pj)
+    turns = [cuda_ms(f, reps) for f in (one, two, old, old, two, one)]
+    t = {"ms": (turns[0] + turns[5]) / 2,
+         "ms_two_launch": (turns[1] + turns[4]) / 2,
+         "ms_before": (turns[2] + turns[3]) / 2,
          "norms_ms": cuda_ms(lambda: matching_cuda.two_nn_norms(tab, counts),
                              reps),
          "plain_ms": cuda_ms(lambda: matching_cuda._two_nn_pairs_plain(
@@ -418,51 +452,80 @@ def time_two_nn(tab, counts, pi, pj, reps, what):
                                max(1, reps // 10))}
     bound, by = two_nn_bound_ms(tab, counts, pi, pj)
     t.update(bound_ms=bound, bound_by=by)
-    log(f"[kernels] {what}: two_nn (wgmma) {t['ms']:.4f} ms "
-        f"({turns[0]:.4f}, {turns[3]:.4f}; {100 * bound / t['ms']:.2f} % of "
-        f"the bound), mma.sync {t['ms_before']:.4f} ms ({turns[1]:.4f}, "
-        f"{turns[2]:.4f}; {100 * bound / t['ms_before']:.2f} %), speed-up "
-        f"{t['ms_before'] / t['ms']:.3f}x; norms kernel {t['norms_ms']:.4f} "
+    log(f"[kernels] {what}: two_nn (wgmma, one launch) {t['ms']:.4f} ms "
+        f"({turns[0]:.4f}, {turns[5]:.4f}; {100 * bound / t['ms']:.2f} % of "
+        f"the bound), two-launch form {t['ms_two_launch']:.4f} ms "
+        f"({turns[1]:.4f}, {turns[4]:.4f}), mma.sync {t['ms_before']:.4f} ms "
+        f"({turns[2]:.4f}, {turns[3]:.4f}; "
+        f"{100 * bound / t['ms_before']:.2f} %), speed-up "
+        f"{t['ms_before'] / t['ms']:.3f}x; norms wrapper {t['norms_ms']:.4f} "
         f"ms; plain {t['plain_ms']:.4f} ms, matmul+topk "
         f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
     return t
 
 
 def split_two_nn_call(tab, counts, pi, pj, what, calls=20):
-    """Where an int8 two_nn_pairs call's time goes: the device time of the
-    norms kernel and of the 2-NN kernel, each launched bare through ctypes
-    on preallocated tensors (torch.profiler's kernel times), and the host
-    time of the norms wrapper, of the wrapper's three output allocations,
-    of the bare 2-NN launch and of the whole wrapper."""
+    """Where an int8 two_nn_pairs call's time goes, the one-launch kernel
+    beside its two-launch form, in turns (one, two, two, one): the device
+    time of each form launched bare through ctypes on preallocated tensors
+    (`device_us`: the 2-NN kernel alone, and the norms kernel plus the 2-NN
+    kernel that reads its constants) and the host time of each wrapper;
+    then the host time of the norms wrapper, of the wrapper's output
+    allocation and of each bare 2-NN launch.  Returns
+    {"device_us", "device_us_two_launch", "host_us",
+    "host_us_two_launch"}."""
     M = matching_cuda
     lib = M._load()
     stream = torch.cuda.current_stream().cuda_stream
     B, nq = len(pi), tab.shape[1]
     n_img, nd = tab.shape[0], tab.shape[1]
     norms = M.two_nn_norms(tab, counts)
-    d0, i0, d1 = M._outputs(B, nq, tab.device)
+    d0, i0, d1, scratch = M._outputs(B, nq, tab.device, norms.numel())
 
     def bare_norms():
         lib.two_nn_norms_i8(tab.data_ptr(), n_img, nd, counts.data_ptr(),
                             norms.data_ptr(), stream)
 
-    def bare_main():
-        lib.two_nn_pairs_i8(tab.data_ptr(), nq * 128, nq, tab.data_ptr(),
-                            n_img, nd, counts.data_ptr(), norms.data_ptr(),
-                            pi.data_ptr(), pj.data_ptr(), B, d0.data_ptr(),
-                            i0.data_ptr(), d1.data_ptr(), stream)
-    dev = device_us(lambda: (bare_norms(), bare_main()), calls,
-                    ["two_nn_norms_kernel", "two_nn_ws_kernel"])
-    host = {"norms wrapper": host_us(lambda: M.two_nn_norms(tab, counts),
-                                     calls),
-            "outputs": host_us(lambda: M._outputs(B, nq, tab.device), calls),
-            "bare 2-NN launch": host_us(bare_main, calls),
-            "bare norms launch": host_us(bare_norms, calls),
-            "wrapper": host_us(lambda: M.two_nn_pairs(tab, tab, counts,
-                                                      pi, pj), calls)}
-    log(f"[split] {what}: device µs a call: {fmt_us(dev)}; host µs a call: "
-        f"{fmt_us(host)}")
-    return dev, host
+    def bare(cst, two_launch):
+        return lambda: lib.two_nn_pairs_i8(
+            tab.data_ptr(), nq * 128, nq, tab.data_ptr(), n_img, nd,
+            counts.data_ptr(), cst.data_ptr(), two_launch, pi.data_ptr(),
+            pj.data_ptr(), B, d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
+            stream)
+    one, ext = bare(scratch, 0), bare(norms, 1)
+
+    def dev_one():
+        return device_us(one, calls)
+
+    def dev_two():
+        return device_us(lambda: (bare_norms(), ext()), calls)
+
+    def host_one():
+        return host_us(lambda: M.two_nn_pairs(tab, tab, counts, pi, pj),
+                       calls)
+
+    def host_two():
+        return host_us(lambda: M.two_nn_pairs_two_launch(
+            tab, tab, counts, pi, pj), calls)
+    d = [f() for f in (dev_one, dev_two, dev_two, dev_one)]
+    h = [f() for f in (host_one, host_two, host_two, host_one)]
+    out = {"device_us": (d[0] + d[3]) / 2,
+           "device_us_two_launch": (d[1] + d[2]) / 2,
+           "host_us": (h[0] + h[3]) / 2, "host_us_two_launch": (h[1] + h[2]) / 2}
+    parts = {"norms wrapper": host_us(lambda: M.two_nn_norms(tab, counts),
+                                      calls),
+             "outputs": host_us(lambda: M._outputs(B, nq, tab.device,
+                                                   norms.numel()), calls),
+             "bare 2-NN launch": host_us(one, calls),
+             "bare 2-NN launch reading the norms": host_us(ext, calls),
+             "bare norms launch": host_us(bare_norms, calls)}
+    log(f"[split] {what}: device µs a call, one launch {out['device_us']:.2f}"
+        f" ({d[0]:.2f}, {d[3]:.2f}), two-launch form "
+        f"{out['device_us_two_launch']:.2f} ({d[1]:.2f}, {d[2]:.2f}); "
+        f"wrapper host µs a call, one launch {out['host_us']:.2f} ({h[0]:.2f}"
+        f", {h[3]:.2f}), two-launch form {out['host_us_two_launch']:.2f} "
+        f"({h[1]:.2f}, {h[2]:.2f}); host µs a call: {fmt_us(parts)}")
+    return out
 
 
 def time_two_nn_f32(tab, counts, pi, pj, reps, what):
@@ -547,12 +610,13 @@ def phase_build():
         log(f"[build] {os.path.relpath(p, ROOT)}")
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.2f} s")
     # ptxas prints each kernel's spills under "Function properties for":
-    # the wgmma kernels of two_nn.cu (int8 and f32, each 2-NN and
-    # product-only) and of two_nn_variants.cu (8 instantiations), none of
-    # which may spill or have its wgmma serialised.
+    # the wgmma kernels of two_nn.cu (int8 2-NN and product-only, each
+    # folded and two-launch; f32 2-NN and product-only) and of
+    # two_nn_variants.cu (8 folded instantiations, 7 two-launch ones),
+    # none of which may spill or have its wgmma serialised.
     out = buf.getvalue()
-    for kernel, n in (("two_nn_ws_kernel", 2), ("two_nn_f32_ws_kernel", 2),
-                      ("variant_ws_kernel", 8)):
+    for kernel, n in (("two_nn_ws_kernel", 4), ("two_nn_f32_ws_kernel", 2),
+                      ("variant_ws_kernel", 15)):
         spills = re.findall(rf"Function properties for \S*{kernel}\S*\n"
                             r"\s*(.*)\n", out)
         check(len(spills) == n and all(
@@ -564,6 +628,10 @@ def phase_build():
             f"{regs}")
     serial = [ln for ln in out.splitlines() if "serialized" in ln]
     check(not serial, f"ptxas serialised wgmma: {serial}")
+    # A register budget the producer or consumer code cannot keep makes
+    # ptxas drop the setmaxnreg it was given.
+    dropped = [ln for ln in out.splitlines() if "setmaxnreg" in ln]
+    check(not dropped, f"ptxas on setmaxnreg: {dropped}")
 
 
 def phase_kernels():
@@ -1023,10 +1091,10 @@ def phase_main(dump=None):
         check(os.path.getsize(os.path.join(work, f)) > 0, f)
     n_tracks = int(re.search(r"\] (\d+) tracks", out).group(1))
     check(n_tracks > 0, "no tracks")
-    check(launches["two_nn"] > 0 and launches["two_nn_norms"] > 0,
-          f"a 2-NN kernel was not launched on the main path: {launches}")
-    check(launches["two_nn_mma"] == 0, "the mma.sync kernel ran on the "
-          "main path")
+    check(launches["two_nn"] > 0, f"the 2-NN kernel was not launched on "
+          f"the main path: {launches}")
+    check(yardstick_launches(launches) == {}, f"a yardstick ran on the main "
+          f"path: {launches}")
     entries, dims, key_xy, descs, matches = read_scene(work)
     log(f"[main] wall {wall:.2f} s; stage seconds "
         + json.dumps({k: round(v, 4) for k, v in stages.items()}))
@@ -1050,20 +1118,23 @@ def phase_main(dump=None):
     err = compare_two_nn(table.table, table.counts, pi, pj, "main path")
     t = time_two_nn(table.table, table.counts, pi, pj, 20,
                     f"main path {len(pi)} pairs x {table.table.shape[1]} keys")
-    split_two_nn_call(table.table, table.counts, pi, pj,
-                      f"main path {len(pi)} pairs x {table.table.shape[1]} "
-                      f"keys")
+    sp = split_two_nn_call(table.table, table.counts, pi, pj,
+                           f"main path {len(pi)} pairs x "
+                           f"{table.table.shape[1]} keys")
     nb, nby = norms_bound_ms(table.table)
+    norms_dev = device_us(lambda: matching_cuda.two_nn_norms(
+        table.table, table.counts))
     records = [
         {"name": "two_nn", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": launches["two_nn"],
          "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
          "library_ms": t["library_ms"], "ms_before": t["ms_before"],
-         "norms_launches": launches["two_nn_norms"]},
+         "ms_two_launch": t["ms_two_launch"], **sp},
         {"name": "two_nn_norms", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": launches["two_nn_norms"],
          "max_abs_err": 0.0, "ms": t["norms_ms"],
+         "device_us": norms_dev,
          "plain_ms": cuda_ms(lambda: matching_cuda.two_nn_norms_plain(
              table.table, table.counts), 20),
          "bound_ms": nb, "bound_by": nby, "library_ms": None}]
@@ -1253,8 +1324,9 @@ def check_register_image(work, bundle_path, img):
             f"s, {runs[dev] and runs[dev]['num_inliers']} inliers")
     g, c = runs["cuda"], runs["cpu"]
     check(g is not None and c is not None, "register_image failed")
-    check(launches["two_nn"] > 0, f"register_image: two_nn was not launched "
-          f"on CUDA: {launches}")
+    check(launches["two_nn"] > 0 and yardstick_launches(launches) == {},
+          f"register_image: two_nn was not launched on CUDA, or a "
+          f"yardstick was: {launches}")
     rel = max(float(np.abs(g["R"] - c["R"]).max()),
               float(np.abs(g["center"] - c["center"]).max()
                     / np.abs(c["center"]).max()),
@@ -1322,7 +1394,7 @@ def phase_staged():
     check(rc == 0, f"keymatch returned {rc}")
     log(f"[staged] (a) keymatch: {time.time() - t0:.2f} s, launches "
         f"{json.dumps(launches)}")
-    check(launches["two_nn"] > 0 and launches["two_nn_mma"] == 0,
+    check(launches["two_nn"] > 0 and yardstick_launches(launches) == {},
           f"keymatch launches {launches}")
     same_bytes(os.path.join(work, "matches.init.txt"), matches,
                "(a) keymatch vs run_bundler matches.init.txt")
@@ -1415,6 +1487,8 @@ def phase_staged():
           "not run")
     log(f"[staged] phase {time.time() - t_phase:.1f} s; 2-NN launches "
         f"{json.dumps(total)}")
+    check(yardstick_launches(total) == {}, f"a yardstick ran in the staged "
+          f"flow: {total}")
     return total, failures
 
 
@@ -1654,7 +1728,7 @@ def phase_tools():
         os.path.join(fd, "list_keys.txt"), matches]))
     launches = dict(matching_cuda.LAUNCHES)
     check(rc == 0, f"(d) keymatch returned {rc}")
-    check(launches["two_nn"] > 0 and launches["two_nn_mma"] == 0,
+    check(launches["two_nn"] > 0 and yardstick_launches(launches) == {},
           f"(d) keymatch launches {launches}")
     with open(matches, "rb") as a, open(os.path.join(
             work, "matches.init.txt"), "rb") as b:
@@ -1704,7 +1778,8 @@ def _plain_kind(kernel):
         return "oneblock"
     if kernel.startswith("two_nn_blockmerge_bf16"):
         return "blockmerge"
-    return kernel[len("two_nn_ablation_"):].replace("mma_", "", 1)
+    return (kernel[len("two_nn_ablation_"):].replace("mma_", "", 1)
+            .replace("two_launch_", "", 1))
 
 
 def _variant_plain(kernel):
@@ -1717,35 +1792,56 @@ def _variant_plain(kernel):
     return lambda *a: V.ablation_plain(*a, kind)
 
 
-def variant_kernels():
+def variant_kernels(table16=None):
     """{counter: wrapper} of every variant kernel: the oneblock tiles and
-    dots, blockmerge, the ablations, and the first design's `mma.sync`
-    yardsticks (`_mma`).  Oneblock bf16 at tq > 128 runs the `mma.sync`
-    design under either name."""
+    dots, blockmerge, the ablations, their two-launch yardsticks
+    (`_two_launch`) and the first design's `mma.sync` yardsticks (`_mma`).
+    Oneblock bf16 at tq > 128 runs the `mma.sync` design under either
+    name.  The one-launch bf16 kernels read `table16` when it is given."""
     V = matching_variants
+    t16 = {"table16": table16}
     out = {}
     for dot in V.DOTS:
         for tq in V.ONEBLOCK_TILES:
-            for mid, fn in (("", V.two_nn_oneblock),
-                            ("mma_", V.two_nn_oneblock_mma)):
+            for mid, fn, kw in (("", V.two_nn_oneblock,
+                                 t16 if dot == "bf16" else {}),
+                                ("mma_", V.two_nn_oneblock_mma, {})):
                 out[f"two_nn_oneblock_{mid}{dot}_{tq}"] = (
-                    lambda f, t, d: lambda *a: f(*a, tq=t, dot=d))(fn, tq, dot)
-    out["two_nn_blockmerge_bf16"] = V.two_nn_blockmerge_bf16
+                    lambda f, t, d, k: lambda *a: f(*a, tq=t, dot=d, **k))(
+                        fn, tq, dot, kw)
+            if dot == "int8" or tq == 128:
+                out[f"two_nn_oneblock_two_launch_{dot}_{tq}"] = (
+                    lambda t, d: lambda *a: V.two_nn_oneblock_two_launch(
+                        *a, tq=t, dot=d))(tq, dot)
+    out["two_nn_blockmerge_bf16"] = lambda *a: V.two_nn_blockmerge_bf16(
+        *a, **t16)
+    out["two_nn_blockmerge_bf16_two_launch"] = \
+        V.two_nn_blockmerge_bf16_two_launch
     out["two_nn_blockmerge_bf16_mma"] = V.two_nn_blockmerge_bf16_mma
     for m in V.ABLATION_MODES:
         for mid, fn in (("", V.two_nn_ablation), ("mma_", V.two_nn_ablation_mma)):
             out[f"two_nn_ablation_{mid}{m}"] = (
                 lambda f, mode: lambda *a: f(*a, mode))(fn, m)
+    out["two_nn_ablation_two_launch_top1"] = V.two_nn_ablation_two_launch
     return out
 
 
-# The instantiations on the `wgmma` design, by counter, and those of them
-# that launch the pre-pass once per call.
+# The instantiations on the `wgmma` design, by counter.
 WGMMA_VARIANTS = ([f"two_nn_oneblock_int8_{tq}" for tq in (128, 256, 512, 1024)]
                   + ["two_nn_oneblock_bf16_128", "two_nn_blockmerge_bf16",
                      "two_nn_ablation_matmul_max", "two_nn_ablation_top1"])
-PREPASS_VARIANTS = [k for k in WGMMA_VARIANTS
-                    if k != "two_nn_ablation_matmul_max"]
+
+
+def two_launch_twin(kernel):
+    """The counter of a `wgmma` variant's two-launch form, or None
+    ("matmul_max" reads no constants)."""
+    if kernel.startswith("two_nn_oneblock_"):
+        return kernel.replace("two_nn_oneblock_", "two_nn_oneblock_two_launch_")
+    if kernel == "two_nn_ablation_top1":
+        return "two_nn_ablation_two_launch_top1"
+    if kernel == "two_nn_blockmerge_bf16":
+        return "two_nn_blockmerge_bf16_two_launch"
+    return None
 
 
 def mma_twin(kernel):
@@ -1823,9 +1919,13 @@ def _garbage_table(rng):
 
 
 def compare_prepass(tab, counts, label):
-    """The pre-pass kernel (int8 and bf16 flavours) bit-exact against its
-    plain version."""
+    """The pre-pass kernel (int8 and bf16 flavours, and the bf16 table
+    alone) bit-exact against its plain version."""
     V = matching_variants
+    bad = int((V.bf16_table(tab).view(torch.int16)
+               != tab.to(torch.bfloat16).view(torch.int16)).sum())
+    log(f"[variants] bf16_table {label}: mismatches {bad}")
+    check(bad == 0, f"bf16_table disagrees with its plain version: {label}")
     for bf16 in (False, True):
         got = V.variants_prepass(tab, counts, bf16)
         torch.cuda.synchronize()
@@ -1850,82 +1950,151 @@ def prepass_bound_ms(tab, bf16):
 
 def split_two_nn(tab, counts, pi, pj, base, ragged):
     """The wgmma kernel's time split: its product-only ablation (one max a
-    score in place of the top-2), held bit-exact against its plain version
-    at the probe shape and on ragged counts, then timed beside base."""
+    score in place of the top-2) and that ablation's two-launch form, held
+    bit-exact against their plain version at the probe shape and on ragged
+    counts, then timed beside base."""
     M = matching_cuda
     for label, (t, c), a, b in (("probe", (tab, counts), pi, pj),
                                 ("ragged", ragged, *pair_tensors(
                                     [(i, j) for i in range(5)
                                      for j in range(5)]))):
-        got = M.two_nn_product_max(t, t, c, a, b)
-        torch.cuda.synchronize()
-        compare_outputs(got, M.product_max_plain(t, t, c, a, b),
-                        f"[variants] two_nn_product_max {label}: {len(a)} "
-                        f"pairs x {t.shape[1]} keys")
+        want = M.product_max_plain(t, t, c, a, b)
+        for name, fn in (("two_nn_product_max", M.two_nn_product_max),
+                         ("two_nn_product_max_two_launch",
+                          M.two_nn_product_max_two_launch)):
+            got = fn(t, t, c, a, b)
+            torch.cuda.synchronize()
+            compare_outputs(got, want, f"[variants] {name} {label}: "
+                            f"{len(a)} pairs x {t.shape[1]} keys")
     ms = cuda_ms(lambda: M.two_nn_product_max(tab, tab, counts, pi, pj), 10)
+    ms2 = cuda_ms(lambda: M.two_nn_product_max_two_launch(
+        tab, tab, counts, pi, pj), 10)
+    log(f"[variants] product-only split, two-launch form {ms2:.4f} ms")
     log(f"[variants] wgmma split at 2208 pairs x 2048^2: product + one max "
         f"a score {ms:.4f} ms ({100 * base['bound_ms'] / ms:.2f} % of the "
         f"bound), top-2 epilogue +{base['ms'] - ms:.4f} ms, whole "
         f"{base['ms']:.4f} ms")
 
 
-def split_variant_calls(rows, tab, counts, pi, pj, calls=10):
-    """Where a variant call's time goes at the timing shape: for each
-    variant, the device time of the pre-pass kernel and of the variant
-    kernel in one wrapper call (torch.profiler's kernel times) and the
-    wrapper's host time; then the host time of the pre-pass wrapper, of
-    the three output allocations and of one bare variant launch (oneblock
-    int8 at tq 128, through ctypes on preallocated tensors)."""
+def bare_variant(kernel, tab, counts, pi, pj, two_launch):
+    """A `wgmma` variant launched bare through ctypes on preallocated
+    tensors, for `device_us`: the one-launch kernel on its scratch (the
+    bf16 table made beforehand, as the probe makes it), or the two-launch
+    form, the pre-pass kernel (which also writes the bf16 table) and then
+    the kernel reading its output."""
     V = matching_variants
-    for v in rows:
-        dev = device_us(lambda: v.fn(tab, counts, pi, pj), calls,
-                        ["prepass_kernel", "variant_ws_kernel"])
-        host = host_us(lambda: v.fn(tab, counts, pi, pj), calls)
-        log(f"[split] {v.kernel} at {len(pi)} pairs: device µs a call: "
-            f"{fmt_us(dev)}; wrapper host µs a call {host:.2f}")
     lib = V._load()
     stream = torch.cuda.current_stream().cuda_stream
     B, (n_img, K) = len(pi), tab.shape[:2]
-    norms, qsq, _ = V.variants_prepass(tab, counts, False)
-    out = V._outputs(B, K, tab.device)
+    bf16 = "bf16" in kernel
+    *out, scratch = V._outputs(B, K, tab.device, 2 * n_img * K)
+    norms, qsq, t16 = V.variants_prepass(tab, counts, bf16)
+    if not two_launch:
+        norms, qsq = scratch.view(2, -1)
+    if kernel.startswith("two_nn_oneblock"):
+        entry, extra = lib.two_nn_oneblock, (int(kernel.rsplit("_", 1)[1]),
+                                             int(bf16))
+    elif kernel.startswith("two_nn_blockmerge"):
+        entry, extra = lib.two_nn_blockmerge_bf16, ()
+    else:
+        entry, extra = lib.two_nn_ablation, (1,)
 
-    def bare():
-        lib.two_nn_oneblock(tab.data_ptr(), None, n_img, K, counts.data_ptr(),
-                            norms.data_ptr(), qsq.data_ptr(), pi.data_ptr(),
-                            pj.data_ptr(), B, 128, 0,
-                            *(o.data_ptr() for o in out), stream)
+    def run():
+        if two_launch:
+            lib.two_nn_variants_prepass(
+                tab.data_ptr(), n_img, K, counts.data_ptr(), int(bf16),
+                norms.data_ptr(), qsq.data_ptr(),
+                t16.data_ptr() if bf16 else None, stream)
+        entry(tab.data_ptr(), t16.data_ptr() if bf16 else None, n_img, K,
+              counts.data_ptr(), norms.data_ptr(), qsq.data_ptr(),
+              int(two_launch), pi.data_ptr(), pj.data_ptr(), B, *extra,
+              *(o.data_ptr() for o in out), stream)
+    return run
+
+
+def split_variant_calls(rows, kinds, tab, counts, pi, pj, calls=10):
+    """Where a variant call's time goes at the timing shape, each `wgmma`
+    variant that reads constants beside its two-launch form, in turns (one,
+    two, two, one): the device time of the call's kernels launched bare
+    (`bare_variant`, `device_us`) and the wrapper's host time; then the
+    device time of the pre-pass kernel and the host time of the pre-pass
+    wrapper, of the output allocation and of one bare variant launch in
+    each form (oneblock int8 at tq 128).  Returns ({counter: {"device_us",
+    "device_us_two_launch", "host_us", "host_us_two_launch"}}, device µs,
+    host µs)."""
+    V = matching_variants
+    res = {}
+    for v in rows:
+        twin = two_launch_twin(v.kernel)
+        if twin is None:
+            continue
+        one, two = (bare_variant(v.kernel, tab, counts, pi, pj, t)
+                    for t in (False, True))
+        d = [device_us(f, calls) for f in (one, two, two, one)]
+        h = [host_us(lambda f=f: f(tab, counts, pi, pj), calls)
+             for f in (v.fn, kinds[twin], kinds[twin], v.fn)]
+        res[v.kernel] = {"device_us": (d[0] + d[3]) / 2,
+                         "device_us_two_launch": (d[1] + d[2]) / 2,
+                         "host_us": (h[0] + h[3]) / 2,
+                         "host_us_two_launch": (h[1] + h[2]) / 2}
+        log(f"[split] {v.kernel} at {len(pi)} pairs: device µs a call, one "
+            f"launch {res[v.kernel]['device_us']:.2f} ({d[0]:.2f}, "
+            f"{d[3]:.2f}), two-launch form "
+            f"{res[v.kernel]['device_us_two_launch']:.2f} ({d[1]:.2f}, "
+            f"{d[2]:.2f}); wrapper host µs a call, one launch "
+            f"{res[v.kernel]['host_us']:.2f} ({h[0]:.2f}, {h[3]:.2f}), "
+            f"two-launch form {res[v.kernel]['host_us_two_launch']:.2f} "
+            f"({h[1]:.2f}, {h[2]:.2f})")
+    B, (n_img, K) = len(pi), tab.shape[:2]
     dev = {f"pre-pass {d}": device_us(
-        lambda b=(d == "bf16"): V.variants_prepass(tab, counts, b), calls,
-        ["prepass_kernel"])["prepass_kernel"] for d in ("int8", "bf16")}
+        lambda b=(d == "bf16"): V.variants_prepass(tab, counts, b), calls)
+        for d in ("int8", "bf16")}
+    dev["bf16 table alone"] = device_us(lambda: V.bf16_table(tab), calls)
     host = {"pre-pass int8 wrapper": host_us(
                 lambda: V.variants_prepass(tab, counts, False), calls),
             "pre-pass bf16 wrapper": host_us(
                 lambda: V.variants_prepass(tab, counts, True), calls),
-            "outputs": host_us(lambda: V._outputs(B, K, tab.device), calls),
-            "bare oneblock_int8_128 launch": host_us(bare, calls)}
+            "bf16_table wrapper": host_us(lambda: V.bf16_table(tab), calls),
+            "outputs": host_us(lambda: V._outputs(B, K, tab.device,
+                                                  2 * n_img * K), calls),
+            "bare oneblock_int8_128 launch": host_us(bare_variant(
+                "two_nn_oneblock_int8_128", tab, counts, pi, pj, False),
+                calls),
+            "bare oneblock_int8_128 two-launch form": host_us(bare_variant(
+                "two_nn_oneblock_int8_128", tab, counts, pi, pj, True),
+                calls)}
     log(f"[split] variants at {len(pi)} pairs x {K}^2: device µs a call: "
         f"{fmt_us(dev)}; host µs a call: {fmt_us(host)}")
+    return res, dev, host
 
 
-def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
-    """A variant kernel at the timing shape: its `mma.sync` twin in turns
-    (new, old, old, new; 10 calls each; for oneblock bf16 at tq > 128 both
-    are the `mma.sync` kernel); the plain version and the library
-    yardstick; logged with the shares of the int8 (and bf16) bound."""
-    kinds = variant_kernels()
+def time_variant(kernel, fn, kinds, tab, counts, pi, pj, bound, ops):
+    """A variant kernel at the timing shape, by CUDA events around 10
+    back-to-back calls: in turns with its two-launch form where it has one
+    and its `mma.sync` twin (one, two, mma, mma, two, one; for oneblock
+    bf16 at tq > 128 the one and the twin are both the `mma.sync` kernel);
+    the plain version and the library yardstick; logged with the shares of
+    the int8 (and bf16) bound."""
     bf16 = "bf16" in kernel
     twin = kinds.get(mma_twin(kernel))
+    two = kinds.get(two_launch_twin(kernel))
     if twin is None:
         t = {"ms": cuda_ms(lambda: fn(tab, counts, pi, pj), 10)}
         turns = ""
     else:
-        r = [cuda_ms(lambda f=f: f(tab, counts, pi, pj), 10)
-             for f in (fn, twin, twin, fn)]
-        t = {"ms": (r[0] + r[3]) / 2, "ms_before": (r[1] + r[2]) / 2}
-        turns = (f" ({r[0]:.4f}, {r[3]:.4f}); mma.sync {t['ms_before']:.4f} "
-                 f"ms ({r[1]:.4f}, {r[2]:.4f}; "
+        order = [fn, twin, twin, fn] if two is None else \
+            [fn, two, twin, twin, two, fn]
+        r = [cuda_ms(lambda f=f: f(tab, counts, pi, pj), 10) for f in order]
+        t = {"ms": (r[0] + r[-1]) / 2,
+             "ms_before": (r[len(r) // 2 - 1] + r[len(r) // 2]) / 2}
+        turns = (f" ({r[0]:.4f}, {r[-1]:.4f}); mma.sync {t['ms_before']:.4f} "
+                 f"ms ({r[len(r) // 2 - 1]:.4f}, {r[len(r) // 2]:.4f}; "
                  f"{100 * bound / t['ms_before']:.2f} % of the int8 bound), "
                  f"speed-up {t['ms_before'] / t['ms']:.3f}x")
+        if two is not None:
+            t["ms_two_launch"] = (r[1] + r[4]) / 2
+            turns += (f"; two-launch form {t['ms_two_launch']:.4f} ms "
+                      f"({r[1]:.4f}, {r[4]:.4f})")
     t["plain_ms"] = cuda_ms(
         lambda: _variant_plain(kernel)(tab, counts, pi, pj), 2)
     kind = ("exact" if "ablation" not in kernel
@@ -1946,13 +2115,14 @@ def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
 def phase_variants():
     V = matching_variants
     P = probe_two_nn_variants
-    rows = [v for v in P.variants() if v.kernel != "two_nn"]
-    kinds = variant_kernels()
     rng = np.random.default_rng(3)
     shapes = {"probe": P.make_table(2048, "cuda"),
               "ragged": _ragged_table(rng), "ties": _ties_table(rng),
               "garbage": _garbage_table(rng)}
-    # Every kernel and mode of both designs, bit-exact on every table.
+    # Every kernel and mode of both designs and every two-launch form,
+    # bit-exact on every table; each one-launch kernel also identical to
+    # its two-launch form.  The bf16 kernels read the table's bf16 copy,
+    # made once per table as the probe makes it.
     errs = {}
     for label, (tab, counts) in shapes.items():
         n = tab.shape[0]
@@ -1960,16 +2130,25 @@ def phase_variants():
                  else [(i, j) for i in range(n) for j in range(n)])
         pi, pj = pair_tensors(pairs)
         compare_prepass(tab, counts, label)
-        plain = {}
+        kinds = variant_kernels(V.bf16_table(tab))
+        plain, outs = {}, {}
         for kernel, fn in kinds.items():
             key = _plain_kind(kernel)
             if key not in plain:
                 plain[key] = _variant_plain(kernel)(tab, counts, pi, pj)
-            got = fn(tab, counts, pi, pj)
+            outs[kernel] = fn(tab, counts, pi, pj)
             torch.cuda.synchronize()
             errs[kernel] = max(errs.get(kernel, 0.0), compare_outputs(
-                got, plain[key], f"[variants] {kernel} {label}: {len(pi)} "
-                f"pairs x {tab.shape[1]} keys"))
+                outs[kernel], plain[key], f"[variants] {kernel} {label}: "
+                f"{len(pi)} pairs x {tab.shape[1]} keys"))
+        for kernel in WGMMA_VARIANTS:
+            twin = two_launch_twin(kernel)
+            if twin is not None:
+                check(all(torch.equal(a, b) for a, b in zip(
+                    outs[kernel], outs[twin])), f"{kernel} differs from its "
+                    f"two-launch form: {label}")
+        log(f"[variants] {label}: every one-launch kernel identical to its "
+            f"two-launch form")
     check(len(errs) == len(kinds), f"compared {sorted(errs)}")
 
     # The probe path through its command-line entry point, with every
@@ -1998,15 +2177,17 @@ def phase_variants():
         if v.exact and v.kernel != "two_nn":
             check(res[v.name][0] == "IDENTICAL",
                   f"probe: {v.name} {res[v.name][0]}")
-    mma = {k: v for k, v in launches.items() if "_mma" in k and v}
-    check(not mma, f"probe: a mma.sync yardstick ran: {mma}")
-    check(launches["two_nn_variants_prepass"]
-          == sum(launches[k] for k in PREPASS_VARIANTS),
-          "probe: one pre-pass per wgmma-design call, got "
+    check(yardstick_launches(launches) == {}, f"probe: a yardstick ran: "
+          f"{yardstick_launches(launches)}")
+    check(launches["two_nn_variants_prepass"] == 1,
+          "probe: one pre-pass launch (the bf16 table, made once), got "
           f"{launches['two_nn_variants_prepass']}")
 
-    # Times at 2208 pairs x 2048^2.
+    # Times at 2208 pairs x 2048^2, the bf16 kernels on one bf16 table.
     tab, counts = shapes["probe"]
+    table16 = V.bf16_table(tab)
+    rows = [v for v in P.variants(table16) if v.kernel != "two_nn"]
+    kinds = variant_kernels(table16)
     pi, pj = pair_tensors(P.make_pairs(2208))
     bound, by = two_nn_bound_ms(tab, counts, pi, pj)
     ops = 2.0 * 128 * float((counts.long()[pi.long()]
@@ -2018,11 +2199,13 @@ def phase_variants():
                        "probe shape (base), 2208 pairs x 2048^2")
     split_two_nn(tab, counts, pi, pj, base, shapes["ragged"])
     split_two_nn_call(tab, counts, pi, pj, "probe shape 2208 pairs x 2048^2")
-    split_variant_calls(rows, tab, counts, pi, pj)
+    splits, pre_dev, pre_host = split_variant_calls(rows, kinds, tab, counts,
+                                                    pi, pj)
     records = []
     for v in rows:
         compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")
-        t = time_variant(v.kernel, v.fn, tab, counts, pi, pj, bound, ops)
+        t = time_variant(v.kernel, v.fn, kinds, tab, counts, pi, pj, bound,
+                         ops)
         log(f"[variants] {v.kernel}: probe best-of-3 {res[v.name][1]:.4f} ms "
             f"at 276 pairs")
         records.append({"name": v.kernel, "route": "cuda",
@@ -2030,19 +2213,24 @@ def phase_variants():
                         "replaces": _replaces(v.kernel),
                         "launches": launches[v.kernel],
                         "max_abs_err": errs[v.kernel], "bound_ms": bound,
-                        "bound_by": by, **t})
+                        "bound_by": by, **t, **splits.get(v.kernel, {})})
     # Oneblock bf16 at tq > 128: no path launches them; timed for the record.
     for tq in V.ONEBLOCK_TILES[1:]:
         k = f"two_nn_oneblock_bf16_{tq}"
-        time_variant(k, kinds[k], tab, counts, pi, pj, bound, ops)
-    # The pre-pass the wgmma design launches once per call.
+        time_variant(k, kinds[k], kinds, tab, counts, pi, pj, bound, ops)
+    # The pre-pass kernel: the two-launch forms' first launch, and the
+    # bf16 table the probe makes once.
     pb, pby = prepass_bound_ms(tab, True)
     pre = {"ms": cuda_ms(lambda: V.variants_prepass(tab, counts, True), 10),
-           "plain_ms": cuda_ms(lambda: V.prepass_plain(tab, counts, True), 10)}
+           "plain_ms": cuda_ms(lambda: V.prepass_plain(tab, counts, True), 10),
+           "bf16_table_ms": cuda_ms(lambda: V.bf16_table(tab), 10),
+           "device_us": pre_dev["pre-pass bf16"],
+           "bf16_table_device_us": pre_dev["bf16 table alone"]}
     log(f"[variants] two_nn_variants_prepass (bf16, {tab.shape[0]} x "
         f"{tab.shape[1]} rows): {pre['ms']:.4f} ms, int8 "
         f"{cuda_ms(lambda: V.variants_prepass(tab, counts, False), 10):.4f} "
-        f"ms; plain {pre['plain_ms']:.4f} ms; bound {pb:.4f} ms ({pby})")
+        f"ms, the bf16 table alone {pre['bf16_table_ms']:.4f} ms; plain "
+        f"{pre['plain_ms']:.4f} ms; bound {pb:.4f} ms ({pby})")
     records.append({"name": "two_nn_variants_prepass", "route": "cuda",
                     "source": VARIANTS_SOURCE, "replaces": f"{PROBE}:62",
                     "launches": launches["two_nn_variants_prepass"],
@@ -2099,8 +2287,8 @@ def library_matching(descs, lib, check_later):
         same &= got.keys() == want.keys() and all(
             np.array_equal(got[k], want[k]) for k in want)
         # One table, as query table and db table, for every chunk: one
-        # norms kernel (int8) or one pre-pass (f32) a call.
-        expect = ({"two_nn": n_chunks, "two_nn_norms": n_chunks}
+        # launch a call (int8), or one pre-pass and the kernel (f32).
+        expect = ({"two_nn": n_chunks}
                   if name == "uint8" else
                   {"two_nn_f32": n_chunks, "two_nn_f32_prepass": n_chunks})
         log(f"[library] (a) match_pairs_batched {name}: {len(got)} matched "
@@ -2117,11 +2305,7 @@ def library_matching(descs, lib, check_later):
             f"(a) match_pairs_batched {name}: {len(calls)} 2-NN calls, "
             f"expected {n_chunks} on one table")
         # The kernels of the counted run against their plain versions.
-        if name == "uint8":
-            bad = int((M.two_nn_norms(tab, counts)
-                       != M.two_nn_norms_plain(tab, counts)).sum())
-            check(bad == 0, f"(a) two_nn_norms: {bad} mismatches")
-        else:
+        if name != "uint8":
             compare_prepass_f32(tab, counts, "library")
         err = 0.0
         for c, (_, _, _, pi, pj) in enumerate(calls):
@@ -2131,6 +2315,11 @@ def library_matching(descs, lib, check_later):
                 got_k, M._two_nn_pairs_plain(tab, tab, counts, pi, pj),
                 f"[library] (a) chunk {c} {name}: {len(pi)} pairs of "
                 f"{tab.shape[0]} images x {tab.shape[1]} keys"))
+            if name == "uint8":
+                two = M.two_nn_pairs_two_launch(tab, tab, counts, pi, pj)
+                check(all(torch.equal(a, b) for a, b in zip(got_k, two)),
+                      f"(a) chunk {c}: two_nn differs from its two-launch "
+                      f"form")
         reps = 5
         t0 = time.time()
         for _ in range(reps):
@@ -2478,7 +2667,9 @@ def _multi_device_rank(mesh, descs, pairs, host, run, workdir, imgs):
     got = M.two_nn_pairs(q, db, dbc, pi, pj)
     torch.cuda.synchronize()
     want = M._two_nn_pairs_plain(q, db, dbc, pi, pj)
+    two = M.two_nn_pairs_two_launch(q, db, dbc, pi, pj)
     out["kernel_mismatches"] = [int((g != w).sum()) for g, w in zip(got, want)]
+    out["kernel_mismatches"] += [int((g != w).sum()) for g, w in zip(two, got)]
     out["kernel_pairs"] = int(len(pi))
 
     # (b) the outlier loop, point-sharded: run twice, timed warm (the
@@ -2645,8 +2836,9 @@ def phase_multi_device():
             for k, v in x["launches"].items():
                 counted[k] = counted.get(k, 0) + v
         log(f"[multi] (a) {tag}: two_nn on one rotation's tensors "
-            f"({r['kernel_pairs']} pairs x 4096 keys) vs its plain version: "
-            f"mismatches d0/i0/d1 {r['kernel_mismatches']}")
+            f"({r['kernel_pairs']} pairs x 4096 keys) vs its plain version, "
+            f"then its two-launch form vs two_nn: mismatches d0/i0/d1 "
+            f"{r['kernel_mismatches']}")
         check_later(not any(r["kernel_mismatches"]),
                     f"(a) {tag}: two_nn disagrees with its plain version")
         b = r["ba"]
@@ -2708,6 +2900,10 @@ def phase_multi_device():
                 and q["reproj_px"] < 1.0, "(c) outside phase 3's bounds")
     log(f"[multi] phase {time.time() - t_phase:.1f} s; 2-NN launches of the "
         f"counted runs {json.dumps(counted)}")
+    # One launch a 2-NN call: the ring and the split at world 1 (1 + 1),
+    # at world 2 (ring 2 + 1, split 1 + 1), run_bundler's ring (2 + 1).
+    check_later(counted == {"two_nn": 10}, f"(a, c) 2-NN launches "
+                f"{counted}, expected 10 of two_nn and no other")
     return counted, failures
 
 
@@ -2762,7 +2958,7 @@ def main(argv=None):
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
     kernels[1]["tools_launches"] = tools_launches["two_nn_norms"]
     kernels[0]["library_path_launches"] = lib_launches["two_nn"]
-    kernels[1]["library_path_launches"] = lib_launches["two_nn_norms"]
+    kernels[1]["library_path_launches"] = lib_launches.get("two_nn_norms", 0)
     kernels[0]["library_path_ms"] = lib_times["uint8"]["kernel_ms"]
     kernels[0]["multi_device_launches"] = md_launches.get("two_nn", 0)
     kernels[1]["multi_device_launches"] = md_launches.get("two_nn_norms", 0)

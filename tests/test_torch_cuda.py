@@ -48,10 +48,15 @@ def test_kernel_matches_plain(cuda, dtype):
     pi = torch.arange(n, dtype=torch.int32, device=cuda).repeat_interleave(n)
     pj = torch.arange(n, dtype=torch.int32, device=cuda).repeat(n)
     key = "two_nn" if dtype == torch.int8 else "two_nn_f32"
-    before = MC.LAUNCHES[key]
+    before = dict(MC.LAUNCHES)
     got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
     torch.cuda.synchronize()
-    assert MC.LAUNCHES[key] == before + 1
+    moved = {k: v - before[k] for k, v in MC.LAUNCHES.items()
+             if v != before[k]}
+    # int8: one launch (the kernel writes its own column constants); f32:
+    # the pre-pass and the kernel.
+    assert moved == ({key: 1} if dtype == torch.int8
+                     else {key: 1, "two_nn_f32_prepass": 1})
     want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -67,19 +72,23 @@ def _mismatches(got, want):
 
 
 def _hold_int8(tab, counts, pi, pj, want=None):
-    """The wgmma kernel and the mma.sync kernel, each bit-exact against the
-    plain version (or `want`); the norms kernel against its plain version."""
+    """The wgmma kernel (one launch), its two-launch form and the mma.sync
+    kernel, each bit-exact against the plain version (or `want`); the
+    norms kernel against its plain version."""
     want = want or MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     launches = dict(MC.LAUNCHES)
     got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
+    two = MC.two_nn_pairs_two_launch(tab, tab, counts, pi, pj)
     mma = MC.two_nn_pairs_mma(tab, tab, counts, pi, pj)
     norms = MC.two_nn_norms(tab, counts)
     torch.cuda.synchronize()
-    assert MC.LAUNCHES["two_nn"] == launches["two_nn"] + 1
-    assert MC.LAUNCHES["two_nn_norms"] == launches["two_nn_norms"] + 2
-    assert MC.LAUNCHES["two_nn_mma"] == launches["two_nn_mma"] + 1
+    moved = {k: v - launches[k] for k, v in MC.LAUNCHES.items()
+             if v != launches[k]}
+    assert moved == {"two_nn": 1, "two_nn_two_launch": 1, "two_nn_norms": 2,
+                     "two_nn_mma": 1}
     assert torch.equal(norms, MC.two_nn_norms_plain(tab, counts))
     assert _mismatches(got, want) == [0, 0, 0], "wgmma vs plain"
+    assert _mismatches(two, got) == [0, 0, 0], "two-launch form vs wgmma"
     assert _mismatches(mma, want) == [0, 0, 0], "mma.sync vs plain"
 
 
@@ -127,6 +136,7 @@ def test_garbage_rows_past_count(cuda, dtype):
     assert not want[1][empty].any() and (want[0][empty] == MC.BIG).all()
     kernels = [MC.two_nn_pairs, MC.two_nn_pairs_mma]
     if dtype == torch.int8:
+        kernels.append(MC.two_nn_pairs_two_launch)
         _hold_int8(tab, counts, pi, pj, want=want)
     for fn in kernels:
         got = fn(tab, tab, counts, pi, pj)
@@ -173,12 +183,17 @@ def test_product_max_matches_plain(cuda):
     tab, counts = tab.to(cuda), torch.tensor(sizes, dtype=torch.int32,
                                              device=cuda)
     pi, pj = _all_pairs(len(sizes), cuda)
-    before = MC.LAUNCHES["two_nn_product_max"]
+    before = dict(MC.LAUNCHES)
     got = MC.two_nn_product_max(tab, tab, counts, pi, pj)
+    two = MC.two_nn_product_max_two_launch(tab, tab, counts, pi, pj)
     torch.cuda.synchronize()
-    assert MC.LAUNCHES["two_nn_product_max"] == before + 1
+    moved = {k: v - before[k] for k, v in MC.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {"two_nn_product_max": 1, "two_nn_norms": 1,
+                     "two_nn_product_max_two_launch": 1}
     want = MC.product_max_plain(tab, tab, counts, pi, pj)
     assert _mismatches(got, want) == [0, 0, 0]
+    assert _mismatches(two, got) == [0, 0, 0]
 
 
 def _f32_case(kind):
@@ -311,6 +326,11 @@ VARIANTS = ([("oneblock", dict(tq=tq, dot=dot)) for dot in MV.DOTS
              for tq in MV.ONEBLOCK_TILES]
             + [("blockmerge", {})]
             + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES]
+            + [("oneblock_two_launch", dict(tq=tq, dot="int8"))
+               for tq in MV.ONEBLOCK_TILES]
+            + [("oneblock_two_launch", dict(tq=128, dot="bf16")),
+               ("blockmerge_two_launch", {}),
+               ("ablation_two_launch", dict(mode="top1"))]
             + [("oneblock_mma", dict(tq=tq, dot=dot)) for dot in MV.DOTS
                for tq in MV.ONEBLOCK_TILES]
             + [("blockmerge_mma", {})]
@@ -325,6 +345,15 @@ WGMMA = ([(dict(tq=tq, dot="int8"), f"two_nn_oneblock_int8_{tq}")
 
 
 def _variant(kind, kw):
+    if kind == "oneblock_two_launch":
+        return (lambda *a: MV.two_nn_oneblock_two_launch(*a, **kw),
+                f"two_nn_oneblock_two_launch_{kw['dot']}_{kw['tq']}")
+    if kind == "blockmerge_two_launch":
+        return (MV.two_nn_blockmerge_bf16_two_launch,
+                "two_nn_blockmerge_bf16_two_launch")
+    if kind == "ablation_two_launch":
+        return (lambda *a: MV.two_nn_ablation_two_launch(*a, **kw),
+                "two_nn_ablation_two_launch_top1")
     if kind in ("oneblock", "oneblock_mma"):
         fn = MV.two_nn_oneblock if kind == "oneblock" else \
             MV.two_nn_oneblock_mma
@@ -345,7 +374,7 @@ def _variant(kind, kw):
 def _plain(kind, kw):
     return {"oneblock": MV.oneblock_plain, "blockmerge": MV.blockmerge_plain,
             "ablation": lambda *a: MV.ablation_plain(*a, **kw)
-            }[kind.replace("_mma", "")]
+            }[kind.replace("_mma", "").replace("_two_launch", "")]
 
 
 def _variant_table(cuda, garbage):
@@ -373,9 +402,9 @@ def _variant_table(cuda, garbage):
                          ids=[f"{k}-{'-'.join(map(str, kw.values()))}"
                               for k, kw in VARIANTS])
 def test_variant_kernel_matches_plain(cuda, kind, kw):
-    """Each variant kernel (both designs) bit-exact against its plain
-    version: ragged counts, duplicated rows (ties), one repeated row, exact
-    hits."""
+    """Each variant kernel (both designs, and the two-launch forms)
+    bit-exact against its plain version: ragged counts, duplicated rows
+    (ties), one repeated row, exact hits."""
     tab, counts, pi, pj = _variant_table(cuda, garbage=False)
     fn, counter = _variant(kind, kw)
     before = MV.LAUNCHES[counter]
@@ -393,21 +422,31 @@ def test_variant_kernel_matches_plain(cuda, kind, kw):
 @pytest.mark.parametrize("garbage", [False, True], ids=["zeros", "garbage"])
 @pytest.mark.parametrize("kw,counter", WGMMA, ids=[c for _, c in WGMMA])
 def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
-    """Each `wgmma` instantiation bit-identical to its `mma.sync` twin and
-    to `two_nn_pairs` (an ablation: to its plain version), also with
-    garbage in the rows past the counts; one pre-pass launch per call
-    ("matmul_max" launches none)."""
+    """Each `wgmma` instantiation (one launch; a bf16 one also makes the
+    table's bf16 copy, one pre-pass launch) bit-identical to its `mma.sync`
+    twin, to its two-launch form (the pre-pass, then the kernel reading
+    it; "matmul_max" has none) and to `two_nn_pairs` (an ablation: to its
+    plain version), also with garbage in the rows past the counts."""
     tab, counts, pi, pj = _variant_table(cuda, garbage)
+    two = None
     if kw is None:
         new, old = MV.two_nn_blockmerge_bf16, MV.two_nn_blockmerge_bf16_mma
+        two = MV.two_nn_blockmerge_bf16_two_launch
+        two_counter = "two_nn_blockmerge_bf16_two_launch"
         twin_counter = "two_nn_blockmerge_bf16_mma"
     elif "mode" in kw:
         new = lambda *a: MV.two_nn_ablation(*a, **kw)          # noqa: E731
         old = lambda *a: MV.two_nn_ablation_mma(*a, **kw)      # noqa: E731
+        if kw["mode"] == "top1":
+            two = MV.two_nn_ablation_two_launch
+            two_counter = "two_nn_ablation_two_launch_top1"
         twin_counter = f"two_nn_ablation_mma_{kw['mode']}"
     else:
         new = lambda *a: MV.two_nn_oneblock(*a, **kw)          # noqa: E731
         old = lambda *a: MV.two_nn_oneblock_mma(*a, **kw)      # noqa: E731
+        two = lambda *a: MV.two_nn_oneblock_two_launch(*a, **kw)  # noqa: E731
+        two_counter = counter.replace("two_nn_oneblock_",
+                                      "two_nn_oneblock_two_launch_")
         twin_counter = counter.replace("two_nn_oneblock_",
                                        "two_nn_oneblock_mma_")
     before = dict(MV.LAUNCHES)
@@ -416,7 +455,7 @@ def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in MV.LAUNCHES.items() if v != before[k]}
     expect = {counter: 1, twin_counter: 1}
-    if counter != "two_nn_ablation_matmul_max":
+    if "bf16" in counter:
         expect["two_nn_variants_prepass"] = 1
     assert moved == expect
     ref = (MV.ablation_plain(tab, counts, pi, pj, kw["mode"])
@@ -424,18 +463,30 @@ def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
            else MC.two_nn_pairs(tab, tab, counts, pi, pj))
     for g, w, p in zip(got, twin, ref):
         assert torch.equal(g, w) and torch.equal(g, p)
+    if two is not None:
+        before = dict(MV.LAUNCHES)
+        for g, w in zip(got, two(tab, counts, pi, pj)):
+            assert torch.equal(g, w)
+        moved = {k: v - before[k] for k, v in MV.LAUNCHES.items()
+                 if v != before[k]}
+        assert moved == {"two_nn_variants_prepass": 1, two_counter: 1}
     if counter != "two_nn_ablation_matmul_max":
         assert not got[1][pj == 5].any()            # no valid db row: i0 = 0
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
 def test_variants_prepass_matches_plain(cuda, bf16):
+    """The pre-pass kernel (the two-launch forms' first launch), and with
+    bf16 the table's bf16 copy alone (`bf16_table`), against their plain
+    versions."""
     tab, counts, _, _ = _variant_table(cuda, garbage=True)
     got = MV.variants_prepass(tab, counts, bf16)
     torch.cuda.synchronize()
     want = MV.prepass_plain(tab, counts, bf16)
     for g, w in zip(got, want):
         assert (g is None and w is None) or torch.equal(g, w)
+    if bf16:
+        assert torch.equal(MV.bf16_table(tab), tab.to(torch.bfloat16))
 
 
 def test_variant_wrappers_reject_bad_inputs(cuda):

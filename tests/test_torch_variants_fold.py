@@ -4,8 +4,9 @@ CPU, against the plain versions (`oneblock_plain`, `blockmerge_plain`) and
 the JAX package's composition of the probe's kernels (`_tile_top2`,
 `_merge_top2`).
 
-The kernel never forms distances per score.  The pre-pass
-(`prepass_plain`) gives every db row the column constant c = |b|²·256 +
+The kernel never forms distances per score.  The launch's first phase
+(`prephase_constants`, the arithmetic of `prepass_plain`, the two-launch
+form's pre-pass) gives every db row the column constant c = |b|²·256 +
 row % 128 (KEY_POISON at or past the count) and every row |q|²; with the
 bf16 dot, c also carries F32_MAGIC_BIAS and the accumulator, an f32 sum of
 bf16 products, becomes an int32 by reading acc + 1.5·2²³ as an int32
@@ -31,12 +32,14 @@ as the TPU kernel does; it reads no pre-pass.
 Tolerance: exact.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from bundler_sfm_tpu_torch.ops import matching_variants as V
 from bundler_sfm_tpu_torch.ops.matching_cuda import BIG, KEY_POISON
+from tests.test_torch_two_nn_fold import prephase_constants
 from tests.test_torch_variants import _jax_pairs
 
 NT = 128
@@ -127,10 +130,21 @@ def _a_rows(tq, bf16):
     return rows
 
 
+def _prephase(table, counts, bf16, threads=3 * 384):
+    """The constants and |q|² the launch's first phase writes (over a grid
+    of `threads` threads), held equal to the two-launch form's pre-pass,
+    and the bf16 table the bf16 dot's ring loads."""
+    norms, qsq, tab16 = V.prepass_plain(table, counts, bf16)
+    c, sq = prephase_constants(table, counts, threads,
+                               bias=V.F32_MAGIC_BIAS if bf16 else 0)
+    assert torch.equal(c, norms.long()) and torch.equal(sq, qsq.long())
+    return c, sq, tab16
+
+
 def emulate(table, counts, pi, pj, tq, dot, merge=False):
     """(d0, i0, d1) [B, K] of a `wgmma` instantiation by its arithmetic."""
     bf16 = dot == "bf16"
-    norms, qsq, tab16 = V.prepass_plain(table, counts, bf16)
+    norms, qsq, tab16 = _prephase(table, counts, bf16)
     K = table.shape[1]
     a_rows = _a_rows(tq, bf16)
     out = [torch.zeros((len(pi), K)), torch.zeros((len(pi), K),
@@ -194,7 +208,7 @@ def emulate_ablation(table, counts, pi, pj, mode):
     tile-local fold, a once-per-tile merge, then the lane merge."""
     K = table.shape[1]
     if mode == "top1":
-        norms, qsq, _ = V.prepass_plain(table, counts, False)
+        norms, qsq, _ = _prephase(table, counts, False)
     out = [torch.zeros((len(pi), K)), torch.zeros((len(pi), K),
                                                   dtype=torch.int32),
            torch.zeros((len(pi), K))]
@@ -350,3 +364,21 @@ def test_prepass_plain(bf16):
     if bf16:
         assert t16.dtype == torch.bfloat16 and torch.equal(t16.float(),
                                                            tab.float())
+
+
+@pytest.mark.parametrize("threads", [384, 132 * 384])
+@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
+def test_prephase_matches_prepass_plain_and_jax(bf16, threads):
+    """The launch's first phase: column constants (with the bf16 offset)
+    and |q|² of every row equal to the two-launch form's pre-pass
+    (`prepass_plain`), |q|² and the constants' high bits to the JAX
+    package's squared norms, garbage past the counts poisoned."""
+    tab, cnt = _table(256, [256, 200, 1, 0, 130], 7)
+    c, sq, _ = _prephase(tab, cnt, bf16, threads)
+    x = jnp.asarray(tab.numpy()).astype(jnp.int32)
+    want = np.asarray(jnp.sum(x * x, axis=-1))
+    np.testing.assert_array_equal(sq.numpy(), want)
+    unb = _wrap32(c - (V.F32_MAGIC_BIAS if bf16 else 0))
+    for j, n in enumerate(cnt.tolist()):
+        np.testing.assert_array_equal((unb[j, :n] >> 8).numpy(), want[j, :n])
+        assert (c[j, n:] == KEY_POISON).all()
