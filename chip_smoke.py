@@ -2928,13 +2928,16 @@ def main(argv=None):
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if set(phases) != set(PHASES):
+        # Where each phase returns its failed checks (variants raises).
+        failed_at = {"main": 1, "staged": 1, "tools": 1, "library": 2,
+                     "multi_device": 1}
         for name in PHASES:
             if name in phases:
                 res = (phase_main(args.dump_scene) if name == "main"
                        else globals()[f"phase_{name}"]())
-                if isinstance(res, tuple) and name != "variants":
-                    check(not res[-2 if name == "main" else -1],
-                          f"{name} checks failed: {res}")
+                if name in failed_at:
+                    check(not res[failed_at[name]],
+                          f"{name} checks failed: {res[failed_at[name]]}")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip()
