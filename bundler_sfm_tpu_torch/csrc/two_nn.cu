@@ -62,7 +62,7 @@
 //    barrier (a cooperative launch keeps every block resident; the grid is
 //    one block per SM at most), then the ring copies each tile's constants
 //    beside it.  So an int8 call is one launch.  Two other designs were
-//    measured first (PERF.md, PR 11): a separate norms kernel
+//    measured first (PERF.md, section 6): a separate norms kernel
 //    (two_nn_norms_i8, kept with the EXT instantiation as the two-launch
 //    yardstick) costs a launch and an allocation, 20-50 us of host time a
 //    call against its 3-6 us of device time; and two idle producer warps

@@ -53,7 +53,7 @@
 //    the two-launch yardsticks: a launch and 30-60 us of host time for 3-6
 //    us of device work) nor producer warps writing constants per staged
 //    tile (a third slower at TQ 128, twice as slow with the bf16 dot, in
-//    the issue slots the epilogue needs) did as well (PERF.md, PR 11).
+//    the issue slots the epilogue needs) did as well (PERF.md, section 6).
 //    The epilogue is two_nn.cu's: packed (distance,
 //    column) int32 keys, one IMAD and three min/max a score into a
 //    tile-local top-2, merged into the running (e0, i0, e1) once per tile;
