@@ -87,6 +87,10 @@ def ba_problem_from_numpy(R0, cam0, pts0, obs_cam, obs_pt, obs_xy,
     `ops.ba.build_problem` takes (flat observations in input order);
     `options` are build_problem's keywords that both packages share
     (est_focal, est_distortion, cam_constrained, cam_constraints,
-    cam_weights, pt_constrained, pt_constraints, pt_weight)."""
+    cam_weights, pt_constrained, pt_constraints, pt_weight), and
+    `schur_plan`: a `plan_schur_windows` result of either package for
+    these points, which the JAX package applies by laying pts0 out at
+    row_of and remapping obs_pt (`benchmarks/ba_vs_sba.py::run_ours`) and
+    the port carries beside points in input order."""
     return build_problem(R0, cam0, pts0, obs_cam, obs_pt, obs_xy,
                          device=device, **options)

@@ -15,9 +15,12 @@ base rotation R0 [3, 3] passed separately.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bundler_sfm_tpu_torch.ops.rotations import rot_update
+from bundler_sfm_tpu_torch.utils.device import resolve_device
 
 NUM_CAMERA_PARAMS = 9
 
@@ -78,3 +81,31 @@ def ray_angle(xy1, f1, R1, xy2, f2, R2) -> torch.Tensor:
     dot = (r1 * r2).sum(-1)
     mag = torch.linalg.norm(r1, dim=-1) * torch.linalg.norm(r2, dim=-1)
     return torch.arccos(torch.clamp(dot / mag, -1.0 + 1e-8, 1.0 - 1e-8))
+
+
+def undistort_normalized(u: torch.Tensor, k_inv: torch.Tensor) -> torch.Tensor:
+    """Apply the 6-term inverse-distortion polynomial to normalized points
+    u [..., 2] (`UndistortNormalizedPoint`, `src/Distortion.cpp:90-…`,
+    POLY_INVERSE_DEGREE=6 per `lib/sfm-driver/sfm.h:30`):
+      r = |u|;  r_new = Σ_i k_inv[i]·r^i;  u *= r_new / r."""
+    r = torch.sqrt((u * u).sum(-1) + 1e-300)
+    powers = torch.stack([r ** i for i in range(6)], -1)
+    r_new = (powers * k_inv).sum(-1)
+    return u * (r_new / r)[..., None]
+
+
+def invert_distortion(k1, k2, f, width, height, degree: int = 6,
+                      num_samples: int = 20, device="cuda") -> torch.Tensor:
+    """Fit the inverse radial-distortion polynomial on `device` (f64),
+    as `InvertDistortion` does (`src/Distortion.cpp:29-87`): sample the
+    forward polynomial r_d = r (1 + k1 r² + k2 r⁴) at `num_samples` radii
+    in [0, max_radius], max_radius = sqrt((W/2)² + (H/2)²) / f
+    (`src/Bundle.cpp:684-688`), and least-squares fit r = Σ a_i r_d^i.
+    Returns the `degree` coefficients a."""
+    dev = resolve_device(device)
+    max_radius = math.sqrt((0.5 * width) ** 2 + (0.5 * height) ** 2) / f
+    r = torch.linspace(0.0, max_radius, num_samples, dtype=torch.float64,
+                       device=dev)
+    rd = r * (1.0 + k1 * r ** 2 + k2 * r ** 4)
+    A = torch.stack([rd ** i for i in range(degree)], -1)
+    return torch.linalg.lstsq(A, r[:, None]).solution[:, 0]

@@ -52,6 +52,7 @@ from bundler_sfm_tpu_torch.io.bundlefile import (
     BundleCamera, BundleFile, BundlePoint, write_bundle_file,
 )
 from bundler_sfm_tpu_torch.io.plyfile import write_points_ply
+from bundler_sfm_tpu_torch.ops import ba as ba_ops
 from bundler_sfm_tpu_torch.ops.ba import (
     CNP, _slot_within, build_problem, run_ba_outlier_loop,
 )
@@ -339,6 +340,17 @@ def _cap_slot_views(obs_cam, obs_pt, obs_xy, num_points,
     return obs_cam[keep], obs_pt[keep], obs_xy[keep]
 
 
+def _bucket(n: int, lo: int) -> int:
+    """The JAX package's power-of-two shape bucket (`_bucket`): its
+    run_sfm hands the window planner the camera and view counts bucketed
+    this way, and the port plans on the same counts so that both packages
+    plan alike (windows from C >= 129, where _bucket(C, 8) reaches 192)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
 def run_sfm(recon: Reconstruction, scene: Scene,
             remove_outliers: bool = True, fix_points: bool = False,
             verbose: bool = True,
@@ -351,8 +363,13 @@ def run_sfm(recon: Reconstruction, scene: Scene,
     are never removed as outliers.  The problem is marshaled
     once per call of the outlier loop, and the removal bookkeeping applied
     once; the host re-enters only if the loop hit its pass cap with
-    outliers still above the floor.  Returns the final mean reprojection
-    error (inf when too few points remain)."""
+    outliers still above the floor.  The covisibility-window plan of the
+    Schur assembly is made where and as the JAX package makes it
+    (`ops.ba.plan_schur_windows` on the bucketed camera and view counts,
+    counter `ba_schur_windowed`), on both branches; the one-device problem
+    keeps the live points' order, the sharded one lays whole groups out
+    with `plan_shard_windows`.  Returns the final mean reprojection error
+    (inf when too few points remain)."""
     cfg = scene.config
     dev = _device(scene)
     MIN_POINTS, MIN_OUTLIERS = cfg.sfm_min_points, cfg.sfm_min_outliers
@@ -411,31 +428,53 @@ def run_sfm(recon: Reconstruction, scene: Scene,
             cam_constrained=cc, cam_constraints=ct, cam_weights=cw,
             pt_constrained=pc_arr, pt_constraints=pc_con,
             pt_weight=pt_weight if pt_constraints else 0.0)
+        # Covisibility-windowed Schur assembly at high camera counts (the
+        # full-C product is (C·9)²·3 multiply-adds a point an iteration).
+        plan = ba_ops.plan_schur_windows(
+            obs_cam, obs_pt, len(live), _bucket(C, 8),
+            _bucket(int(np.bincount(obs_pt).max()), 8))
+        win = {} if plan is None else dict(window=plan[2],
+                                           group_pts=plan[3])
+        if plan is not None:
+            counter("ba_schur_windowed")
         D = resolve_num_devices(cfg)
         if D > 1:
             # Points and their observations sharded over the ranks, cameras
-            # replicated (the JAX package's run_sfm D > 1 branch without
-            # the covisibility-window plan).
+            # replicated (the JAX package's run_sfm D > 1 branch); with a
+            # plan, whole point groups go to each rank.
             mesh = make_mesh(D, device=dev)
             mesh.check_replicated("BA inputs", R0, cam0, pts0, obs_cam,
                                   obs_pt, obs_xy, cw)
+            layout = {}
+            if plan is not None:
+                shard_of, local_of, sw_local, _ = \
+                    ba_sharded.plan_shard_windows(*plan, D)
+                layout = dict(shard_of_pt=shard_of, local_idx=local_of,
+                              schur_win_local=sw_local, **win)
             prob = ba_sharded.shard_problem(
-                R0, cam0, pts0, obs_cam, obs_pt, obs_xy, mesh, **prob_kw)
+                R0, cam0, pts0, obs_cam, obs_pt, obs_xy, mesh, **layout,
+                **prob_kw)
             cam_obs = ba_sharded.build_cam_obs_table_sharded(
-                obs_cam, obs_pt, mesh, C)
+                obs_cam, obs_pt, mesh, C,
+                shard_of_pt=layout.get("shard_of_pt"))
             with stage("ba"):
                 res = ba_sharded.run_ba_outlier_loop_sharded(
-                    prob, cam_obs, mesh, **ba_kw)
+                    prob, cam_obs, mesh, **win, **ba_kw)
                 cam, Rf = _np(res.cam), _np(res.R)
-                pts = ba_sharded.unshard_points(res.pts, mesh, len(live))
-                removed = ba_sharded.unshard_flat(res.pt_removed, mesh,
-                                                  len(live))
+                if plan is None:
+                    pts = ba_sharded.unshard_points(res.pts, mesh, len(live))
+                    removed = ba_sharded.unshard_flat(res.pt_removed, mesh,
+                                                      len(live))
+                else:
+                    pts, removed = (ba_sharded.unshard_with_map(
+                        x, mesh, shard_of, local_of)
+                        for x in (res.pts, res.pt_removed))
             mesh.check_replicated("cameras after BA", cam, Rf)
         else:
             prob = build_problem(R0, cam0, pts0, obs_cam, obs_pt, obs_xy,
-                                 device=dev, **prob_kw)
+                                 schur_plan=plan, device=dev, **prob_kw)
             with stage("ba"):
-                res = run_ba_outlier_loop(prob, **ba_kw)
+                res = run_ba_outlier_loop(prob, **win, **ba_kw)
                 cam, Rf, pts = _np(res.cam), _np(res.R), _np(res.pts)
                 removed = _np(res.pt_removed)
         counter("ba_observations", float(len(obs_cam)) * float(res.iters))

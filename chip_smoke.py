@@ -147,6 +147,21 @@ Phases (any failure raises, so the exit code is non-zero):
                run_bundler --num_devices 2 on the render in a directory per
                rank: 24/24, centre error < 0.02, reprojection < 1 px, both
                ranks' cameras identical, no file from rank 1.
+  9. ba_scale — bundle adjustment at the JAX package's race scale
+               (`probes/ba_scale.py`: benchmarks/ba_vs_sba.py's arc scene
+               at 256 cameras / 262144 points and 512 / 524288, 8 views a
+               point, f64, the covisibility-window plan), the launch counts
+               zeroed first (no kernel may launch): (a) run_ba windowed to
+               150 iterations, the final cost <= 1.001 x the cost at the
+               generator's ground truth, mean reprojection < 0.6 px, a
+               second CUDA run bit-identical; (b) the windowed S_off and
+               rhs_off of the first linearization within 1e-12 of the
+               largest entry of the full-C ones (one-shot tables at 256,
+               chunked at 512); (c) at 256, 3 LM iterations of the
+               windowed, chunked and one-shot full-C forms in turns, costs
+               within 1e-10 relative; window, groups, wide points,
+               iterations, ms an iteration, BA seconds and peak memory
+               printed as "[ba_scale]" lines.
 `--phases build,kernels,variants` (any subset, in this order) runs only
 those phases, checks what they check and prints no result line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -2907,8 +2922,182 @@ def phase_multi_device():
     return counted, failures
 
 
+# The JAX package's BA race problems (BASELINE.md, "BA head-to-head"):
+# cameras, points, views a point, of benchmarks/ba_vs_sba.py's synthesize.
+BA_SCALE_SIZES = {256: (256, 262144, 8), 512: (512, 524288, 8)}
+
+
+def _all_launches():
+    return {**matching_cuda.LAUNCHES, **matching_variants.LAUNCHES}
+
+
+def _ba_linearization(prob):
+    """Y, W and g_p of the first LM iteration from prob's start (the
+    blocks _lm_loop hands assemble_schur_off), mu from tau = 1e-3."""
+    from bundler_sfm_tpu_torch.ops.ba import build_normal_blocks
+    from bundler_sfm_tpu_torch.ops.linalg_small import inv3
+    U, V, W, g_c, g_p, _ = build_normal_blocks(prob.cam0, prob.pts0, prob,
+                                               False)
+    mu = 1e-3 * torch.clamp(torch.maximum(
+        torch.diagonal(U, dim1=-2, dim2=-1).max(),
+        torch.diagonal(V, dim1=-2, dim2=-1).max()), min=1.0)
+    Vinv = inv3(V + (mu + 1e-12) * torch.eye(3, dtype=V.dtype,
+                                               device=V.device))
+    Y = (W[:, :, :, None] * Vinv[prob.obs_pt][:, None, :, :]).sum(2)
+    return Y, W, g_p
+
+
+def _timed_assembly(prob, Y, W, g_p, **kw):
+    """(S_off, rhs_off, ms, peak GiB) of one assemble_schur_off call."""
+    from bundler_sfm_tpu_torch.ops.ba import assemble_schur_off
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    S, r = assemble_schur_off(Y, W, g_p, prob, prob.cam0.shape[0], **kw)
+    torch.cuda.synchronize()
+    return (S, r, 1e3 * (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+@contextlib.contextmanager
+def _one_shot_tables():
+    """The full-C assembly in one chunk (the port's dense tables before
+    they were chunked): SCHUR_TABLE_BYTES out of reach for the duration."""
+    from bundler_sfm_tpu_torch.ops import ba as BA
+    saved = BA.SCHUR_TABLE_BYTES
+    BA.SCHUR_TABLE_BYTES = 1 << 62
+    try:
+        yield
+    finally:
+        BA.SCHUR_TABLE_BYTES = saved
+
+
+def phase_ba_scale(cams=(256, 512)):
+    """Phase 9: bundle adjustment at the JAX package's race scale
+    (`probes/ba_scale.py`: benchmarks/ba_vs_sba.py's arc scene, f64, the
+    window plan of plan_schur_windows) for each camera count in `cams`,
+    with every launch count zeroed first: (a) run_ba windowed to 150
+    iterations: the final cost <= 1.001 x the cost at the generator's
+    ground truth, mean reprojection < 0.6 px, a second CUDA run
+    bit-identical; (b) on the first iteration's linearization, the
+    windowed S_off and rhs_off within 1e-12 of the largest entry of the
+    full-C ones (256: the one-shot tables; 512: chunked), each assembly
+    timed with its peak memory; (c) at 256, 3 LM iterations of the
+    windowed, chunked full-C and one-shot full-C forms in turns: costs
+    within 1e-10 relative, ms per iteration.  No kernel may launch.
+    Returns (records, launches, failed checks)."""
+    from bundler_sfm_tpu_torch.ops.ba import run_ba
+    from bundler_sfm_tpu_torch.probes import ba_scale
+    failures, records = [], {}
+
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    zero_launches()
+    for n in cams:
+        C, P, V = BA_SCALE_SIZES[n]
+        tag = f"[ba_scale] {C} cams"
+        t0 = time.time()
+        sp = ba_scale.build(C, P, V, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        win = ba_scale.plan_summary(sp.plan)
+        check(sp.plan is not None, f"{tag}: no window plan")
+        log(f"{tag}: {sp.prob.pts0.shape[0]} points, "
+            f"{sp.prob.obs_cam.shape[0]} observations; window "
+            f"{win['window']}, {win['groups']} groups of {win['group_pts']}, "
+            f"{win['wide_points']} wide points; built in {build_s:.3f} s")
+        # (a) the windowed BA, twice.
+        rec, res = ba_scale.solve(sp)
+        log(f"{tag} (a) {json.dumps(rec)}")
+        rec2, res2 = ba_scale.solve(sp)
+        same = res.iters == res2.iters and all(torch.equal(
+            getattr(res, f), getattr(res2, f))
+            for f in ("cam", "R", "pts", "cost", "mu"))
+        log(f"{tag} (a) rerun: {rec2['ba_s']:.3f} s, {rec2['ms_per_iter']:.3f}"
+            f" ms an iteration, bit-identical: {same}")
+        check_later(same, f"{tag} (a): the CUDA rerun differs")
+        check_later(np.isfinite(rec["cost"])
+                    and rec["cost"] <= 1.001 * rec["gt_cost"],
+                    f"{tag} (a): cost {rec['cost']} above 1.001 x the "
+                    f"ground truth's {rec['gt_cost']}")
+        check_later(rec["mean_reproj_px"] < 0.6, f"{tag} (a): mean "
+                    f"reprojection {rec['mean_reproj_px']} px >= 0.6")
+        rec["rerun"] = dict(ba_s=rec2["ba_s"], ms_per_iter=rec2["ms_per_iter"],
+                            bit_identical=same)
+        del res, res2
+        # (b) one assembly of each form on the first linearization.
+        prob = sp.prob
+        Y, W, g_p = _ba_linearization(prob)
+        kw = dict(window=win["window"], group_pts=win["group_pts"])
+        S_w, r_w, ms_w, peak_w = _timed_assembly(prob, Y, W, g_p, **kw)
+        S_w, r_w, ms_w, peak_w = _timed_assembly(prob, Y, W, g_p, **kw)
+        if C == 256:
+            with _one_shot_tables():
+                S_f, r_f, ms_f, peak_f = _timed_assembly(prob, Y, W, g_p)
+            form = "one-shot"
+        else:
+            S_f, r_f, ms_f, peak_f = _timed_assembly(prob, Y, W, g_p)
+            form = "chunked"
+        err = float((S_w - S_f).abs().max() / S_f.abs().max())
+        rerr = float((r_w - r_f).abs().max() / r_f.abs().max())
+        rec["assembly"] = dict(windowed_ms=ms_w, windowed_peak_gib=peak_w,
+                               full_form=form, full_ms=ms_f,
+                               full_peak_gib=peak_f, rel_err=err,
+                               rhs_rel_err=rerr)
+        log(f"{tag} (b) {json.dumps(rec['assembly'])}")
+        check_later(err <= 1e-12 and rerr <= 1e-12, f"{tag} (b): windowed "
+                    f"S_off / rhs_off {err} / {rerr} of the largest entry "
+                    f"from the {form} full-C form")
+        del S_w, r_w, S_f, r_f, Y, W, g_p
+        torch.cuda.empty_cache()
+        # (c) at 256, 3 LM iterations of each form, in turns.
+        if C == 256:
+            turns = {"windowed": [], "chunked": [], "one-shot": []}
+            cost = {}
+            for name in ("windowed", "chunked", "one-shot", "one-shot",
+                         "chunked", "windowed"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                if name == "windowed":
+                    r = run_ba(prob, 3, **kw)
+                else:
+                    with (_one_shot_tables() if name == "one-shot"
+                          else contextlib.nullcontext()):
+                        r = run_ba(prob, 3)
+                c = float(r.cost)
+                turns[name].append((1e3 * (time.perf_counter() - t0)
+                                    / r.iters,
+                                    torch.cuda.max_memory_allocated()
+                                    / 2 ** 30))
+                cost.setdefault(name, c)
+                del r
+                torch.cuda.empty_cache()
+            rec["lm3"] = {k: dict(ms_per_iter=[t for t, _ in v],
+                                  peak_gib=max(p for _, p in v),
+                                  cost=cost[k]) for k, v in turns.items()}
+            log(f"{tag} (c) {json.dumps(rec['lm3'])}")
+            for k in ("chunked", "one-shot"):
+                d = abs(cost[k] - cost["windowed"]) / cost["windowed"]
+                check_later(d <= 1e-10, f"{tag} (c): {k} cost {cost[k]} "
+                            f"{d} from the windowed {cost['windowed']}")
+        records[C] = rec
+        del sp, prob
+        torch.cuda.empty_cache()
+    launches = _all_launches()
+    check_later(not any(launches.values()),
+                f"kernels launched in the BA: {launches}")
+    log(f"[ba_scale] phase {time.time() - t_phase:.1f} s")
+    return records, launches, failures
+
+
 PHASES = ("build", "kernels", "main", "staged", "tools", "variants", "library",
-          "multi_device")
+          "multi_device", "ba_scale")
 
 
 def main(argv=None):
@@ -2930,7 +3119,7 @@ def main(argv=None):
     if set(phases) != set(PHASES):
         # Where each phase returns its failed checks (variants raises).
         failed_at = {"main": 1, "staged": 1, "tools": 1, "library": 2,
-                     "multi_device": 1}
+                     "multi_device": 1, "ba_scale": 2}
         for name in PHASES:
             if name in phases:
                 res = (phase_main(args.dump_scene) if name == "main"
@@ -2951,11 +3140,13 @@ def main(argv=None):
     variant_records, probe_launches = phase_variants()
     lib_launches, lib_times, lib_failures = phase_library()
     md_launches, md_failures = phase_multi_device()
+    _, ba_launches, ba_failures = phase_ba_scale()
     check(not failures, f"stage-5 checks failed: {failures}")
     check(not staged_failures, f"staged checks failed: {staged_failures}")
     check(not tools_failures, f"tools checks failed: {tools_failures}")
     check(not lib_failures, f"library checks failed: {lib_failures}")
     check(not md_failures, f"multi-device checks failed: {md_failures}")
+    check(not ba_failures, f"ba_scale checks failed: {ba_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
     kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
@@ -2990,6 +3181,8 @@ def main(argv=None):
          "library_path_launches": lib_launches["two_nn_f32_prepass"],
          "multi_device_launches": md_launches.get("two_nn_f32_prepass", 0)})
     kernels += variant_records
+    for k in kernels:
+        k["ba_scale_launches"] = ba_launches.get(k["name"], 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -26,6 +26,11 @@ Tolerances:
   * D = 1 (a one-rank group in this process): the sharded BA (cholesky)
     and outlier loop bit-identical to the unsharded functions, the ring
     and the pair-split table to DescriptorTable;
+  * the covisibility-windowed assembly at D = 2 (plan_shard_windows'
+    layout): the shard layout equal to the JAX package's; run_ba_sharded,
+    the outlier loop and run_sfm's D > 1 branch within 1e-9 of the
+    one-device windowed runs (cameras and points, of the largest entry),
+    with the same iterations, passes and removed points;
   * run_bundler.main at world 2 on an 8-view 320x240 render: the same
     registered cameras as at world 1, both ranks holding identical
     cameras, and files from rank 0 only.
@@ -517,6 +522,168 @@ def test_one_rank_is_bit_identical(one_rank):
         pairs, min_matches=0), want)
     _same_dicts(DescriptorTable(descs, mesh=mesh).match_pairs(
         pairs, min_matches=0), want)
+
+
+# --------------------------------------------------------------------------
+# The covisibility-windowed assembly over ranks (plan_shard_windows)
+# --------------------------------------------------------------------------
+
+def _windowed_inputs():
+    """tests/test_torch_ba_windows.py's 48-camera arc with its plan and
+    that plan split over 2 ranks."""
+    from tests.test_torch_ba_windows import _arc
+    host, plan = _arc(P=1500)
+    split = TS.plan_shard_windows(*plan, 2)
+    return host, plan, split
+
+
+def _windowed_layout_job(mesh, host, plan, split):
+    shard_of, local_idx, sw_local, _ = split
+    prob = TS.shard_problem(mesh=mesh, **host, shard_of_pt=shard_of,
+                            local_idx=local_idx, schur_win_local=sw_local,
+                            window=plan[2], group_pts=plan[3])
+    co = TS.build_cam_obs_table_sharded(host["obs_cam"], host["obs_pt"],
+                                        mesh, len(host["cam0"]),
+                                        shard_of_pt=shard_of)
+    return dict(pts0=_np(prob.pts0), obs_cam=_np(prob.obs_cam),
+                obs_pt=_np(prob.obs_pt), obs_xy=_np(prob.obs_xy),
+                cam_obs=_np(co), starts=prob.schur.starts,
+                mapped=TS.unshard_with_map(prob.pts0, mesh, shard_of,
+                                           local_idx))
+
+
+def test_shard_layout_windowed_matches_jax(ranks):
+    """shard_problem / build_cam_obs_table_sharded under plan_shard_windows'
+    explicit layout against the JAX package's, as
+    test_shard_layout_matches_jax holds the round-robin one."""
+    from bundler_sfm_tpu.parallel import ba_sharded as JS
+    host, plan, split = _windowed_inputs()
+    shard_of, local_idx, sw_local, rows = split
+    C = len(host["cam0"])
+    jp = JS.shard_problem(num_shards=2, **host, pad_pts_per_shard=rows,
+                          shard_of_pt=shard_of, local_idx=local_idx,
+                          schur_win_local=sw_local)
+    Pp, M = jp.views_mask.shape[1:]
+    jco, jcm = JS.build_cam_obs_table_sharded(
+        host["obs_cam"], host["obs_pt"], 2, C, Pp, M, shard_of_pt=shard_of,
+        local_idx=local_idx)
+    for s, got in enumerate(ranks(2).run(_windowed_layout_job, host, plan,
+                                         split)):
+        n = len(got["pts0"])
+        np.testing.assert_array_equal(got["pts0"], np.asarray(jp.pts0[s])[:n])
+        assert not np.asarray(jp.pts0[s])[n:].any()
+        sid = got["obs_pt"] * M + TB._slot_within(got["obs_pt"])
+        assert np.asarray(jp.obs_valid[s]).sum() == len(sid)
+        for f in ("obs_cam", "obs_xy", "obs_pt"):
+            np.testing.assert_array_equal(got[f], np.asarray(
+                getattr(jp, f)[s])[sid])
+        co = got["cam_obs"]
+        mask = co < len(sid)
+        np.testing.assert_array_equal(mask, jcm[s][:, :co.shape[1]])
+        assert not jcm[s][:, co.shape[1]:].any()
+        np.testing.assert_array_equal(sid[co[mask]], jco[s][:, :co.shape[1]]
+                                      [mask])
+        assert got["starts"] == tuple(int(v) for v in sw_local[s])
+        np.testing.assert_array_equal(got["mapped"], host["pts0"])
+
+
+def _windowed_ba_job(mesh, host, plan, split, kw, outlier):
+    shard_of, local_idx, sw_local, _ = split
+    prob = TS.shard_problem(mesh=mesh, **host, shard_of_pt=shard_of,
+                            local_idx=local_idx, schur_win_local=sw_local,
+                            window=plan[2], group_pts=plan[3])
+    win = dict(window=plan[2], group_pts=plan[3])
+    if outlier:
+        co = TS.build_cam_obs_table_sharded(
+            host["obs_cam"], host["obs_pt"], mesh, len(host["cam0"]),
+            shard_of_pt=shard_of)
+        r = TS.run_ba_outlier_loop_sharded(prob, co, mesh, **kw, **win)
+        extra = dict(passes=r.passes, removed=TS.unshard_with_map(
+            r.pt_removed, mesh, shard_of, local_idx))
+    else:
+        r = TS.run_ba_sharded(prob, mesh, **kw, **win)
+        extra = {}
+    return dict(cam=_np(r.cam), R=_np(r.R), cost=float(r.cost),
+                iters=r.iters, **extra,
+                pts=TS.unshard_with_map(r.pts, mesh, shard_of, local_idx))
+
+
+@pytest.mark.parametrize("loop", ["run_ba", "outlier_loop"])
+def test_windowed_sharded_ba_matches_one_device(loop, ranks):
+    """Each rank's windowed assembly over its own groups, S_off summed over
+    2 ranks over gloo, against the one-device windowed BA: cameras and
+    points within 1e-9 of the largest entry, the cost within 1e-9
+    relative, the same iterations (and passes and removed points)."""
+    host, plan, split = _windowed_inputs()
+    win = dict(window=plan[2], group_pts=plan[3])
+    prob = TB.build_problem(**host, schur_plan=plan, device="cpu")
+    if loop == "outlier_loop":
+        rng = np.random.default_rng(7)
+        bad = rng.choice(len(host["pts0"]), 30, replace=False)
+        sel = np.isin(host["obs_pt"], bad)
+        host["obs_xy"][sel] += rng.uniform(40, 90, (sel.sum(), 2))
+        prob = TB.build_problem(**host, schur_plan=plan, device="cpu")
+        kw = dict(max_iters=8, min_outliers=2, max_passes=4)
+        want = TB.run_ba_outlier_loop(prob, **kw, **win)
+        assert want.passes >= 2 and want.pt_removed.numpy()[bad].all()
+    else:
+        kw = dict(max_iters=8)
+        want = TB.run_ba(prob, **kw, **win)
+    for got in ranks(2).run(_windowed_ba_job, host, plan, split, kw,
+                            loop == "outlier_loop"):
+        assert got["iters"] == want.iters
+        _close(got["cam"], want.cam.numpy(), 1e-9)
+        _close(got["R"], want.R.numpy(), 1e-9)
+        _close(got["pts"], want.pts.numpy(), 1e-9)
+        assert abs(got["cost"] - float(want.cost)) <= 1e-9 * float(want.cost)
+        if loop == "outlier_loop":
+            assert got["passes"] == want.passes
+            np.testing.assert_array_equal(got["removed"],
+                                          want.pt_removed.numpy())
+
+
+def _run_sfm_windowed(mesh=None):
+    """run_sfm on tests/test_torch_ba_windows.py's arc state with the
+    planner's threshold lowered (in this process), at world mesh.size or
+    on one device; the cameras, points and live views."""
+    import functools
+    from tests.test_torch_ba_windows import SMALL, arc_sfm_state, port_state
+    from bundler_sfm_tpu_torch.pipeline import incremental
+    scene, recon, cfg = arc_sfm_state()
+    ts, trec = port_state(scene, recon, cfg,
+                          num_devices=1 if mesh is None else mesh.size)
+    counters = incremental.get_telemetry().counters
+    before = counters.get("ba_schur_windowed", 0.0)
+    real = TB.plan_schur_windows
+    TB.plan_schur_windows = functools.partial(real, **SMALL)
+    try:
+        incremental.run_sfm(trec, ts, verbose=False)
+    finally:
+        TB.plan_schur_windows = real
+    return dict(cams=np.stack(trec.cam_params), R=np.stack(trec.cam_R),
+                pts=np.stack(trec.points),
+                views=[len(v) for v in trec.pt_views],
+                windowed=counters["ba_schur_windowed"] - before)
+
+
+def _run_sfm_windowed_job(mesh):
+    return _run_sfm_windowed(mesh)
+
+
+def test_run_sfm_sharded_windowed_matches_one_device(ranks):
+    """run_sfm's D > 1 branch with a plan (plan_shard_windows' layout, the
+    windowed assembly on each rank) against its one-device branch: the
+    same surviving points, cameras and points within 1e-9 of the largest
+    entry, both ranks identical."""
+    want = _run_sfm_windowed()
+    got = ranks(2).run(_run_sfm_windowed_job)
+    for k in ("cams", "R", "pts"):
+        np.testing.assert_array_equal(got[0][k], got[1][k])
+    assert got[0]["views"] == want["views"]
+    assert want["windowed"] == got[0]["windowed"] == got[1]["windowed"] > 0
+    assert sum(v == 0 for v in want["views"]) >= 30
+    for k in ("cams", "R", "pts"):
+        _close(got[0][k], want[k], 1e-9)
 
 
 # --------------------------------------------------------------------------
