@@ -116,10 +116,9 @@ class SchurWindows:
     (`build_problem(schur_plan=...)`).  Group g holds the points of plan
     rows [g·G, (g+1)·G); every camera that observes them lies in
     [starts[g], starts[g] + window).  `grouped` lists the grouped points'
-    observations by plan row (its `off` [nwin + 1] is per group, not per
-    row), `cam` each one's camera less its window's start; `wide` lists
-    the other points' observations, row k being the k-th wide point in
-    plan order, for the full-C form."""
+    observations by plan row, `cam` each one's camera less its window's
+    start; `wide` lists the other points' observations by plan row less
+    nwin·G, for the full-C form."""
     window: int
     group_pts: int
     starts: Tuple[int, ...]
@@ -293,56 +292,44 @@ def plan_schur_windows(obs_cam, obs_pt, num_points: int, num_cams: int,
     return row_of.astype(np.int32), schur_win, int(Wd), int(G), int(total)
 
 
-def _row_obs(rows: np.ndarray, num_rows: int, dev) -> RowObs:
-    """RowObs of n observations, ids 0..n-1, whose rows are `rows` [n]
+def _row_obs(ids: np.ndarray, rows: np.ndarray, num_rows: int,
+             dev) -> RowObs:
+    """RowObs of the observations `ids` [n], whose rows are `rows` [n]
     (each in [0, num_rows))."""
-    rows = np.asarray(rows, np.int64)
     order = np.argsort(rows, kind="stable")
     off = np.concatenate([[0], np.cumsum(np.bincount(
         rows, minlength=num_rows))]).astype(np.int64)
-    return RowObs(obs=torch.as_tensor(order, device=dev),
+    return RowObs(obs=torch.as_tensor(ids[order], device=dev),
                   row=torch.as_tensor(rows[order], device=dev), off=off)
 
 
 def _lay_out_windows(plan, obs_cam: np.ndarray, obs_pt: np.ndarray,
                      num_points: int, dev) -> SchurWindows:
     """SchurWindows of `plan` (plan_schur_windows' tuple; row_of maps the
-    problem's points to plan rows, which may leave holes).  Raises if a
-    grouped point has a camera outside its group's window."""
+    problem's points to plan rows, which may leave holes: rows without
+    observations).  Raises if a grouped point has a camera outside its
+    group's window."""
     row_of, starts, window, G = plan[:4]
     row_of = np.asarray(row_of, np.int64)
     starts = np.asarray(starts, np.int64).reshape(-1)
     if row_of.shape != (num_points,):
         raise ValueError(f"the plan maps {row_of.shape} points, the problem "
                          f"has {num_points}")
-    nwin = len(starts)
+    n = len(starts) * G
     prow = row_of[obs_pt]
-    grouped = prow < nwin * G
-    sel = np.nonzero(grouped)[0]
-    grp = prow[sel] // G
-    lcam = obs_cam[sel] - starts[grp]
+    sel = np.nonzero(prow < n)[0]
+    lcam = obs_cam[sel] - starts[prow[sel] // G]
     if np.any((lcam < 0) | (lcam >= window)):
         raise ValueError("a grouped point is observed outside its window")
-    order = np.argsort(prow[sel], kind="stable")
-    obs = sel[order]
-    group_off = np.searchsorted(grp[order], np.arange(nwin + 1))
-    wide_pt = np.nonzero(row_of >= nwin * G)[0]
-    rank = np.full(num_points, -1, np.int64)
-    rank[wide_pt[np.argsort(row_of[wide_pt], kind="stable")]] = \
-        np.arange(len(wide_pt))
-    wsel = np.nonzero(~grouped)[0]
-    wide = _row_obs(rank[obs_pt[wsel]], len(wide_pt), dev)
-    wide = dataclasses.replace(wide, obs=torch.as_tensor(
-        wsel, device=dev)[wide.obs])
-
-    def T(x):
-        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    grouped = _row_obs(sel, prow[sel], n, dev)
+    wide = np.nonzero(prow >= n)[0]
+    lcam = torch.as_tensor(obs_cam, device=dev)[grouped.obs] - \
+        torch.as_tensor(starts, device=dev)[grouped.row // G]
     return SchurWindows(
         window=int(window), group_pts=int(G),
-        starts=tuple(int(v) for v in starts),
-        grouped=RowObs(obs=T(obs), row=T(prow[obs]),
-                       off=group_off.astype(np.int64)),
-        cam=T(lcam[order]), wide=wide)
+        starts=tuple(int(v) for v in starts), grouped=grouped, cam=lcam,
+        wide=_row_obs(wide, prow[wide] - n,
+                      max(int(row_of.max(initial=-1)) + 1 - n, 0), dev))
 
 
 def build_problem(
@@ -403,7 +390,8 @@ def build_problem(
         pt_views=T(pt_views, torch.int64), cam_views=T(cam_views, torch.int64),
         pt_constrained=T(arr(pt_constrained, (P,))),
         pt_constraints=T(arr(pt_constraints, (P, PNP))),
-        pt_rows=_row_obs(obs_pt, P, dev), pt_weight=float(pt_weight),
+        pt_rows=_row_obs(np.arange(len(obs_pt)), obs_pt, P, dev),
+        pt_weight=float(pt_weight),
         schur=schur)
 
 
@@ -593,7 +581,7 @@ def _schur_windowed(Y, W, plan: SchurWindows, C: int, S):
     no observation lies there, so the clipped rows and columns are
     zero."""
     Wd, G = plan.window, plan.group_pts
-    off = plan.grouped.off
+    off = plan.grouped.off[::G]
     per = max(1, SCHUR_TABLE_BYTES // (Wd * CNP * G * PNP * Y.element_size()))
     n = len(plan.starts)
     for g0 in range(0, n, per):
