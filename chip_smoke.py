@@ -2927,10 +2927,6 @@ def phase_multi_device():
 BA_SCALE_SIZES = {256: (256, 262144, 8), 512: (512, 524288, 8)}
 
 
-def _all_launches():
-    return {**matching_cuda.LAUNCHES, **matching_variants.LAUNCHES}
-
-
 def _ba_linearization(prob):
     """Y, W and g_p of the first LM iteration from prob's start (the
     blocks _lm_loop hands assemble_schur_off), mu from tau = 1e-3."""
@@ -3089,7 +3085,7 @@ def phase_ba_scale(cams=(256, 512)):
         records[C] = rec
         del sp, prob
         torch.cuda.empty_cache()
-    launches = _all_launches()
+    launches = {**matching_cuda.LAUNCHES, **matching_variants.LAUNCHES}
     check_later(not any(launches.values()),
                 f"kernels launched in the BA: {launches}")
     log(f"[ba_scale] phase {time.time() - t_phase:.1f} s")
