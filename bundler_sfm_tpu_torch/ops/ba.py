@@ -14,7 +14,8 @@ The replacement for the reference's SBA stack (`lib/sba-1.5/sba_levmar.c`
   (`src/ComputeTracks.cpp:171`), so each (point, camera) pair holds at
   most one observation and the double sum factorises: scattered into dense
   [C·9, P·3] camera tables, S_off = −Ỹ·W̃ᵀ is a dense f64 matrix product,
-  run over chunks of points under `SCHUR_TABLE_BYTES`.  With a
+  run over chunks of points (rows of `pt_views`) under
+  `SCHUR_TABLE_BYTES`.  With a
   covisibility-window plan (`plan_schur_windows`, carried by the problem),
   each group of points whose cameras fit one window contracts only inside
   that window, (W·9)² instead of (C·9)² a point, and the wide points run
@@ -117,14 +118,14 @@ class SchurWindows:
     rows [g·G, (g+1)·G); every camera that observes them lies in
     [starts[g], starts[g] + window).  `grouped` lists the grouped points'
     observations by plan row, `cam` each one's camera less its window's
-    start; `wide` lists the other points' observations by plan row less
-    nwin·G, for the full-C form."""
+    start; `wide` [n, M] holds the `pt_views` rows of the other points in
+    plan-row order, for the full-C form."""
     window: int
     group_pts: int
     starts: Tuple[int, ...]
     grouped: RowObs
     cam: torch.Tensor
-    wide: RowObs
+    wide: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,8 +135,9 @@ class BAProblem:
     `pt_views` [P, M] and `cam_views` [C, S] list each point's / camera's
     observation indices in input order, padded with O (a zero row appended
     before every gather), so per-point and per-camera sums are fixed-order
-    reductions.  `pt_rows` lists the observations by point for the full-C
-    Schur assembly; `schur` is the covisibility-window plan, if any."""
+    reductions; the full-C Schur assembly reads its chunks of points
+    through `pt_views` too.  `schur` is the covisibility-window plan, if
+    any."""
     R0: torch.Tensor               # [C,3,3] base rotations
     cam0: torch.Tensor             # [C,9] initial params (c, w=0, f, k1, k2)
     cam_mask: torch.Tensor         # [C,9] 1.0 = free, 0.0 = frozen
@@ -152,7 +154,6 @@ class BAProblem:
     cam_views: torch.Tensor        # [C,S] int64 observation ids, pad O
     pt_constrained: torch.Tensor   # [P] 1.0 where a point is anchored
     pt_constraints: torch.Tensor   # [P,3] anchor positions
-    pt_rows: RowObs                # observations by point (full-C Schur)
     pt_weight: float = 0.0         # weight of every anchor
     schur: Optional[SchurWindows] = None
 
@@ -304,11 +305,12 @@ def _row_obs(ids: np.ndarray, rows: np.ndarray, num_rows: int,
 
 
 def _lay_out_windows(plan, obs_cam: np.ndarray, obs_pt: np.ndarray,
-                     num_points: int, dev) -> SchurWindows:
+                     pt_views: np.ndarray, dev) -> SchurWindows:
     """SchurWindows of `plan` (plan_schur_windows' tuple; row_of maps the
     problem's points to plan rows, which may leave holes: rows without
     observations).  Raises if a grouped point has a camera outside its
     group's window."""
+    num_points = len(pt_views)
     row_of, starts, window, G = plan[:4]
     row_of = np.asarray(row_of, np.int64)
     starts = np.asarray(starts, np.int64).reshape(-1)
@@ -322,14 +324,14 @@ def _lay_out_windows(plan, obs_cam: np.ndarray, obs_pt: np.ndarray,
     if np.any((lcam < 0) | (lcam >= window)):
         raise ValueError("a grouped point is observed outside its window")
     grouped = _row_obs(sel, prow[sel], n, dev)
-    wide = np.nonzero(prow >= n)[0]
+    wide = np.nonzero(row_of >= n)[0]
+    wide = wide[np.argsort(row_of[wide], kind="stable")]
     lcam = torch.as_tensor(obs_cam, device=dev)[grouped.obs] - \
         torch.as_tensor(starts, device=dev)[grouped.row // G]
     return SchurWindows(
         window=int(window), group_pts=int(G),
         starts=tuple(int(v) for v in starts), grouped=grouped, cam=lcam,
-        wide=_row_obs(wide, prow[wide] - n,
-                      max(int(row_of.max(initial=-1)) + 1 - n, 0), dev))
+        wide=torch.as_tensor(pt_views[wide], device=dev))
 
 
 def build_problem(
@@ -373,7 +375,7 @@ def build_problem(
     pt_views = _view_table(obs_pt, P)
     cam_views = build_cam_obs_table(obs_cam, C)
     schur = None if schur_plan is None else \
-        _lay_out_windows(schur_plan, obs_cam, obs_pt, P, dev)
+        _lay_out_windows(schur_plan, obs_cam, obs_pt, pt_views, dev)
 
     def T(x, dtype=torch.float64):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
@@ -390,7 +392,6 @@ def build_problem(
         pt_views=T(pt_views, torch.int64), cam_views=T(cam_views, torch.int64),
         pt_constrained=T(arr(pt_constrained, (P,))),
         pt_constraints=T(arr(pt_constraints, (P, PNP))),
-        pt_rows=_row_obs(np.arange(len(obs_pt)), obs_pt, P, dev),
         pt_weight=float(pt_weight),
         schur=schur)
 
@@ -548,25 +549,30 @@ def build_normal_blocks(cam, pts, prob: BAProblem, fix_points: bool,
 # Reduced camera system
 # --------------------------------------------------------------------------
 
-def _schur_full(Y, W, obs_cam, rows: RowObs, C: int, S):
+def _schur_full(Y, W, obs_cam, views, C: int, S):
     """S −= Σ_chunks T_Y·T_Wᵀ, in place: T [C·9, n·3] the dense camera
-    table of a chunk of n rows (zero where a row's point is not observed),
-    n as large as SCHUR_TABLE_BYTES allows.  The chunks are added in row
-    order."""
-    per = max(1, SCHUR_TABLE_BYTES // (C * CNP * PNP * Y.element_size()))
-    R = len(rows.off) - 1
+    table of a chunk of n rows of `views` ([R, M] observation ids padded
+    with O, as `pt_views`), zero where a row's point is not observed; n as
+    large as SCHUR_TABLE_BYTES allows.  The chunks are added in row order.
+    Padding entries are written to a spare camera C that is cut off."""
+    O = Y.shape[0]
+    if O == 0:
+        return
+    per = max(1, SCHUR_TABLE_BYTES // ((C + 1) * CNP * PNP
+                                       * Y.element_size()))
+    R = views.shape[0]
     for r0 in range(0, R, per):
         r1 = min(r0 + per, R)
-        o0, o1 = int(rows.off[r0]), int(rows.off[r1])
-        if o0 == o1:
-            continue
-        ids = rows.obs[o0:o1]
-        cam, row = obs_cam[ids], rows.row[o0:o1] - r0
+        pad = views[r0:r1] >= O
+        ids = views[r0:r1].clamp(max=O - 1)
+        cam = torch.where(pad, C, obs_cam[ids])
+        row = torch.arange(r1 - r0, device=ids.device)[:, None] \
+            .expand_as(ids)
 
         def table(X):
-            t = X.new_zeros(C, CNP, r1 - r0, PNP)
+            t = X.new_zeros(C + 1, CNP, r1 - r0, PNP)
             t[cam, :, row, :] = X[ids]
-            return t.reshape(C * CNP, (r1 - r0) * PNP)
+            return t[:C].reshape(C * CNP, (r1 - r0) * PNP)
         S.sub_(table(Y) @ table(W).T)
 
 
@@ -609,7 +615,10 @@ def _window_plan(prob: BAProblem, num_cams: int, window: int,
                  group_pts: int) -> Optional[SchurWindows]:
     """The plan the assembly runs, as the JAX package gates it: window > 0
     and group_pts > 0 name the problem's plan (anything else raises), and
-    a window of num_cams or more runs the full-C form."""
+    a window of num_cams or more runs the full-C form.  The problem
+    carries the plan; window / group_pts are kept beside it so that the
+    entry points take the JAX package's arguments, and this check keeps
+    the two from disagreeing."""
     if window <= 0 or group_pts <= 0:
         return None
     plan = prob.schur
@@ -640,7 +649,7 @@ def assemble_schur_off(Y, W, g_p, prob: BAProblem, num_cams: int,
     plan = _window_plan(prob, C, window, group_pts)
     if plan is not None:
         _schur_windowed(Y, W, plan, C, S)
-    _schur_full(Y, W, prob.obs_cam, prob.pt_rows if plan is None
+    _schur_full(Y, W, prob.obs_cam, prob.pt_views if plan is None
                 else plan.wide, C, S)
     return S, rhs_off
 
@@ -767,6 +776,24 @@ def _local_max(x):
     return x.max() if x.numel() else x.new_full((), -math.inf)
 
 
+def initial_mu(U, V, tau, mesh=None):
+    """LM's first damping: tau·max(1, the largest diagonal entry of U and
+    of V, over the ranks with `mesh`)."""
+    maxdiag = torch.maximum(
+        torch.diagonal(U, dim1=-2, dim2=-1).max(),
+        _pmax(_local_max(torch.diagonal(V, dim1=-2, dim2=-1)), mesh))
+    return tau * torch.clamp(maxdiag, min=1.0)
+
+
+def eliminate_points(V, W, mu, prob: BAProblem):
+    """The point side of one damped LM step: Vinv_i = (V_i + mu·I)⁻¹ per
+    point and Y_o = W_o·Vinv_pt(o) per observation, which the reduced
+    camera system takes (`assemble_schur_off`)."""
+    eyep = torch.eye(PNP, dtype=V.dtype, device=V.device)
+    Vinv = inv3(V + (mu + 1e-12) * eyep)
+    return Vinv, (W[:, :, :, None] * Vinv[prob.obs_pt][:, None, :, :]).sum(2)
+
+
 def _lm_loop(prob: BAProblem, max_iters: int, fix_points: bool, tau, eps1,
              eps2, loss: str, huber_param, solver: str, mesh=None,
              window: int = 0, group_pts: int = 0):
@@ -783,7 +810,6 @@ def _lm_loop(prob: BAProblem, max_iters: int, fix_points: bool, tau, eps1,
     constraint weights must come pre-scaled by 1/size (`shard_problem`)."""
     dtype, dev = prob.cam0.dtype, prob.cam0.device
     eyec = torch.eye(CNP, dtype=dtype, device=dev)
-    eyep = torch.eye(PNP, dtype=dtype, device=dev)
     huber_b = huber_param * huber_param
     inv_s = 1.0 / prob.cam_scale
     frozen = torch.diag_embed(1.0 - prob.cam_mask)
@@ -796,16 +822,12 @@ def _lm_loop(prob: BAProblem, max_iters: int, fix_points: bool, tau, eps1,
             U, g_c, cost = mesh.psum_all(U, g_c, cost)
         return U, V, W, g_c, g_p, cost
     U, V, W, g_c, g_p, cost0 = blocks(prob.cam0, prob.pts0)
-    maxdiag = torch.maximum(
-        torch.diagonal(U, dim1=-2, dim2=-1).max(),
-        _pmax(_local_max(torch.diagonal(V, dim1=-2, dim2=-1)), mesh))
-    mu = tau * torch.clamp(maxdiag, min=1.0)
+    mu = initial_mu(U, V, tau, mesh)
     nu = torch.tensor(2.0, dtype=dtype, device=dev)
     cam, pts, cost = prob.cam0, prob.pts0, cost0
     it = 0
     while it < max_iters:
-        Vinv = inv3(V + (mu + 1e-12) * eyep)
-        Y = (W[:, :, :, None] * Vinv[prob.obs_pt][:, None, :, :]).sum(2)
+        Vinv, Y = eliminate_points(V, W, mu, prob)
         U_aug = U + frozen + mu * eyec
         if solver == "cg" and mesh is not None:
             dcam = _solve_schur_cg_sharded(U_aug, Y, W, g_c, g_p, prob, mesh)
@@ -874,7 +896,8 @@ def run_ba(prob: BAProblem, max_iters: int = 150, fix_points: bool = False,
     is this rank's point shard (see `_lm_loop`); `pts` is the shard's.
     window / group_pts (the plan's, from `plan_schur_windows`) run the
     covisibility-windowed Schur assembly on the plan `prob` carries; 0
-    runs the full-C form."""
+    runs the full-C form.  They repeat the problem's plan only so that the
+    arguments are the JAX package's (`_window_plan` checks they agree)."""
     counter(f"ba_runs_{prob.cam0.device.type}")
     cam, pts, cost, cost0, iters, mu = _lm_loop(
         prob, max_iters, fix_points, tau, eps1, eps2, loss, huber_param,

@@ -9,14 +9,13 @@ distortion free, no priors, true rotations as R0), windows planned by
 `plan_schur_windows` on the true camera count, and run through `run_ba`.
 
     python -m bundler_sfm_tpu_torch.probes.ba_scale \
-        [num_cams num_pts views_per_pt] [--max_iters N] [--full] \
-        [--device cuda|cpu]
+        [num_cams num_pts views_per_pt] [--max_iters N] [--device cuda|cpu]
 
 prints one JSON line: the plan (window, groups, wide points), LM
 iterations, the final cost beside the cost at the generator's ground
 truth on the same observations, the mean reprojection error, BA seconds,
 ms per LM iteration and peak device memory (cuda only; a CPU run times
-nothing).  --full drops the plan and runs the full-C assembly.
+nothing).
 """
 
 from __future__ import annotations
@@ -111,22 +110,19 @@ class ScaleProblem(NamedTuple):
     host: Dict                # R, obs_cam, obs_pt, obs_xy (numpy)
 
 
-def build(num_cams: int, num_pts: int, views_per_pt: int, seed: int = 0,
-          windows: bool = True, device="cuda") -> ScaleProblem:
-    """The synthesized scene as a BAProblem on `device`, built as
-    `ba_vs_sba.run_ours` builds it (f64 here), with the window plan unless
-    `windows` is False."""
+def build(num_cams: int, num_pts: int, views_per_pt: int,
+          device="cuda") -> ScaleProblem:
+    """The synthesized scene (seed 0) as a BAProblem on `device`, built as
+    `ba_vs_sba.run_ours` builds it (f64 here), with its window plan."""
     dev = resolve_device(device)
     (R, centers, centers_init, pts, pts_init,
-     obs_cam, obs_pt, obs_xy) = synthesize(num_cams, num_pts, views_per_pt,
-                                           seed)
+     obs_cam, obs_pt, obs_xy) = synthesize(num_cams, num_pts, views_per_pt)
     C = len(centers_init)
     cam0 = np.zeros((C, 9))
     cam0[:, 0:3] = centers_init
     cam0[:, 6] = FOCAL
     plan = plan_schur_windows(obs_cam, obs_pt, len(pts_init), C,
-                              int(np.bincount(obs_pt).max())) \
-        if windows else None
+                              int(np.bincount(obs_pt).max()))
     prob = build_problem(R, cam0, pts_init, obs_cam, obs_pt, obs_xy,
                          est_focal=True, est_distortion=True,
                          schur_plan=plan, device=dev)
@@ -194,16 +190,12 @@ def main(argv=None) -> int:
                    help="num_cams num_pts views_per_pt (default 256 "
                         "262144 8)")
     p.add_argument("--max_iters", type=int, default=150)
-    p.add_argument("--full", action="store_true",
-                   help="no window plan: the full-C assembly")
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu times nothing)")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
     if len(args.sizes) != 3:
         p.error("give num_cams num_pts views_per_pt")
-    sp = build(*args.sizes, seed=args.seed, windows=not args.full,
-               device=args.device)
+    sp = build(*args.sizes, device=args.device)
     rec, _ = solve(sp, args.max_iters)
     print(json.dumps(rec), flush=True)
     return 0

@@ -2928,18 +2928,13 @@ BA_SCALE_SIZES = {256: (256, 262144, 8), 512: (512, 524288, 8)}
 
 
 def _ba_linearization(prob):
-    """Y, W and g_p of the first LM iteration from prob's start (the
-    blocks _lm_loop hands assemble_schur_off), mu from tau = 1e-3."""
-    from bundler_sfm_tpu_torch.ops.ba import build_normal_blocks
-    from bundler_sfm_tpu_torch.ops.linalg_small import inv3
-    U, V, W, g_c, g_p, _ = build_normal_blocks(prob.cam0, prob.pts0, prob,
-                                               False)
-    mu = 1e-3 * torch.clamp(torch.maximum(
-        torch.diagonal(U, dim1=-2, dim2=-1).max(),
-        torch.diagonal(V, dim1=-2, dim2=-1).max()), min=1.0)
-    Vinv = inv3(V + (mu + 1e-12) * torch.eye(3, dtype=V.dtype,
-                                               device=V.device))
-    Y = (W[:, :, :, None] * Vinv[prob.obs_pt][:, None, :, :]).sum(2)
+    """Y, W and g_p of the first LM iteration from prob's start, through
+    the helpers _lm_loop itself calls (tau = 1e-3, run_ba's default)."""
+    from bundler_sfm_tpu_torch.ops.ba import (
+        build_normal_blocks, eliminate_points, initial_mu)
+    U, V, W, _, g_p, _ = build_normal_blocks(prob.cam0, prob.pts0, prob,
+                                             False)
+    _, Y = eliminate_points(V, W, initial_mu(U, V, 1e-3), prob)
     return Y, W, g_p
 
 

@@ -9,7 +9,8 @@ Held:
     S_off and rhs_off within 1e-12 of their largest entry of the JAX
     package's windowed ones (its problem built as
     `benchmarks/ba_vs_sba.py::run_ours` builds it) and of the port's own
-    full-C form, with the plan on the true and on a padded camera count;
+    full-C form, with the plan on the true and on a padded camera count
+    and with wide points;
     the chunked full-C form and the windowed form in batches of one group
     within 1e-12 of the one-shot forms;
   * `run_ba` (cholesky and cg) and `run_ba_outlier_loop` with a window,
@@ -136,11 +137,19 @@ def test_plan_shard_windows_matches_jax(case, D):
 # The assembly
 # --------------------------------------------------------------------------
 
-def _arc(C=48, P=3000, V=4, num_cams=None, seed=0):
+def _arc(C=48, P=3000, V=4, num_cams=None, seed=0, wide=0.0):
     """synthesize()'s arc scene as host arrays, with the plan made on
-    num_cams (default C) cameras under SMALL."""
+    num_cams (default C) cameras under SMALL; a `wide` share of the points
+    also seen C/2 cameras from their first view (its xy repeated), which
+    makes them the plan's wide points."""
     (R, centers, centers_init, pts, pts_init, obs_cam, obs_pt,
      obs_xy) = synthesize(C, P, V, seed=seed)
+    if wide:
+        first = np.unique(obs_pt, return_index=True)[1]
+        far = first[np.random.default_rng(seed).random(len(first)) < wide]
+        obs_cam = np.concatenate([obs_cam, (obs_cam[far] + C // 2) % C])
+        obs_pt = np.concatenate([obs_pt, obs_pt[far]])
+        obs_xy = np.concatenate([obs_xy, obs_xy[far]])
     cam0 = np.zeros((C, 9))
     cam0[:, 0:3] = centers_init
     cam0[:, 6] = FOCAL
@@ -172,17 +181,20 @@ def _random_blocks(host, seed=1):
             rng.normal(size=(P, 3)))
 
 
-@pytest.mark.parametrize("cams", ["true", "padded"])
+@pytest.mark.parametrize("cams", ["true", "padded", "wide"])
 def test_windowed_schur_matches_jax_and_full(cams, monkeypatch):
     """The plan on 48 cameras, or on 56 (the JAX run_sfm plans on padded
-    counts, so a window may reach past the last camera: clipped)."""
+    counts, so a window may reach past the last camera: clipped), or on 48
+    with 5 % of the points wide (the full-C form beside the windows)."""
     import jax.numpy as jnp
     from bundler_sfm_tpu.ops import ba as J
     C = 48
-    host, plan = _arc(C, num_cams=56 if cams == "padded" else None)
+    host, plan = _arc(C, num_cams=56 if cams == "padded" else None,
+                      wide=0.05 if cams == "wide" else 0.0)
     row_of, starts, Wd, G, total = plan
     if cams == "padded":
         assert max(starts) + Wd > C
+    assert (np.sum(row_of >= len(starts) * G) > 0) == (cams == "wide")
     Y, W, gp = _random_blocks(host)
     jp = _jax_problem(host, plan, pad_cams=56 if cams == "padded" else None)
     Cj = jp.cam0.shape[0]
@@ -206,8 +218,9 @@ def test_windowed_schur_matches_jax_and_full(cams, monkeypatch):
     S_full, r_full = T.assemble_schur_off(*args)
     _close(S.numpy(), S_full.numpy(), 1e-12)
     assert torch.equal(r, r_full)
-    # One group a batch; the full-C form in chunks of 5 points.
-    monkeypatch.setattr(T, "SCHUR_TABLE_BYTES", 5 * C * 27 * 8)
+    # One group a batch; the full-C form in chunks of 5 points (the table
+    # holds a spare camera row for padding).
+    monkeypatch.setattr(T, "SCHUR_TABLE_BYTES", 5 * (C + 1) * 27 * 8)
     S1, _ = T.assemble_schur_off(*args, window=Wd, group_pts=G)
     _close(S1.numpy(), S.numpy(), 1e-12)
     S5, _ = T.assemble_schur_off(*args)
