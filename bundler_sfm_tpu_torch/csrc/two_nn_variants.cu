@@ -29,14 +29,15 @@
 //
 // Two designs live here.
 //
-// 1. Warp-specialised (variant_ws_kernel): every oneblock int8 instantiation,
-//    oneblock bf16 at TQ 128, blockmerge and both ablations -- what the probe
-//    path launches.
+// 1. Warp-specialised (variant_ws_kernel): every oneblock instantiation of
+//    both dots, blockmerge and both ablations -- what the probe path
+//    launches.
 //    The machinery of two_nn.cu's int8 kernel (wgmma_ring.cuh), generalised to TQ:
 //    a persistent grid walks (pair, query tile of TQ rows) items; a producer
 //    thread keeps a 4-stage TMA + mbarrier ring of 128-row db tiles
 //    (128-byte swizzle) and their column constants full; two consumer
-//    warpgroups of 64*MT query rows each (MT = TQ/128 m64 tiles) issue
+//    warpgroups of 64*MT query rows each (MT = TQ/128 m64 tiles, of a
+//    CTA's rows in a cluster, below) issue
 //    wgmma m64n128 with B read from the ring stage, so every staged db tile
 //    serves all TQ query rows before it is released.  At TQ 128 each
 //    warpgroup's A fragments stay in registers for the item; at TQ >= 256
@@ -81,6 +82,34 @@
 //    2^21, products of int8 values exact in bf16 and f32); acc_bits turns
 //    one into its int32 value with one FADD, and the first phase adds the
 //    matching offset to the bf16 column constants, so the key is the same.
+//    Oneblock bf16 above 256 rows: a thread-block cluster.  A bf16 query
+//    tile of TQ rows is TQ * 256 B, and at TQ 512 (128 KB) or 1024 (256 KB)
+//    it does not fit beside a 4-stage bf16 ring (4 x 32.5 KB) in one CTA's
+//    227 KB.  So a work item of TQ rows runs on a cluster of TQ/256 CTAs,
+//    each the TQ-256 CTA (two consumer warpgroups of two m64 tiles, its 256
+//    query rows, 64 KB, in shared memory; 199760 B a CTA), CTA r of the
+//    cluster owning rows r*256 ... of the item.  The cluster shares one
+//    ring: the leader (rank 0) issues every db tile and its column
+//    constants with TMA multicast into the same offsets of all its CTAs,
+//    so each staged tile still serves all TQ query rows and is read from
+//    L2 once.  The leader issues all of a stage (two 16 KB boxes and 512 B:
+//    three instructions) rather than a share from each CTA: two boxes do
+//    not split among four CTAs without a second tensor map, and the
+//    leader's empty barrier is then the one place that knows when every
+//    CTA has let a stage go.  The others' producers only arrive with the
+//    stage's bytes expected on their own full barrier, once its previous
+//    phase has completed.  A consumer warp releases a stage with one
+//    remote arrival on the leader's empty barrier (mapa + mbarrier.arrive
+//    .shared::cluster, after __syncwarp), so its count is CL x 8 warps
+//    (2 x 128 threads without a cluster); the leader refills the stage
+//    only when every CTA's consumers have arrived.  Each CTA loads its own
+//    query tile.  Clusters walk the items persistently, as many as
+//    cudaOccupancyMaxActiveClusters says fit; the first phase and the grid
+//    barrier run as for every one-launch kernel, under a launch that is
+//    both cooperative and clustered; a cluster barrier at the start (no
+//    copy or arrival before the barriers are initialised) and at the end
+//    (no CTA leaves while a peer may still arrive on its barriers or copy
+//    into its shared memory).
 //    Blockmerge: TQ = 256, BD = 512.  A 512-row block does not fit in one
 //    key (the column has 8 bits), so the tile-local keys fold into a block
 //    state (e0, i0, e1) over four 128-row tiles, and the block state folds
@@ -102,9 +131,7 @@
 //
 // 2. The first design (variant_kernel, mma.sync), kept as the yardstick:
 //    two_nn_oneblock_mma, two_nn_blockmerge_bf16_mma, two_nn_ablation_mma.
-//    Oneblock bf16 at TQ 256..1024 is launched by no path (a bf16 query tile
-//    of 1024 rows, 256 KB, does not fit beside a ring), so
-//    two_nn_oneblock_mma serves those three.  Its notes follow.
+//    Its notes follow.
 //
 // What TQ means in the first design.  On the TPU, TQ rows of queries meet
 // the whole db in one [TQ, K] f32 score tile in VMEM.  Here no score tile
@@ -508,13 +535,21 @@ constexpr int STAGES = 4;            // ring depth
 template <int TQ, bool BF16_>
 struct Ws {
   static constexpr bool BF16 = BF16_;
-  static constexpr int MT = TQ / 128;           // m64 tiles per consumer warpgroup
+  // CTAs a work item of TQ query rows: the bf16 dot above 256 rows runs on
+  // a cluster of TQ/256 CTAs of 256 rows each sharing one ring (a bf16
+  // query tile of more than 256 rows does not fit beside the ring).
+  static constexpr int CL = BF16 && TQ > 256 ? TQ / 256 : 1;
+  static constexpr int ROWS = TQ / CL;          // query rows per CTA
+  static constexpr int MT = ROWS / 128;         // m64 tiles per consumer warpgroup
   static constexpr bool A_SMEM = TQ > 128;      // else A in registers
   static constexpr int HALVES = BF16 ? 2 : 1;   // 128-byte boxes per table row
   static constexpr int KSTEPS = BF16 ? 8 : 4;   // k16 (bf16) or k32 (int8) steps
   static constexpr int A_REGS = A_SMEM ? 1 : KSTEPS;
   static constexpr int TILE_BYTES = HALVES * BOX_BYTES;          // 128 rows
-  static constexpr int Q_BYTES = A_SMEM ? (TQ / NT) * TILE_BYTES : 0;
+  static constexpr int Q_BYTES = A_SMEM ? (ROWS / NT) * TILE_BYTES : 0;
+  // Arrivals that release a ring stage: every consumer thread of the CTA,
+  // or in a cluster one a consumer warp of every CTA, on the leader's.
+  static constexpr int RELEASES = CL > 1 ? CL * (2 * WG / 32) : 2 * WG;
   static constexpr int SMEM =
       1024 + Q_BYTES + STAGES * (TILE_BYTES + NORM_BYTES) + (2 * STAGES + 2) * 8;
   using Acc = typename std::conditional<BF16, float, int>::type;
@@ -696,6 +731,12 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
   using C = Ws<TQ, BF16>;
   using Acc = typename C::Acc;
   constexpr int MT = C::MT;
+  constexpr int CL = C::CL;
+  // Clusters of CL consecutive blocks walk the items; CTA `rank` of a
+  // cluster owns query rows rank*ROWS ... of each (CL 1: a block an item).
+  const int rank = blockIdx.x % CL;
+  const int first_item = blockIdx.x / CL;
+  const int item_step = gridDim.x / CL;
   static_assert(MODE == TOP2 || (TQ == 128 && !BF16 && !MERGE),
                 "the ablations run at TQ 128 with the int8 dot");
   // Column constants travel with each db tile except for MAX.
@@ -717,35 +758,61 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2 * WG);
+      mbar_init(empty + 8 * s, C::RELEASES);
     }
     mbar_init(qfull, 1);
     mbar_init(qempty, 2 * WG);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (CL > 1)
+    cluster_sync();   // no peer copies into or arrives on a barrier before
+  else                // it is initialised
+    __syncthreads();
 
   if (threadIdx.x >= 2 * WG) {
     // Producer warpgroup: one thread walks every item's tiles.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 2 * WG) {
       int seq = 0, k = 0;
-      for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
+      for (int item = first_item; item < num_items; item += item_step, ++k) {
         const int b = item / q_tiles;
         const int dj = pj[b];
         const int n_tiles =
             MODE == MAX ? K / NT : (counts[dj] + NT - 1) / NT;
         auto load_tile = [&](int n) {
           const int s = seq % STAGES;
-          mbar_wait(empty + 8 * s, ((seq / STAGES) & 1) ^ 1);
-          mbar_expect_tx(full + 8 * s, C::TILE_BYTES + CST_BYTES);
-          for (int h = 0; h < C::HALVES; ++h)
-            tma_load_2d(tiles + s * C::TILE_BYTES + h * BOX_BYTES, &map,
-                        h * (DIM / C::HALVES), dj * K + n * NT, full + 8 * s);
-          if constexpr (MODE != MAX)
-            bulk_load(norm_u + s * NORM_BYTES,
-                      norms + static_cast<long long>(dj) * K + n * NT,
-                      NORM_BYTES, full + 8 * s);
+          const uint32_t prev = ((seq / STAGES) & 1) ^ 1;   // the last phase
+          if constexpr (CL == 1) {
+            mbar_wait(empty + 8 * s, prev);
+            mbar_expect_tx(full + 8 * s, C::TILE_BYTES + CST_BYTES);
+            for (int h = 0; h < C::HALVES; ++h)
+              tma_load_2d(tiles + s * C::TILE_BYTES + h * BOX_BYTES, &map,
+                          h * (DIM / C::HALVES), dj * K + n * NT, full + 8 * s);
+            if constexpr (MODE != MAX)
+              bulk_load(norm_u + s * NORM_BYTES,
+                        norms + static_cast<long long>(dj) * K + n * NT,
+                        NORM_BYTES, full + 8 * s);
+          } else if (rank == 0) {
+            // The leader refills a stage once every CTA's consumers have
+            // let it go, and multicasts the tile and its constants into
+            // every CTA of the cluster.
+            constexpr uint16_t ALL = (1u << CL) - 1;
+            mbar_wait(empty + 8 * s, prev);
+            mbar_expect_tx(full + 8 * s, C::TILE_BYTES + CST_BYTES);
+            for (int h = 0; h < C::HALVES; ++h)
+              tma_load_2d_multicast(tiles + s * C::TILE_BYTES + h * BOX_BYTES,
+                                    &map, h * (DIM / C::HALVES),
+                                    dj * K + n * NT, full + 8 * s, ALL);
+            bulk_load_multicast(norm_u + s * NORM_BYTES,
+                                norms + static_cast<long long>(dj) * K + n * NT,
+                                NORM_BYTES, full + 8 * s, ALL);
+          } else {
+            // The others expect the whole stage on their own full barrier
+            // once its last phase has completed (the leader's bytes may
+            // land before or after this arrival).
+            mbar_wait(full + 8 * s, prev);
+            mbar_expect_tx(full + 8 * s, C::TILE_BYTES + CST_BYTES);
+          }
           ++seq;
         };
         int n = 0;
@@ -755,8 +822,8 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
           for (; n < n_tiles && n < STAGES; ++n) load_tile(n);
           mbar_wait(qempty, (k & 1) ^ 1);
           mbar_expect_tx(qfull, C::Q_BYTES);
-          const int row0 = pi[b] * K + (item % q_tiles) * TQ;
-          for (int rb = 0; rb < TQ / NT; ++rb)
+          const int row0 = pi[b] * K + (item % q_tiles) * TQ + rank * C::ROWS;
+          for (int rb = 0; rb < C::ROWS / NT; ++rb)
             for (int h = 0; h < C::HALVES; ++h)
               tma_load_2d(q_buf + rb * C::TILE_BYTES + h * BOX_BYTES, &map,
                           h * (DIM / C::HALVES), row0 + rb * NT, qfull);
@@ -777,9 +844,9 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0;
     uint32_t a[C::A_REGS][4];
     int seq = 0, k = 0;
-    for (int item = blockIdx.x; item < num_items; item += gridDim.x, ++k) {
+    for (int item = first_item; item < num_items; item += item_step, ++k) {
       const int b = item / q_tiles;
-      const int q0 = (item % q_tiles) * TQ;
+      const int q0 = (item % q_tiles) * TQ + rank * C::ROWS;   // CTA's rows
       const int qi = pi[b];
       const int dj = pj[b];
       const int n_tiles =
@@ -844,7 +911,14 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
           epilogue<LAST>(acc, cst, t, n * NT, e0[mt][0], i0[mt][0], e1[mt][0],
                          e0[mt][1], i0[mt][1], e1[mt][1]);
         }
-        if constexpr (mt == MT - 1) mbar_arrive(empty + 8 * stage_of(n));
+        if constexpr (mt == MT - 1) {
+          if constexpr (CL == 1) {
+            mbar_arrive(empty + 8 * stage_of(n));
+          } else {
+            __syncwarp();   // the warp's reads of the stage are done
+            if (lane == 0) mbar_arrive_cluster(empty + 8 * stage_of(n), 0);
+          }
+        }
       };
       using M0 = std::integral_constant<int, 0>;
       using Body = std::false_type;
@@ -930,6 +1004,9 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
       }
     }
   }
+  // No CTA leaves while a peer may still arrive on its barriers (the
+  // leader's) or copy into its shared memory (the others').
+  if constexpr (CL > 1) cluster_sync();
 }
 
 // The warp-specialised design's pre-pass over the table, eight threads a
@@ -997,6 +1074,17 @@ struct WsArgs {
   cudaStream_t stream;
 };
 
+// The work items an instantiation's grid takes at once: one block an SM
+// (one fits, at 227 KB of shared memory), or with clusters the clusters
+// that can be resident together.  Minus the CUDA error on failure.
+template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
+int resident_ws() {
+  using C = Ws<TQ, BF16>;
+  static std::atomic<int> cache[MAX_DEVICES];
+  return resident_for(variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>, C::SMEM,
+                      C::CL, WS_THREADS, cache);
+}
+
 template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
 int launch_ws(const WsArgs& x) {
   using C = Ws<TQ, BF16>;
@@ -1019,17 +1107,15 @@ int launch_ws(const WsArgs& x) {
   if (!EXT && MODE != MAX &&
       static_cast<long long>(x.n_img) * x.K >= PRE_MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<int> cache[MAX_DEVICES];
-  const int sms = sm_count_for(variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>,
-                               C::SMEM, cache);
-  if (sms < 0) return -sms;
+  const int slots = resident_ws<TQ, BF16, MERGE, MODE, EXT>();
+  if (slots < 0) return -slots;
   const long long items = static_cast<long long>(x.num_pairs) * (x.K / TQ);
-  const int grid = static_cast<int>(items < sms ? items : sms);
-  return launch_kernel(variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>, grid,
-                       WS_THREADS, C::SMEM, x.stream, !EXT && MODE != MAX, map,
-                       static_cast<const int8_t*>(x.table), x.n_img, x.K,
-                       x.counts, x.norms, x.qsq, x.pi, x.pj,
-                       static_cast<int>(items), x.d0, x.i0, x.d1);
+  const int grid = static_cast<int>(items < slots ? items : slots) * C::CL;
+  return launch_kernel_cluster(
+      variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>, grid, C::CL, WS_THREADS,
+      C::SMEM, x.stream, !EXT && MODE != MAX, map,
+      static_cast<const int8_t*>(x.table), x.n_img, x.K, x.counts, x.norms,
+      x.qsq, x.pi, x.pj, static_cast<int>(items), x.d0, x.i0, x.d1);
 }
 
 // The one-launch instantiation, or with two_launch its yardstick; MAX
@@ -1042,6 +1128,38 @@ int launch_ws_any(const WsArgs& x) {
     return launch_ws<TQ, BF16, MERGE, MODE, true>(x);
   else
     return launch_ws<TQ, BF16, MERGE, MODE, false>(x);
+}
+
+template <bool BF16>
+int launch_oneblock_ws(const WsArgs& x, int tq) {
+  switch (tq) {
+    case 128: return launch_ws_any<128, BF16, false>(x);
+    case 256: return launch_ws_any<256, BF16, false>(x);
+    case 512: return launch_ws_any<512, BF16, false>(x);
+    case 1024: return launch_ws_any<1024, BF16, false>(x);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int TQ, bool BF16>
+int layout_ws(int* out) {
+  using C = Ws<TQ, BF16>;
+  const int slots = resident_ws<TQ, BF16, false, TOP2, false>();
+  out[0] = C::CL;
+  out[1] = C::SMEM;
+  out[2] = slots;
+  return slots < 0 ? -slots : 0;
+}
+
+template <bool BF16>
+int layout_oneblock(int tq, int* out) {
+  switch (tq) {
+    case 128: return layout_ws<128, BF16>(out);
+    case 256: return layout_ws<256, BF16>(out);
+    case 512: return layout_ws<512, BF16>(out);
+    case 1024: return layout_ws<1024, BF16>(out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -1072,12 +1190,13 @@ int two_nn_variants_prepass(const void* table, int n_img, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Exact 2-NN on the warp-specialised design: int8 dot at tq in {128, 256,
-// 512, 1024}, bf16 dot at tq 128; K % tq == 0.  norms and qsq int32
-// [n_img, K]: with two_launch != 0 what two_nn_variants_prepass wrote with
-// the same bf16 flag (the yardstick), else scratch the kernel writes them
-// to itself (one launch).  The bf16 dot's ring loads tab16, the table as
-// bf16 (two_nn_variants_prepass with bf16 != 0, norms null or not).
+// Exact 2-NN on the warp-specialised design: int8 or bf16 dot at tq in
+// {128, 256, 512, 1024}, K % tq == 0 (bf16 at 512 and 1024 on clusters of
+// 2 and 4 CTAs).  norms and qsq int32 [n_img, K]: with two_launch != 0
+// what two_nn_variants_prepass wrote with the same bf16 flag (the
+// yardstick), else scratch the kernel writes them to itself (one launch).
+// The bf16 dot's ring loads tab16, the table as bf16
+// (two_nn_variants_prepass with bf16 != 0, norms null or not).
 int two_nn_oneblock(const void* table, const void* tab16, int n_img, int K,
                     const int* counts, int* norms, int* qsq, int two_launch,
                     const int* pi, const int* pj, int num_pairs, int tq,
@@ -1085,17 +1204,17 @@ int two_nn_oneblock(const void* table, const void* tab16, int n_img, int K,
   const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
                  pi, pj, num_pairs, d0, i0, d1,
                  static_cast<cudaStream_t>(stream)};
-  if (bf16) {
-    if (tq == 128) return launch_ws_any<128, true, false>(x);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (tq) {
-    case 128: return launch_ws_any<128, false, false>(x);
-    case 256: return launch_ws_any<256, false, false>(x);
-    case 512: return launch_ws_any<512, false, false>(x);
-    case 1024: return launch_ws_any<1024, false, false>(x);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bf16 ? launch_oneblock_ws<true>(x, tq)
+              : launch_oneblock_ws<false>(x, tq);
+}
+
+// How the one-launch oneblock instantiation at (tq, bf16) is laid out:
+// out[0] CTAs a cluster, out[1] dynamic shared memory a CTA in bytes,
+// out[2] the clusters (CTAs, without clusters) resident at once on the
+// current device.  Returns the CUDA error of the query, or
+// cudaErrorInvalidValue for a tq it does not take.
+int two_nn_oneblock_layout(int tq, int bf16, int* out) {
+  return bf16 ? layout_oneblock<true>(tq, out) : layout_oneblock<false>(tq, out);
 }
 
 // Exact 2-NN, bf16 dot, 256 query rows, 512-row db blocks; K % 512 == 0;

@@ -5,7 +5,9 @@
 // tile with 128-byte swizzle, the m64n128k32 int8 and m64n128k16 bf16
 // wgmma (A in registers or shared memory), the packed-key top-2 fold, and
 // what makes a call one launch: the first phase that writes a table's
-// column constants, a grid-wide barrier, and the cooperative launch.
+// column constants, a grid-wide barrier, and the cooperative launch; and
+// for a ring shared by a thread-block cluster, TMA multicast, remote
+// mbarrier arrivals, the cluster barrier and the cluster launch.
 //
 // Packed keys.  With the per-column constant c = |b|^2 * 256 + (row % 128)
 // (KEY_POISON for a row at or past the count), key = c - 512 (q.b) =
@@ -83,6 +85,51 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       " [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// A ring shared by a cluster: one CTA's copies land at the same offsets of
+// every CTA in `mask` and complete_tx on the barrier at `bar`'s offset in
+// each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      int col, int row,
+                                                      uint32_t bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar),
+      "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// Arrive on the barrier at `bar`'s offset in CTA `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// Every thread of every CTA of the cluster meets here (exited threads
+// excepted); what each did before is visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
@@ -389,30 +436,54 @@ __device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
   __syncthreads();
 }
 
-// The SM count of the current device, with `kernel`'s dynamic shared
-// memory limit raised to `smem` there: queried and set once per device for
+// What a grid of `kernel` can keep resident at once on the current device,
+// with its dynamic shared memory limit raised to `smem` there: the SM count
+// for `cluster` 1, else the clusters of `cluster` blocks of `threads`
+// threads that fit together
+// (cudaOccupancyMaxActiveClusters).  Queried and set once per device for
 // each `cache` (one per kernel instantiation), then read from it.  Returns
 // the count, or minus the CUDA error.
 constexpr int MAX_DEVICES = 64;
 
 template <class Kernel>
-inline int sm_count_for(Kernel kernel, int smem,
+inline int resident_for(Kernel kernel, int smem, int cluster, int threads,
                         std::atomic<int> (&cache)[MAX_DEVICES]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (dev < MAX_DEVICES) {
-    const int sms = cache[dev].load(std::memory_order_relaxed);
-    if (sms > 0) return sms;
+    const int n = cache[dev].load(std::memory_order_relaxed);
+    if (n > 0) return n;
   }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
-  int sms = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int n = 0;
+  if (err == cudaSuccess && cluster == 1) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  } else if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err == cudaSuccess && n <= 0) err = cudaErrorInvalidConfiguration;
+  }
   if (err != cudaSuccess) return -static_cast<int>(err);
-  if (dev < MAX_DEVICES) cache[dev].store(sms, std::memory_order_relaxed);
-  return sms;
+  if (dev < MAX_DEVICES) cache[dev].store(n, std::memory_order_relaxed);
+  return n;
+}
+
+template <class Kernel>
+inline int sm_count_for(Kernel kernel, int smem,
+                        std::atomic<int> (&cache)[MAX_DEVICES]) {
+  return resident_for(kernel, smem, 1, 0, cache);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -462,25 +533,48 @@ inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type,
 // Launch `kernel` on `grid` blocks of `threads` threads with `smem` bytes
 // of dynamic shared memory; with `cooperative`, as a cooperative launch
 // (every block resident at once, which grid_barrier needs: the runtime
-// refuses a grid that cannot be).  Returns the launch's CUDA error.
+// refuses a grid that cannot be); with `cluster` > 1, in thread-block
+// clusters of that many consecutive blocks (grid a multiple of it).
+// Returns the launch's CUDA error.
 template <class... Params, class... Args>
-inline int launch_kernel(void (*kernel)(Params...), int grid, int threads,
-                         int smem, cudaStream_t stream, bool cooperative,
-                         Args&&... args) {
+inline int launch_kernel_cluster(void (*kernel)(Params...), int grid,
+                                 int cluster, int threads, int smem,
+                                 cudaStream_t stream, bool cooperative,
+                                 Args&&... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = cooperative ? 1 : 0;
+  cudaLaunchAttribute attrs[2];
+  int n = 0;
+  if (cooperative) {
+    attrs[n].id = cudaLaunchAttributeCooperative;
+    attrs[n].val.cooperative = 1;
+    ++n;
+  }
+  if (cluster > 1) {
+    attrs[n].id = cudaLaunchAttributeClusterDimension;
+    attrs[n].val.clusterDim.x = cluster;
+    attrs[n].val.clusterDim.y = 1;
+    attrs[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  cfg.attrs = attrs;
+  cfg.numAttrs = n;
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// launch_kernel_cluster without clusters.
+template <class... Params, class... Args>
+inline int launch_kernel(void (*kernel)(Params...), int grid, int threads,
+                         int smem, cudaStream_t stream, bool cooperative,
+                         Args&&... args) {
+  return launch_kernel_cluster(kernel, grid, 1, threads, smem, stream,
+                               cooperative, std::forward<Args>(args)...);
 }
 
 }  // namespace wsk

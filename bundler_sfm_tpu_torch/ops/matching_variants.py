@@ -23,12 +23,13 @@ Outputs d0 f32, i0 int32, d1 f32, each [B, K].  The arithmetic is exact
 (half-integers below 2²³), so the exact variants are bit-identical to
 `matching_cuda.two_nn_pairs(table, table, counts, pi, pj)`.
 
-Two kernel designs (see the source note).  `two_nn_oneblock` (int8 at every
-tq, bf16 at tq 128), `two_nn_blockmerge_bf16` and `two_nn_ablation` run the
-warp-specialised `wgmma` design: one launch of a persistent kernel whose
-first phase writes the table's column constants and |q|² (scratch
-allocated with the outputs; the grid then meets at a barrier), then a TMA
-ring of db tiles and a packed-key top-2 (top-1 for "top1", one max a score
+Two kernel designs (see the source note).  `two_nn_oneblock` (both dots at
+every tq; bf16 at tq 512 and 1024 on thread-block clusters of 2 and 4 CTAs
+sharing one ring by TMA multicast), `two_nn_blockmerge_bf16` and
+`two_nn_ablation` run the warp-specialised `wgmma` design: one launch of a
+persistent kernel whose first phase writes the table's column constants
+and |q|² (scratch allocated with the outputs; the grid then meets at a
+barrier), then a TMA ring of db tiles and a packed-key top-2 (top-1 for "top1", one max a score
 and no constants for "matmul_max").  The bf16 dot reads a bf16 copy of the
 table (TMA cannot convert): `bf16_table` makes it, once per table when the
 caller passes it in (`table16=`), else once per call.  Yardsticks, for comparison only: the two-launch form of each
@@ -37,8 +38,9 @@ caller passes it in (`table16=`), else once per call.  Yardsticks, for compariso
 pre-pass kernel `variants_prepass`, then the kernel reading its constants
 and |q|²), and the first design's `mma.sync` kernels
 (`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`,
-`two_nn_ablation_mma`), which also serve `two_nn_oneblock` at bf16 tq
-256–1024 (launched by no path).
+`two_nn_ablation_mma`).  `oneblock_layout` says how a oneblock
+instantiation is laid out on the card (CTAs a cluster, shared memory a
+CTA, clusters resident at once).
 
 For CPU tensors a wrapper runs its plain PyTorch version (the query tile,
 the dot type and the design do not change the result); for CUDA tensors it
@@ -70,12 +72,12 @@ ABLATION_TQ = 128
 F32_MAGIC_BIAS = 0x80000000
 
 # Kernel launches, one count per kernel instantiation the wrappers reach:
-# the probe's variants (`wgmma` design where it serves them), the pre-pass
-# kernel (the bf16 table, and the yardsticks' first launch), the
-# two-launch yardsticks and the first design's `mma.sync` yardsticks.
-TWO_LAUNCH = ([f"two_nn_oneblock_two_launch_int8_{tq}" for tq in ONEBLOCK_TILES]
-              + ["two_nn_oneblock_two_launch_bf16_128",
-                 "two_nn_blockmerge_bf16_two_launch",
+# the probe's variants (the `wgmma` design), the pre-pass kernel (the
+# bf16 table, and the yardsticks' first launch), the two-launch
+# yardsticks and the first design's `mma.sync` yardsticks.
+TWO_LAUNCH = ([f"two_nn_oneblock_two_launch_{d}_{tq}" for d in DOTS
+               for tq in ONEBLOCK_TILES]
+              + ["two_nn_blockmerge_bf16_two_launch",
                  "two_nn_ablation_two_launch_top1"])
 LAUNCHES = {**{f"two_nn_oneblock_{d}_{tq}": 0 for d in DOTS
                for tq in ONEBLOCK_TILES},
@@ -109,7 +111,8 @@ def _load():
                 ("two_nn_oneblock_mma", head + [i, i] + tail),
                 ("two_nn_blockmerge_bf16_mma", head + tail),
                 ("two_nn_ablation_mma", head + [i] + tail),
-                ("two_nn_variants_prepass", [p, i, i, p, i, p, p, p, p])):
+                ("two_nn_variants_prepass", [p, i, i, p, i, p, p, p, p]),
+                ("two_nn_oneblock_layout", [i, i, p])):
             fn = getattr(lib, name)
             fn.restype = i
             fn.argtypes = args
@@ -402,15 +405,14 @@ def two_nn_oneblock(table: torch.Tensor, counts: torch.Tensor,
     """Exact 2-NN with a one-pass top-2 over each score row; tq query rows
     share each staged db tile (K % tq == 0); dot "int8" or "bf16".  On the
     `wgmma` design, one launch (bf16: `table16` = `bf16_table(table)`, made
-    here if not given), except bf16 at tq > 128 (the `mma.sync` design)."""
+    here if not given)."""
     _oneblock_args(tq, dot)
     bf16 = dot == "bf16"
-    launch = (_mma_launch("two_nn_oneblock_mma", tq, 1) if bf16 and tq > 128
-              else _ws_launch("two_nn_oneblock", bf16, tq, int(bf16),
-                              table16=table16))
     return _run("two_nn_oneblock", f"two_nn_oneblock_{dot}_{tq}",
-                lambda: oneblock_plain(table, counts, pi, pj), launch,
-                table, counts, pi, pj, tq, 0 if bf16 and tq > 128 else 2)
+                lambda: oneblock_plain(table, counts, pi, pj),
+                _ws_launch("two_nn_oneblock", bf16, tq, int(bf16),
+                           table16=table16),
+                table, counts, pi, pj, tq, 2)
 
 
 def two_nn_oneblock_two_launch(table: torch.Tensor, counts: torch.Tensor,
@@ -418,18 +420,27 @@ def two_nn_oneblock_two_launch(table: torch.Tensor, counts: torch.Tensor,
                                tq: int = 128, dot: str = "int8") -> Outputs:
     """`two_nn_oneblock` on the `wgmma` design in its two-launch form (the
     pre-pass, then the kernel reading its constants and |q|²), for timing
-    and checks beside the one-launch kernel; int8 at every tq, bf16 at
-    tq 128."""
+    and checks beside the one-launch kernel."""
     _oneblock_args(tq, dot)
-    if dot == "bf16" and tq > 128:
-        raise ValueError("two_nn_oneblock_two_launch: bf16 runs on the "
-                         "`wgmma` design at tq 128 only")
     return _run("two_nn_oneblock_two_launch",
                 f"two_nn_oneblock_two_launch_{dot}_{tq}",
                 lambda: oneblock_plain(table, counts, pi, pj),
                 _ws_launch("two_nn_oneblock", dot == "bf16", tq,
                            int(dot == "bf16"), two_launch=True),
                 table, counts, pi, pj, tq)
+
+
+def oneblock_layout(tq: int, dot: str) -> dict:
+    """How the one-launch `two_nn_oneblock` instantiation at (tq, dot) runs
+    on the current CUDA device: {"cluster": CTAs a work item, "smem":
+    dynamic shared memory a CTA in bytes, "resident": clusters (CTAs, for a
+    cluster of one) resident at once}."""
+    _oneblock_args(tq, dot)
+    out = (ctypes.c_int * 3)()
+    err = _load().two_nn_oneblock_layout(tq, int(dot == "bf16"), out)
+    if err != 0:
+        raise RuntimeError(f"two_nn_oneblock_layout failed: CUDA error {err}")
+    return dict(zip(("cluster", "smem", "resident"), out))
 
 
 def two_nn_blockmerge_bf16(table: torch.Tensor, counts: torch.Tensor,

@@ -7,7 +7,7 @@ Phases (any failure raises, so the exit code is non-zero):
                parallel; check that ptxas reports no spills for the
                wgmma kernels (two_nn.cu's int8 four: one-launch and
                two-launch, 2-NN and product-only; its f32 two;
-               two_nn_variants.cu's fifteen: eight one-launch, seven
+               two_nn_variants.cu's twenty-one: eleven one-launch, ten
                two-launch), serialises no wgmma and drops no setmaxnreg.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
                on the card: the int8 2-NN (`wgmma`, one launch), its
@@ -85,10 +85,13 @@ Phases (any failure raises, so the exit code is non-zero):
                two-launch forms `_two_launch` and its `mma.sync` twins
                `_mma`; both ablation modes included) bit-exact against its
                plain version and each one-launch kernel against its
-               two-launch form, and the pre-pass kernel and bf16_table
-               against their own, at the probe's shape (276 pairs x 2048
-               keys), at ragged counts, on ties and with garbage rows past
-               the counts; run the probe entry point
+               two-launch form, its twin and (the exact ones) two_nn_pairs,
+               logging the cluster size, shared memory a CTA and resident
+               clusters of bf16 oneblock at tq 256-1024 (clusters of 2 and
+               4 CTAs at 512 and 1024), and the pre-pass kernel and
+               bf16_table against their own, at the probe's shape (276
+               pairs x 2048 keys), at ragged counts, on ties and with
+               garbage rows past the counts; run the probe entry point
                (`probes/probe_two_nn_variants.py`) with the launch counts
                zeroed, check every exact variant IDENTICAL to two_nn,
                every kernel launched once per probe call, no yardstick ran
@@ -627,11 +630,11 @@ def phase_build():
     # ptxas prints each kernel's spills under "Function properties for":
     # the wgmma kernels of two_nn.cu (int8 2-NN and product-only, each
     # folded and two-launch; f32 2-NN and product-only) and of
-    # two_nn_variants.cu (8 folded instantiations, 7 two-launch ones),
+    # two_nn_variants.cu (11 folded instantiations, 10 two-launch ones),
     # none of which may spill or have its wgmma serialised.
     out = buf.getvalue()
     for kernel, n in (("two_nn_ws_kernel", 4), ("two_nn_f32_ws_kernel", 2),
-                      ("variant_ws_kernel", 15)):
+                      ("variant_ws_kernel", 21)):
         spills = re.findall(rf"Function properties for \S*{kernel}\S*\n"
                             r"\s*(.*)\n", out)
         check(len(spills) == n and all(
@@ -1811,8 +1814,7 @@ def variant_kernels(table16=None):
     """{counter: wrapper} of every variant kernel: the oneblock tiles and
     dots, blockmerge, the ablations, their two-launch yardsticks
     (`_two_launch`) and the first design's `mma.sync` yardsticks (`_mma`).
-    Oneblock bf16 at tq > 128 runs the `mma.sync` design under either
-    name.  The one-launch bf16 kernels read `table16` when it is given."""
+    The one-launch bf16 kernels read `table16` when it is given."""
     V = matching_variants
     t16 = {"table16": table16}
     out = {}
@@ -1824,10 +1826,9 @@ def variant_kernels(table16=None):
                 out[f"two_nn_oneblock_{mid}{dot}_{tq}"] = (
                     lambda f, t, d, k: lambda *a: f(*a, tq=t, dot=d, **k))(
                         fn, tq, dot, kw)
-            if dot == "int8" or tq == 128:
-                out[f"two_nn_oneblock_two_launch_{dot}_{tq}"] = (
-                    lambda t, d: lambda *a: V.two_nn_oneblock_two_launch(
-                        *a, tq=t, dot=d))(tq, dot)
+            out[f"two_nn_oneblock_two_launch_{dot}_{tq}"] = (
+                lambda t, d: lambda *a: V.two_nn_oneblock_two_launch(
+                    *a, tq=t, dot=d))(tq, dot)
     out["two_nn_blockmerge_bf16"] = lambda *a: V.two_nn_blockmerge_bf16(
         *a, **t16)
     out["two_nn_blockmerge_bf16_two_launch"] = \
@@ -1841,10 +1842,13 @@ def variant_kernels(table16=None):
     return out
 
 
-# The instantiations on the `wgmma` design, by counter.
+# The instantiations on the `wgmma` design, by counter; the last three (bf16
+# oneblock above 128 rows; clusters at 512 and 1024) are on no path.
+UNPATHED = [f"two_nn_oneblock_bf16_{tq}" for tq in (256, 512, 1024)]
 WGMMA_VARIANTS = ([f"two_nn_oneblock_int8_{tq}" for tq in (128, 256, 512, 1024)]
                   + ["two_nn_oneblock_bf16_128", "two_nn_blockmerge_bf16",
-                     "two_nn_ablation_matmul_max", "two_nn_ablation_top1"])
+                     "two_nn_ablation_matmul_max", "two_nn_ablation_top1"]
+                  + UNPATHED)
 
 
 def two_launch_twin(kernel):
@@ -2086,8 +2090,7 @@ def split_variant_calls(rows, kinds, tab, counts, pi, pj, calls=10):
 def time_variant(kernel, fn, kinds, tab, counts, pi, pj, bound, ops):
     """A variant kernel at the timing shape, by CUDA events around 10
     back-to-back calls: in turns with its two-launch form where it has one
-    and its `mma.sync` twin (one, two, mma, mma, two, one; for oneblock
-    bf16 at tq > 128 the one and the twin are both the `mma.sync` kernel);
+    and its `mma.sync` twin (one, two, mma, mma, two, one);
     the plain version and the library yardstick; logged with the shares of
     the int8 (and bf16) bound."""
     bf16 = "bf16" in kernel
@@ -2136,8 +2139,17 @@ def phase_variants():
               "garbage": _garbage_table(rng)}
     # Every kernel and mode of both designs and every two-launch form,
     # bit-exact on every table; each one-launch kernel also identical to
-    # its two-launch form.  The bf16 kernels read the table's bf16 copy,
-    # made once per table as the probe makes it.
+    # its two-launch form and its `mma.sync` twin, and each exact one to
+    # two_nn_pairs.  The bf16 kernels read the table's bf16 copy, made once
+    # per table as the probe makes it.
+    for kernel in UNPATHED:
+        tq = int(kernel.rsplit("_", 1)[1])
+        lay = V.oneblock_layout(tq, "bf16")
+        log(f"[variants] {kernel}: {lay['cluster']} CTA(s) a cluster, "
+            f"{lay['smem']} B of shared memory a CTA, {lay['resident']} "
+            f"cluster(s) resident")
+        check(lay["cluster"] == max(1, tq // 256) and lay["resident"] > 0,
+              f"{kernel} layout {lay}")
     errs = {}
     for label, (tab, counts) in shapes.items():
         n = tab.shape[0]
@@ -2156,14 +2168,21 @@ def phase_variants():
             errs[kernel] = max(errs.get(kernel, 0.0), compare_outputs(
                 outs[kernel], plain[key], f"[variants] {kernel} {label}: "
                 f"{len(pi)} pairs x {tab.shape[1]} keys"))
+        pairs_out = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
         for kernel in WGMMA_VARIANTS:
-            twin = two_launch_twin(kernel)
-            if twin is not None:
+            for twin, what in ((two_launch_twin(kernel), "two-launch form"),
+                               (mma_twin(kernel), "mma.sync twin")):
+                if twin is not None:
+                    check(all(torch.equal(a, b) for a, b in zip(
+                        outs[kernel], outs[twin])), f"{kernel} differs from "
+                        f"its {what}: {label}")
+            if "ablation" not in kernel:
                 check(all(torch.equal(a, b) for a, b in zip(
-                    outs[kernel], outs[twin])), f"{kernel} differs from its "
-                    f"two-launch form: {label}")
+                    outs[kernel], pairs_out)), f"{kernel} differs from "
+                    f"two_nn_pairs: {label}")
         log(f"[variants] {label}: every one-launch kernel identical to its "
-            f"two-launch form")
+            f"two-launch form and its mma.sync twin, every exact one to "
+            f"two_nn_pairs")
     check(len(errs) == len(kinds), f"compared {sorted(errs)}")
 
     # The probe path through its command-line entry point, with every
@@ -2229,10 +2248,15 @@ def phase_variants():
                         "launches": launches[v.kernel],
                         "max_abs_err": errs[v.kernel], "bound_ms": bound,
                         "bound_by": by, **t, **splits.get(v.kernel, {})})
-    # Oneblock bf16 at tq > 128: no path launches them; timed for the record.
-    for tq in V.ONEBLOCK_TILES[1:]:
-        k = f"two_nn_oneblock_bf16_{tq}"
-        time_variant(k, kinds[k], kinds, tab, counts, pi, pj, bound, ops)
+    # Oneblock bf16 above 128 rows: no path launches them; timed for the
+    # record beside their two-launch forms and mma.sync twins.
+    for k in UNPATHED:
+        compare_variant(k, kinds[k], tab, counts, pi, pj, "2208 pairs")
+        t = time_variant(k, kinds[k], kinds, tab, counts, pi, pj, bound, ops)
+        records.append({"name": k, "route": "cuda", "source": VARIANTS_SOURCE,
+                        "replaces": _replaces(k), "launches": launches[k],
+                        "max_abs_err": errs[k], "bound_ms": bound,
+                        "bound_by": by, **t})
     # The pre-pass kernel: the two-launch forms' first launch, and the
     # bf16 table the probe makes once.
     pb, pby = prepass_bound_ms(tab, True)

@@ -326,20 +326,18 @@ VARIANTS = ([("oneblock", dict(tq=tq, dot=dot)) for dot in MV.DOTS
              for tq in MV.ONEBLOCK_TILES]
             + [("blockmerge", {})]
             + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES]
-            + [("oneblock_two_launch", dict(tq=tq, dot="int8"))
-               for tq in MV.ONEBLOCK_TILES]
-            + [("oneblock_two_launch", dict(tq=128, dot="bf16")),
-               ("blockmerge_two_launch", {}),
+            + [("oneblock_two_launch", dict(tq=tq, dot=dot))
+               for dot in MV.DOTS for tq in MV.ONEBLOCK_TILES]
+            + [("blockmerge_two_launch", {}),
                ("ablation_two_launch", dict(mode="top1"))]
             + [("oneblock_mma", dict(tq=tq, dot=dot)) for dot in MV.DOTS
                for tq in MV.ONEBLOCK_TILES]
             + [("blockmerge_mma", {})]
             + [("ablation_mma", dict(mode=m)) for m in MV.ABLATION_MODES])
 # The instantiations on the `wgmma` design, and their `mma.sync` twins.
-WGMMA = ([(dict(tq=tq, dot="int8"), f"two_nn_oneblock_int8_{tq}")
-          for tq in MV.ONEBLOCK_TILES]
-         + [(dict(tq=128, dot="bf16"), "two_nn_oneblock_bf16_128"),
-            (None, "two_nn_blockmerge_bf16")]
+WGMMA = ([(dict(tq=tq, dot=dot), f"two_nn_oneblock_{dot}_{tq}")
+          for dot in MV.DOTS for tq in MV.ONEBLOCK_TILES]
+         + [(None, "two_nn_blockmerge_bf16")]
          + [(dict(mode=m), f"two_nn_ablation_{m}")
             for m in MV.ABLATION_MODES])
 
@@ -472,6 +470,18 @@ def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
         assert moved == {"two_nn_variants_prepass": 1, two_counter: 1}
     if counter != "two_nn_ablation_matmul_max":
         assert not got[1][pj == 5].any()            # no valid db row: i0 = 0
+
+
+@pytest.mark.parametrize("dot", MV.DOTS)
+def test_oneblock_layout(cuda, dot):
+    """One CTA a work item but for the bf16 dot above 256 rows, which runs
+    on clusters of tq/256 CTAs of 256 query rows; every layout fits one
+    CTA's 227 KB of shared memory and has at least one cluster resident."""
+    for tq in MV.ONEBLOCK_TILES:
+        lay = MV.oneblock_layout(tq, dot)
+        assert lay["cluster"] == (tq // 256 if dot == "bf16" and tq > 256
+                                  else 1)
+        assert 0 < lay["smem"] <= 232448 and lay["resident"] > 0
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])

@@ -11,9 +11,12 @@ row % 128 (KEY_POISON at or past the count) and every row |q|²; with the
 bf16 dot, c also carries F32_MAGIC_BIAS and the accumulator, an f32 sum of
 bf16 products, becomes an int32 by reading acc + 1.5·2²³ as an int32
 (acc + 0x4B400000).  key = c − 512·acc wraps to (|b|² − 2q·b)·256 + column.
-Work items are tq query rows; each of two consumer warpgroups owns tq/128
-m64 tiles, whose rows come from the query tile in shared memory (tq ≥ 256)
-or from registers (tq 128).  Every thread folds its two columns of each
+Work items are tq query rows; with the bf16 dot above 256 rows an item runs
+on a cluster of tq/256 CTAs, CTA r owning rows r·256 ... of it and all of
+them folding the same db tiles in the same order (one ring, multicast).
+Each of a CTA's two consumer warpgroups owns rows/128 m64 tiles of its
+rows, which come from the query tile in shared memory (tq ≥ 256) or from
+registers (tq 128).  Every thread folds its two columns of each
 8-column group of a 128-column db tile into a tile-local top-2 of keys and
 merges it into a running (e0, i0, e1), the running entry winning ties; with
 blockmerge the tiles merge into a 512-row block state that folds into the
@@ -108,25 +111,35 @@ def _pair_state(keys, count, merge):
     return e0[:, 0], i0[:, 0], e1[:, 0]
 
 
+def cluster_size(tq, bf16):
+    """CTAs a work item (`Ws::CL`): the bf16 dot's query tile above 256
+    rows does not fit beside the ring in one CTA."""
+    return tq // 256 if bf16 and tq > 256 else 1
+
+
 def _a_rows(tq, bf16):
-    """Query-tile rows of each (warpgroup, m-tile) as the kernel addresses
-    them: registers at tq 128 (warpgroup wg holds rows 64·wg...), else the
-    m64 tile of a shared-memory descriptor at byte offset (gm // 2)·TILE +
-    (gm % 2)·8192 in 128-row boxes of 128-byte rows (two boxes a row block
-    for bf16)."""
-    mt_per_wg = tq // 128
+    """Item rows of each (cluster rank, warpgroup, m-tile) as the kernel
+    addresses them: CTA r's query tile holds item rows r·rows ... (rows =
+    tq / cluster size); inside it registers at tq 128 (warpgroup wg holds
+    rows 64·wg...), else the m64 tile of a shared-memory descriptor at
+    byte offset (gm // 2)·TILE + (gm % 2)·8192 in 128-row boxes of
+    128-byte rows (two boxes a row block for bf16)."""
+    cl = cluster_size(tq, bf16)
+    cta_rows = tq // cl
+    mt_per_wg = cta_rows // 128
     box = 128 * NT
     tile = (2 if bf16 else 1) * box
     rows = {}
-    for wg in range(2):
-        for mt in range(mt_per_wg):
-            gm = wg * mt_per_wg + mt
-            if tq == 128:
-                first = wg * 64
-            else:
-                off = (gm // 2) * tile + (gm % 2) * 8192
-                first = (off // tile) * NT + (off % box) // 128
-            rows[(wg, mt)] = first
+    for r in range(cl):
+        for wg in range(2):
+            for mt in range(mt_per_wg):
+                gm = wg * mt_per_wg + mt
+                if tq == 128:
+                    first = wg * 64
+                else:
+                    off = (gm // 2) * tile + (gm % 2) * 8192
+                    first = (off // tile) * NT + (off % box) // 128
+                rows[(r, wg, mt)] = r * cta_rows + first
     return rows
 
 
@@ -175,12 +188,14 @@ def emulate(table, counts, pi, pj, tq, dot, merge=False):
             key[:, cols] = torch.where(valid[:, cols], key[:, cols],
                                        torch.tensor(KEY_POISON))
         e0, i0, e1 = _pair_state(key, count, merge)
+        cta_rows = tq // cluster_size(tq, bf16)
         for q0 in range(0, K, tq):
-            for (wg, mt), first in a_rows.items():
+            for (r, wg, mt), first in a_rows.items():
                 for warp in range(4):
                     for g in range(8):
                         for h in range(2):
-                            out_row = q0 + (wg * (tq // 128) + mt) * 64 \
+                            out_row = q0 + r * cta_rows \
+                                + (wg * (cta_rows // 128) + mt) * 64 \
                                 + warp * 16 + g + 8 * h
                             a_row = q0 + first + warp * 16 + g + 8 * h
                             assert a_row == out_row
@@ -273,8 +288,9 @@ TABLES = {"ragged": (1024, [1024, 1023, 65, 1, 0]),
           "tiles": (1024, [513, 512, 129, 128, 1000])}
 PAIRS = [(0, 0), (0, 1), (1, 0), (2, 0), (0, 2), (3, 3), (2, 4), (4, 3),
          (1, 1), (3, 0)]
-INSTANTIATIONS = ([(tq, "int8", False) for tq in V.ONEBLOCK_TILES]
-                  + [(128, "bf16", False), (V.BLOCKMERGE_TQ, "bf16", True)])
+INSTANTIATIONS = ([(tq, dot, False) for dot in V.DOTS
+                   for tq in V.ONEBLOCK_TILES]
+                  + [(V.BLOCKMERGE_TQ, "bf16", True)])
 
 
 def _ids(inst):
