@@ -183,6 +183,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2233,8 +2234,9 @@ def phase_variants():
                        "probe shape (base), 2208 pairs x 2048^2")
     split_two_nn(tab, counts, pi, pj, base, shapes["ragged"])
     split_two_nn_call(tab, counts, pi, pj, "probe shape 2208 pairs x 2048^2")
-    splits, pre_dev, pre_host = split_variant_calls(rows, kinds, tab, counts,
-                                                    pi, pj)
+    splits, pre_dev, pre_host = split_variant_calls(
+        rows + [types.SimpleNamespace(kernel=k, fn=kinds[k])
+                for k in UNPATHED], kinds, tab, counts, pi, pj)
     records = []
     for v in rows:
         compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")
@@ -2256,7 +2258,7 @@ def phase_variants():
         records.append({"name": k, "route": "cuda", "source": VARIANTS_SOURCE,
                         "replaces": _replaces(k), "launches": launches[k],
                         "max_abs_err": errs[k], "bound_ms": bound,
-                        "bound_by": by, **t})
+                        "bound_by": by, **t, **splits[k]})
     # The pre-pass kernel: the two-launch forms' first launch, and the
     # bf16 table the probe makes once.
     pb, pby = prepass_bound_ms(tab, True)
