@@ -165,6 +165,19 @@ Phases (any failure raises, so the exit code is non-zero):
                within 1e-10 relative; window, groups, wide points,
                iterations, ms an iteration, BA seconds and peak memory
                printed as "[ba_scale]" lines.
+ 10. bench — the port's two benchmark programs, each with the launch
+               counts zeroed just before: (a) `python -m
+               bundler_sfm_tpu_torch.bench` at its default shape (64
+               images x 2048 keys, all 2016 pairs; BA legs 8 x 2048, 64 x
+               8192 and the sparse 64 x 16384, f64): its line's keys,
+               its rates finite and positive, kernel_mfu and the BA MFUs
+               in (0, 1], the three timed rotations' match counts equal,
+               24 launches of two_nn and none of any other kernel; (b)
+               `probes/e2e_synthetic` at its default (32 images x 2048
+               keys, keys to bundle.out under build/smoke/e2e/): at least
+               as many cameras as the JAX package registers on the CPU,
+               mean reprojection < 1 px, ate_rel < 0.02, one two_nn launch
+               and none of any other kernel; lines "[bench]" and "[e2e]".
 `--phases build,kernels,variants` (any subset, in this order) runs only
 those phases, checks what they check and prints no result line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -178,6 +191,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -192,6 +206,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from bundler_sfm_tpu_torch import bench  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_cuda  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_variants  # noqa: E402
 from bundler_sfm_tpu_torch.ops.matching import DescriptorTable  # noqa: E402
@@ -226,18 +241,6 @@ def zero_launches():
     for counts in (matching_cuda.LAUNCHES, matching_variants.LAUNCHES):
         for k in counts:
             counts[k] = 0
-
-
-def make_descriptors(rng, n_images, keys_per_image):
-    """SIFT-like descriptors: shared cluster structure + per-view jitter, so
-    the ratio test passes at a realistic rate (bench.py's generator)."""
-    base = rng.integers(0, 256, (keys_per_image, 128)).astype(np.int32)
-    descs = []
-    for _ in range(n_images):
-        jit = rng.integers(-6, 7, base.shape)
-        d = np.clip(base + jit, 0, 255).astype(np.uint8)
-        descs.append(d[rng.permutation(keys_per_image)])
-    return descs
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -656,7 +659,8 @@ def phase_build():
 def phase_kernels():
     rng = np.random.default_rng(0)
     # (a) bench shape: 64 images x 2048 keys, all 2016 pairs.
-    table = DescriptorTable(make_descriptors(rng, 64, 2048), device="cuda")
+    table = DescriptorTable(bench.make_descriptors(rng, 64, 2048),
+                            device="cuda")
     pi, pj = pair_tensors(all_pairs(64))
     compare_two_nn(table.table, table.counts, pi, pj, "(a) bench")
     time_two_nn(table.table, table.counts, pi, pj, 20,
@@ -667,8 +671,8 @@ def phase_kernels():
                       "(a) bench 2016 pairs x 2048^2")
     # The main path's shape on bench.py's generator: 24 images x 4096 keys,
     # all 276 pairs (phase 3 repeats it on the main path's descriptors).
-    main = DescriptorTable(make_descriptors(np.random.default_rng(24), 24,
-                                            4096), device="cuda")
+    main = DescriptorTable(bench.make_descriptors(
+        np.random.default_rng(24), 24, 4096), device="cuda")
     split_two_nn_call(main.table, main.counts, *pair_tensors(all_pairs(24)),
                       "main-path shape 276 pairs x 4096^2 (generated)")
     # (b) 8 images x 4096 keys, ragged counts (incl. 1 key and none).
@@ -732,7 +736,8 @@ def phase_kernels():
         got = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
         check(not got[1][pj >= 4].any(), "i0 != 0 for a db with no row")
     # (f) the f32 kernel at the bench shape: integer-valued f32 descriptors.
-    descs = [d.astype(np.float32) for d in make_descriptors(rng, 64, 2048)]
+    descs = [d.astype(np.float32)
+             for d in bench.make_descriptors(rng, 64, 2048)]
     table = DescriptorTable(descs, device="cuda")
     pi, pj = pair_tensors(all_pairs(64))
     err32 = max(err32, compare_two_nn(table.table, table.counts, pi, pj,
@@ -3113,8 +3118,110 @@ def phase_ba_scale(cams=(256, 512)):
     return records, launches, failures
 
 
+# Cameras the JAX package registers on the CPU (f64) from
+# probes/e2e_synthetic.py's default collection (32 images x 2048 keys,
+# seed 0): `benchmarks/e2e_synthetic.py 32 2048 --skip_reference` under
+# JAX_PLATFORMS=cpu (PERF.md section 5); the port must register as many.
+E2E_JAX_CPU_CAMERAS = 32
+# bench.main's line: the JAX bench's keys that apply (bench.py:311-355,
+# tpu_seconds / tpu_matches renamed), what the port adds, and the rates.
+BENCH_KEYS = ("platform", "device", "num_pairs", "keys_per_image",
+              "match_seconds", "matches", "kernel_pairs_per_s",
+              "kernel_tflops", "kernel_mfu", "cpu_kdtree_pairs_per_s",
+              "vs_cpu_kdtree", "ba_obs_iters_per_s",
+              "ba_seconds_per_lm_iter", "ba_mfu", "ba64_obs_iters_per_s",
+              "ba64_seconds_per_lm_iter", "ba64_mfu",
+              "ba_sparse_single_obs_iters_per_s",
+              "ba_sparse_single_occupancy", "launches", "matches_runs")
+BENCH_RATES = ("kernel_pairs_per_s", "ba_obs_iters_per_s",
+               "ba64_obs_iters_per_s", "ba_sparse_single_obs_iters_per_s",
+               "cpu_kdtree_pairs_per_s")
+BENCH_MFUS = ("kernel_mfu", "ba_mfu", "ba64_mfu")
+
+
+def phase_bench():
+    """Phase 10: the port's two benchmark programs on the card, each with
+    the launch counts zeroed just before: (a) `bench.main` at its default
+    shape (64 images x 2048 keys, 2016 pairs; BA legs 8 x 2048, 64 x 8192
+    and the sparse 64 x 16384): the line's keys, value and rates finite
+    and positive, the MFUs in (0, 1], the three timed rotations' match
+    counts equal, 24 launches of two_nn (the matcher leg's 4 calls x 2
+    batches of <= 1024 pairs, the kernel leg's 16 one-launch calls) and
+    none of any other kernel; (b) `probes/e2e_synthetic` at its default
+    (32 images x 2048 keys): at least E2E_JAX_CPU_CAMERAS cameras, mean
+    reprojection < 1 px, ate_rel < 0.02, one two_nn launch (496 pairs,
+    one batch) and none of any other kernel.  The kernel is held bit-exact at (a)'s shape by
+    phase 2 (a).  Returns (lines, bench launches, e2e launches, failed
+    checks)."""
+    from bundler_sfm_tpu_torch.probes import e2e_synthetic
+    failures = []
+
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+
+    def launches_only(tag, name, n, launches):
+        others = {k: v for k, v in launches.items() if v and k != name}
+        check_later(launches[name] == n and not others,
+                    f"{tag}: launches {others or launches[name]}, expected "
+                    f"{n} of {name} and no other")
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    tag = "[bench]"
+    zero_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = bench.main([])
+    log(f"{tag} {buf.getvalue().strip()}")
+    log(f"{tag} {time.time() - t0:.1f} s")
+    d = res["detail"]
+    check_later(set(res) == {"metric", "value", "unit", "vs_baseline",
+                             "detail"} and set(BENCH_KEYS) <= set(d)
+                and res["metric"] == "pairs_matched_per_s",
+                f"{tag}: keys {sorted(res)}, {sorted(d)}")
+    launches = bench.launch_counts()
+    check_later(d["launches"] == launches, f"{tag}: the line's launches "
+                f"{d['launches']} differ from the counts {launches}")
+    check_later(d["num_pairs"] == 2016 and d["device"]["name"]
+                == torch.cuda.get_device_name(0), f"{tag}: shape / device")
+    rates = [res["value"]] + [d[k] for k in BENCH_RATES]
+    check_later(all(math.isfinite(x) and x > 0 for x in rates),
+                f"{tag}: rates {rates}")
+    mfus = [d[k] for k in BENCH_MFUS]
+    check_later(all(x is not None and 0 < x <= 1 for x in mfus),
+                f"{tag}: MFUs {mfus} outside (0, 1]")
+    check_later(len(set(d["matches_runs"])) == 1 and d["matches"] > 0,
+                f"{tag}: match counts {d['matches_runs']}")
+    launches_only(tag, "two_nn", 24, launches)
+    bench_launches = launches
+
+    tag = "[e2e]"
+    work = fresh_dir(os.path.join(ROOT, "build", "smoke", "e2e"))
+    zero_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = e2e_synthetic.main(["--workdir", work])
+    log(f"{tag} {json.dumps(line)}")
+    ours = line["ours"]
+    check_later(ours["cameras"] >= E2E_JAX_CPU_CAMERAS,
+                f"{tag}: {ours['cameras']} cameras < {E2E_JAX_CPU_CAMERAS} "
+                f"(JAX, CPU)")
+    check_later(ours["mean_reproj_px"] < 1.0 and ours["ate_rel"] < 0.02,
+                f"{tag}: reprojection {ours['mean_reproj_px']} px, ate_rel "
+                f"{ours['ate_rel']}")
+    e2e_launches = bench.launch_counts()
+    check_later(ours["launches"] == e2e_launches, f"{tag}: the line's "
+                f"launches differ from the counts {e2e_launches}")
+    launches_only(tag, "two_nn", 1, e2e_launches)
+    log(f"[bench] phase {time.time() - t_phase:.1f} s")
+    return dict(bench=res, e2e=line), bench_launches, e2e_launches, failures
+
+
 PHASES = ("build", "kernels", "main", "staged", "tools", "variants", "library",
-          "multi_device", "ba_scale")
+          "multi_device", "ba_scale", "bench")
 
 
 def main(argv=None):
@@ -3136,7 +3243,7 @@ def main(argv=None):
     if set(phases) != set(PHASES):
         # Where each phase returns its failed checks (variants raises).
         failed_at = {"main": 1, "staged": 1, "tools": 1, "library": 2,
-                     "multi_device": 1, "ba_scale": 2}
+                     "multi_device": 1, "ba_scale": 2, "bench": 3}
         for name in PHASES:
             if name in phases:
                 res = (phase_main(args.dump_scene) if name == "main"
@@ -3158,12 +3265,14 @@ def main(argv=None):
     lib_launches, lib_times, lib_failures = phase_library()
     md_launches, md_failures = phase_multi_device()
     _, ba_launches, ba_failures = phase_ba_scale()
+    _, bench_launches, e2e_launches, bench_failures = phase_bench()
     check(not failures, f"stage-5 checks failed: {failures}")
     check(not staged_failures, f"staged checks failed: {staged_failures}")
     check(not tools_failures, f"tools checks failed: {tools_failures}")
     check(not lib_failures, f"library checks failed: {lib_failures}")
     check(not md_failures, f"multi-device checks failed: {md_failures}")
     check(not ba_failures, f"ba_scale checks failed: {ba_failures}")
+    check(not bench_failures, f"bench checks failed: {bench_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
     kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
@@ -3200,6 +3309,8 @@ def main(argv=None):
     kernels += variant_records
     for k in kernels:
         k["ba_scale_launches"] = ba_launches.get(k["name"], 0)
+        k["bench_launches"] = bench_launches.get(k["name"], 0)
+        k["e2e_launches"] = e2e_launches.get(k["name"], 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -8,6 +8,9 @@ no JAX, so the repository's conftest is left out):
 This file imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -724,3 +727,33 @@ def test_run_ba_point_constraints_cuda_deterministic(cuda):
         assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
     assert not runs[0].pt_removed[torch.as_tensor(flags > 0, device=cuda)
                                   ].any()
+
+
+def test_bench_main_cuda(cuda):
+    """The benchmark on the card at a small size: device metrics set, the
+    MFUs in (0, 1], two_nn launched by the matcher leg (4 calls of one
+    batch) and the kernel leg (16 calls) and no other kernel."""
+    from bundler_sfm_tpu_torch import bench
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = bench.main(["--num_images", "8", "--keys", "512", "--ba_small",
+                          "4", "64", "--ba_big", "8", "256", "--ba_sparse",
+                          "16", "512", "--ba_iters", "5"])
+    d = res["detail"]
+    assert d["platform"] == "cuda" and d["device"]["nvidia_smi"]
+    assert all(0 < d[k] <= 1 for k in ("kernel_mfu", "ba_mfu", "ba64_mfu"))
+    assert {k: v for k, v in d["launches"].items() if v} == {"two_nn": 20}
+    assert len(set(d["matches_runs"])) == 1
+
+
+def test_e2e_synthetic_cuda(cuda, tmp_path):
+    """Keys to bundle.out on the card from 8 images x 768 keys (the scene
+    tests/test_torch_e2e_synthetic.py holds the CPU run to the JAX
+    package on): every camera registered within the same bounds, one
+    two_nn launch."""
+    from bundler_sfm_tpu_torch.probes import e2e_synthetic
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = e2e_synthetic.main(["8", "768", "--workdir", str(tmp_path)])
+    ours = line["ours"]
+    assert ours["cameras"] == 8 and ours["mean_reproj_px"] < 1.0
+    assert ours["ate_rel"] < 0.02
+    assert {k: v for k, v in ours["launches"].items() if v} == {"two_nn": 1}

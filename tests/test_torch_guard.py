@@ -60,7 +60,7 @@ def test_import_leaves_jax_out():
         "bundle2pmvs", "bundle2vis", "bundle2ply", "models", "models.camera",
         "models.snavely", "models.fisheye", "ops.plane", "ops.horn",
         "io.xmlfile", "parallel.mesh", "parallel.ba_sharded",
-        "parallel.matching_sharded")]
+        "parallel.matching_sharded", "bench", "probes.e2e_synthetic")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
