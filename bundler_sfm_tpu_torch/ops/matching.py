@@ -24,6 +24,7 @@ Public entry points:
   prune_double_matches — keep-first dedup of many-to-one matches
                          (src/MatchTracks.cpp:394-452)
   symmetrize           — reversed lists for every pair
+  launch_counts        — every 2-NN kernel's launches so far
 """
 
 from __future__ import annotations
@@ -33,10 +34,17 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from bundler_sfm_tpu_torch.ops import matching_cuda, matching_variants
 from bundler_sfm_tpu_torch.ops.matching_cuda import (
     DB_TILE, QUERY_TILE, two_nn_pairs,
 )
 from bundler_sfm_tpu_torch.utils.device import resolve_device
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count so far in this process: the wrappers'
+    `LAUNCHES` of `matching_cuda` and `matching_variants` in one dict."""
+    return {**matching_cuda.LAUNCHES, **matching_variants.LAUNCHES}
 
 
 def _prep_desc(x: np.ndarray) -> np.ndarray:

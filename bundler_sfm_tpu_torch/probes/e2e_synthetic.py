@@ -13,7 +13,9 @@ after a similarity alignment.
         [keys_per_image] [--track_ratio 0.6] [--seed 0]
         [--device cuda|cpu] [--workdir DIR] [--out PATH]
 
-prints one JSON line: images, keys_per_image, and `ours` with the device,
+prints one JSON line: images, keys_per_image, seed, workdir (null
+without --workdir: the run then works in a temporary directory that it
+removes at its end), and `ours` with the device,
 match / bundle / total seconds, the telemetry's stage seconds and
 counters (LM iterations, host syncs, `ba_schur_windowed`: the bundle
 adjustments run on a covisibility-window plan, from 129 cameras), each
@@ -30,6 +32,7 @@ TPU is gone too: the port's BA runs in f64.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -39,12 +42,11 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-from bundler_sfm_tpu_torch.bench import launch_counts
 from bundler_sfm_tpu_torch.config import default_pipeline_config
 from bundler_sfm_tpu_torch.io.bundlefile import read_bundle_file
 from bundler_sfm_tpu_torch.io.keyfile import keys_to_centered
 from bundler_sfm_tpu_torch.io.listfile import ImageEntry
-from bundler_sfm_tpu_torch.ops.matching import DescriptorTable
+from bundler_sfm_tpu_torch.ops.matching import DescriptorTable, launch_counts
 from bundler_sfm_tpu_torch.pipeline.incremental import bundle_adjust_fast
 from bundler_sfm_tpu_torch.pipeline.scene import Scene
 from bundler_sfm_tpu_torch.pipeline.verify import (
@@ -201,8 +203,9 @@ def main(argv: Sequence[str] = None) -> Dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device of every stage (default cuda)")
     ap.add_argument("--workdir", default=None,
-                    help="where bundle.out goes (default a new temporary "
-                         "directory)")
+                    help="keep ours/bundle.out and ours_telemetry.json "
+                         "here (default a temporary directory, removed "
+                         "when the run ends)")
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
     args = ap.parse_args(argv if argv is not None else sys.argv[1:])
@@ -210,21 +213,26 @@ def main(argv: Sequence[str] = None) -> Dict:
 
     infos, descs, gt = synthesize(args.num_images, args.keys_per_image,
                                   args.track_ratio, seed=args.seed)
-    workdir = args.workdir or tempfile.mkdtemp(
-        prefix=f"e2e_syn{args.num_images}_")
-    os.makedirs(workdir, exist_ok=True)
-    before = launch_counts()
-    run = run_ours(workdir, infos, descs, device=dev)
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    with contextlib.ExitStack() as stack:
+        if args.workdir:
+            workdir = args.workdir
+            os.makedirs(workdir, exist_ok=True)
+        else:
+            workdir = stack.enter_context(tempfile.TemporaryDirectory(
+                prefix=f"e2e_syn{args.num_images}_"))
+        before = launch_counts()
+        run = run_ours(workdir, infos, descs, device=dev)
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        quality = model_quality(run["bundle_out"], gt)
     result = {"images": args.num_images,
               "keys_per_image": args.keys_per_image, "seed": args.seed,
-              "workdir": workdir,
+              "workdir": args.workdir,
               "ours": {"device": device_record(dev),
                        "match_s": run["match_s"], "bundle_s": run["bundle_s"],
                        "total_s": run["match_s"] + run["bundle_s"],
                        "stages_s": run["stages_s"],
                        "counters": run["counters"], "launches": launches,
-                       **model_quality(run["bundle_out"], gt)}}
+                       **quality}}
     print(json.dumps(result), flush=True)
     if args.out:
         with open(args.out, "w") as f:

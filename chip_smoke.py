@@ -177,7 +177,11 @@ Phases (any failure raises, so the exit code is non-zero):
                keys, keys to bundle.out under build/smoke/e2e/): at least
                as many cameras as the JAX package registers on the CPU,
                mean reprojection < 1 px, ate_rel < 0.02, one two_nn launch
-               and none of any other kernel; lines "[bench]" and "[e2e]".
+               and none of any other kernel; then every 2-NN call of both
+               runs (chunks of 1024 and 992 pairs, 2016, and e2e's 496 on
+               its track and clutter keys) bit-exact against its plain
+               version on the tensors it was given; lines "[bench]" and
+               "[e2e]".
 `--phases build,kernels,variants` (any subset, in this order) runs only
 those phases, checks what they check and prints no result line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -194,7 +198,6 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 import types
@@ -209,8 +212,11 @@ sys.path.insert(0, ROOT)
 from bundler_sfm_tpu_torch import bench  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_cuda  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_variants  # noqa: E402
-from bundler_sfm_tpu_torch.ops.matching import DescriptorTable  # noqa: E402
+from bundler_sfm_tpu_torch.ops.matching import (  # noqa: E402
+    DescriptorTable, launch_counts,
+)
 from bundler_sfm_tpu_torch.probes import probe_two_nn_variants  # noqa: E402
+from bundler_sfm_tpu_torch.utils.device import device_record  # noqa: E402
 
 INT8_TOPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 BF16_TOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
@@ -3111,7 +3117,7 @@ def phase_ba_scale(cams=(256, 512)):
         records[C] = rec
         del sp, prob
         torch.cuda.empty_cache()
-    launches = {**matching_cuda.LAUNCHES, **matching_variants.LAUNCHES}
+    launches = launch_counts()
     check_later(not any(launches.values()),
                 f"kernels launched in the BA: {launches}")
     log(f"[ba_scale] phase {time.time() - t_phase:.1f} s")
@@ -3150,11 +3156,16 @@ def phase_bench():
     none of any other kernel; (b) `probes/e2e_synthetic` at its default
     (32 images x 2048 keys): at least E2E_JAX_CPU_CAMERAS cameras, mean
     reprojection < 1 px, ate_rel < 0.02, one two_nn launch (496 pairs,
-    one batch) and none of any other kernel.  The kernel is held bit-exact at (a)'s shape by
-    phase 2 (a).  Returns (lines, bench launches, e2e launches, failed
-    checks)."""
+    one batch) and none of any other kernel.  Every 2-NN call of both
+    counted runs is recorded (the matcher leg's chunks of 1024 and 992
+    pairs, the kernel leg's 2016, e2e's 496 on synthesize()'s track and
+    clutter keys) and held bit-exact against its plain version on the
+    very tensors it was given, after the counts are read.  Returns
+    (lines, bench launches, e2e launches, failed checks)."""
+    from bundler_sfm_tpu_torch.ops import matching
     from bundler_sfm_tpu_torch.probes import e2e_synthetic
     failures = []
+    real = matching.two_nn_pairs
 
     def check_later(ok, what):
         if not ok:
@@ -3167,6 +3178,30 @@ def phase_bench():
                     f"{tag}: launches {others or launches[name]}, expected "
                     f"{n} of {name} and no other")
 
+    def recorded(fn):
+        """fn() with every 2-NN call's arguments recorded: (fn(), calls)."""
+        calls = []
+
+        def record(*args):
+            calls.append(args)
+            return real(*args)
+        matching.two_nn_pairs = record
+        out = fn()
+        matching.two_nn_pairs = real
+        return out, calls
+
+    def compare_calls(tag, calls, sizes, images):
+        """The calls' pair counts and table against the path's; then each
+        call's kernels bit-exact against the plain version (raises)."""
+        tab, counts = calls[0][0], calls[0][2]
+        got = [len(c[3]) for c in calls]
+        check_later(got == sizes and tab.shape[:2] == (images, 2048) and all(
+            c[0] is tab and c[1] is tab and c[2] is counts for c in calls),
+            f"{tag}: 2-NN calls of {got} pairs on {tuple(tab.shape)}, "
+            f"expected {sizes} on one table of {images} x 2048")
+        for c, (_, _, _, pi, pj) in enumerate(calls):
+            compare_two_nn(tab, counts, pi, pj, f"{tag} call {c}")
+
     t_phase = time.time()
     torch.cuda.empty_cache()
     tag = "[bench]"
@@ -3174,7 +3209,7 @@ def phase_bench():
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
-        res = bench.main([])
+        res, calls = recorded(lambda: bench.main([]))
     log(f"{tag} {buf.getvalue().strip()}")
     log(f"{tag} {time.time() - t0:.1f} s")
     d = res["detail"]
@@ -3182,7 +3217,7 @@ def phase_bench():
                              "detail"} and set(BENCH_KEYS) <= set(d)
                 and res["metric"] == "pairs_matched_per_s",
                 f"{tag}: keys {sorted(res)}, {sorted(d)}")
-    launches = bench.launch_counts()
+    launches = launch_counts()
     check_later(d["launches"] == launches, f"{tag}: the line's launches "
                 f"{d['launches']} differ from the counts {launches}")
     check_later(d["num_pairs"] == 2016 and d["device"]["name"]
@@ -3197,13 +3232,15 @@ def phase_bench():
                 f"{tag}: match counts {d['matches_runs']}")
     launches_only(tag, "two_nn", 24, launches)
     bench_launches = launches
+    compare_calls(tag, calls, [1024, 992] * 4 + [2016] * 16, 64)
 
     tag = "[e2e]"
     work = fresh_dir(os.path.join(ROOT, "build", "smoke", "e2e"))
     zero_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        line = e2e_synthetic.main(["--workdir", work])
+        line, calls = recorded(
+            lambda: e2e_synthetic.main(["--workdir", work]))
     log(f"{tag} {json.dumps(line)}")
     ours = line["ours"]
     check_later(ours["cameras"] >= E2E_JAX_CPU_CAMERAS,
@@ -3212,10 +3249,11 @@ def phase_bench():
     check_later(ours["mean_reproj_px"] < 1.0 and ours["ate_rel"] < 0.02,
                 f"{tag}: reprojection {ours['mean_reproj_px']} px, ate_rel "
                 f"{ours['ate_rel']}")
-    e2e_launches = bench.launch_counts()
+    e2e_launches = launch_counts()
     check_later(ours["launches"] == e2e_launches, f"{tag}: the line's "
                 f"launches differ from the counts {e2e_launches}")
     launches_only(tag, "two_nn", 1, e2e_launches)
+    compare_calls(tag, calls, [496], 32)
     log(f"[bench] phase {time.time() - t_phase:.1f} s")
     return dict(bench=res, e2e=line), bench_launches, e2e_launches, failures
 
@@ -3251,9 +3289,7 @@ def main(argv=None):
                 if name in failed_at:
                     check(not res[failed_at[name]],
                           f"{name} checks failed: {res[failed_at[name]]}")
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True).stdout.strip()
+        smi = device_record(torch.device("cuda"))["nvidia_smi"]
         log(f"[partial] phases {phases} passed on {smi}")
         return 0
     phase_build()
@@ -3311,10 +3347,7 @@ def main(argv=None):
         k["ba_scale_launches"] = ba_launches.get(k["name"], 0)
         k["bench_launches"] = bench_launches.get(k["name"], 0)
         k["e2e_launches"] = e2e_launches.get(k["name"], 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(device_record(torch.device("cuda"))["nvidia_smi"][0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

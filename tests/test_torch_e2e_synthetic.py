@@ -14,13 +14,14 @@ on the CPU:
     the same registered cameras (all 8), points within 1 %, mean
     reprojection within 0.01 px and ate_rel within 5e-4 of the JAX run's;
   * the printed line's keys, its copy in --out, and no kernel launched on
-    the CPU.
+    the CPU; without --workdir the run leaves no directory behind.
 """
 
 import contextlib
 import io
 import json
 import math
+import tempfile
 
 import numpy as np
 import pytest
@@ -54,7 +55,7 @@ def runs(tmp_path_factory, je2e):
                        str(pdir / "line.json")])
     return dict(gt=gt, jax_bundle=jax_bundle,
                 jax=je2e.model_quality(jax_bundle, gt), line=line,
-                stdout=buf.getvalue(), out=pdir / "line.json")
+                stdout=buf.getvalue(), out=pdir / "line.json", pdir=pdir)
 
 
 def _noisy_bundle(path, gt, rng):
@@ -115,6 +116,9 @@ def test_main_line(runs):
     assert json.loads(runs["stdout"].splitlines()[-1]) == line
     assert json.loads(runs["out"].read_text()) == line
     assert line["images"] == N_IMAGES and line["keys_per_image"] == N_KEYS
+    assert line["workdir"] == str(runs["pdir"])
+    assert (runs["pdir"] / "ours" / "bundle.out").is_file()
+    assert (runs["pdir"] / "ours_telemetry.json").is_file()
     ours = line["ours"]
     assert set(ours) == {"device", "match_s", "bundle_s", "total_s",
                          "stages_s", "counters", "launches", "cameras",
@@ -128,3 +132,14 @@ def test_main_line(runs):
     assert all(math.isfinite(v) and v >= 0 for v in
                [ours["match_s"], ours["bundle_s"],
                 *ours["stages_s"].values()])
+
+
+def test_main_without_workdir_leaves_nothing(tmp_path, monkeypatch):
+    """Without --workdir the run works in a temporary directory and
+    removes it at its end; the line says so with a null workdir."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = E.main([str(N_IMAGES), str(N_KEYS), "--device", "cpu"])
+    assert line["workdir"] is None
+    assert line["ours"]["cameras"] == N_IMAGES
+    assert not list(tmp_path.iterdir())
