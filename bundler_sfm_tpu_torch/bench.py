@@ -72,7 +72,9 @@ from bundler_sfm_tpu_torch.ops.ba import build_problem, run_ba
 from bundler_sfm_tpu_torch.ops.matching import (
     DescriptorTable, _match_masked, launch_counts,
 )
-from bundler_sfm_tpu_torch.utils.device import device_record, resolve_device
+from bundler_sfm_tpu_torch.utils.device import (
+    device_record, resolve_device, synchronize,
+)
 
 CPU_PAIRS = 2          # kd-tree pairs measured, rate extrapolated
 # NVIDIA's H100 SXM data sheet, dense rates: int8 tensor cores (the 2-NN
@@ -132,11 +134,6 @@ def synthetic_problem(num_cams=4, num_pts=64, seed=0):
             np.array(obs_xy))
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def bench_match(descs, pairs, block: int, batch: int, device
                 ) -> Tuple[DescriptorTable, List[float], List[int], Dict]:
     """The matcher leg: (table, seconds of the three timed rotations, their
@@ -176,10 +173,10 @@ def bench_kernel(table: DescriptorTable, pairs, reps: int = 8
 
     warm, timed = tensors(reps), tensors(0)
     run(warm)
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     run(timed)
-    _sync(dev)
+    synchronize(dev)
     dt = time.perf_counter() - t0
     n = reps * len(pairs)
     K = table.table.shape[1]
@@ -210,7 +207,7 @@ def _timed_ba(R0, cam0, pts0, oc, op, oxy, max_iters, dev):
     float(run_ba(prob, max_iters=max_iters).cost)
     prob2 = build_problem(R0, cam0 + 1e-6, pts0, oc, op, oxy,
                           est_focal=True, est_distortion=True, device=dev)
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     res = run_ba(prob2, max_iters=max_iters)
     float(res.cost)

@@ -48,9 +48,10 @@ PATCH = 32              # fixed gradient patch (octave pixels) per keypoint
 # tensors (~200 KB per key) whatever the batch.
 _KEY_CHUNK = 8192
 # Images per batch: the first octave's pyramid holds ~45 f32 planes of the
-# upsampled image (~180 bytes per pixel); the budget stays well inside an
-# 80 GB card.
-_PYRAMID_BYTES_PER_PIXEL = 180
+# upsampled image; an H100 run peaks at 194.0-194.3 bytes a pixel (batches
+# of 24-69 images at 800x600 and 1024x768), so a batch stays inside the
+# budget, itself well inside an 80 GB card.
+_PYRAMID_BYTES_PER_PIXEL = 195
 _BATCH_BYTES = {"cuda": 24e9, "cpu": 2e9}
 
 

@@ -72,6 +72,7 @@ from bundler_sfm_tpu_torch.utils import (
     counter, get_telemetry, resolve_device, stage,
 )
 
+INIT_REPROJECTION_ERROR = 16.0   # src/BundleAdd.cpp:43
 ADD_REPROJECTION_ERROR = 16.0    # src/BundleAdd.cpp:44
 INITIAL_DEPTH = 3.0              # src/Bundle.cpp:1776
 # Seed offsets of the 5-point draw and of each registration round's
@@ -117,6 +118,10 @@ class Reconstruction:
     @property
     def num_cameras(self):
         return len(self.added_order)
+
+    @property
+    def num_points(self):
+        return len(self.points)
 
     def slot_of_image(self, img: int) -> Optional[int]:
         return self.added_order.index(img) if img in self.added_order \

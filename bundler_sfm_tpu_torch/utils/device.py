@@ -17,6 +17,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def synchronize(dev: torch.device) -> None:
+    """Wait for `dev`'s queued work (a no-op off the card): a timer
+    around device work stops after this."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def device_record(dev: torch.device) -> dict:
     """What a result line names its device by: the torch name and device
     count, and on a card nvidia-smi's name and power limit per card (a

@@ -182,6 +182,21 @@ Phases (any failure raises, so the exit code is non-zero):
                its track and clutter keys) bit-exact against its plain
                version on the tensors it was given; lines "[bench]" and
                "[e2e]".
+ 11. pixels — the port's from-pixels program and scaling program, each
+               with the launch counts zeroed just before: (a) 24 views of
+               the box room rendered at 800x600 (f = 700) under
+               build/smoke/pixels/ through `probes/e2e_pixels` at
+               --max_keys 4096 (JPEGs, SIFT, the 276 pairs on the 2-NN
+               kernel, verification, stage 5, bundle.out): at least 20 of
+               24 cameras, mean reprojection < 1 px, ate_rel < 0.02, the
+               .key files written, one two_nn launch and none of any other
+               kernel; (b) `probes/scaling --iters 5`: its numbers finite
+               and positive, 32 two_nn launches (the matcher leg's batches
+               of 8-64 pairs) and none of any other kernel; then every
+               2-NN call of both runs bit-exact against its plain version
+               on the tensors it was given; the stage seconds, SIFT's peak
+               memory and the launches logged as "[pixels]" and
+               "[scaling]" lines.
 `--phases build,kernels,variants` (any subset, in this order) runs only
 those phases, checks what they check and prints no result line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -240,6 +255,16 @@ def check(ok, what):
     """A failed check raises (also under python -O, unlike assert)."""
     if not ok:
         raise AssertionError(what)
+
+
+def failing_into(failures):
+    """A check that logs and keeps a failure instead of raising; the
+    phase returns `failures` and main() raises once every phase ran."""
+    def check_later(ok, what):
+        if not ok:
+            log(f"FAILED: {what}")
+            failures.append(what)
+    return check_later
 
 
 def zero_launches():
@@ -992,11 +1017,7 @@ def stage5_checks(work, imgs, box, stages, counters, rc_ok):
     draw (the same camera count).  Returns the failed checks, which main()
     raises once every phase has run."""
     failures = []
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
+    check_later = failing_into(failures)
     from bundler_sfm_tpu_torch.pipeline.incremental import (
         StageSampler, bundle_adjust_fast,
     )
@@ -1395,11 +1416,7 @@ def phase_staged():
     t_phase = time.time()
     total = dict.fromkeys(matching_cuda.LAUNCHES, 0)
     failures = []
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
+    check_later = failing_into(failures)
 
     def add(launches):
         for k, v in launches.items():
@@ -1628,11 +1645,7 @@ def phase_tools():
         dims = im.size
     t_phase = time.time()
     failures = []
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
+    check_later = failing_into(failures)
 
     # (a) --compute_covariance in surgery mode, on CUDA and on the CPU.
     covs = {}
@@ -2427,11 +2440,7 @@ def phase_library():
     os.makedirs(lib)
     t_phase = time.time()
     failures = []
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
+    check_later = failing_into(failures)
 
     def step(label, fn):
         t0 = time.time()
@@ -2819,11 +2828,7 @@ def phase_multi_device():
     imgs = os.path.join(work, "images")
     t_phase = time.time()
     failures = []
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
+    check_later = failing_into(failures)
 
     entries, dims, key_xy, descs, matches = read_scene(work)
     pairs = all_pairs(len(descs))
@@ -3017,11 +3022,7 @@ def phase_ba_scale(cams=(256, 512)):
     from bundler_sfm_tpu_torch.ops.ba import run_ba
     from bundler_sfm_tpu_torch.probes import ba_scale
     failures, records = [], {}
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
+    check_later = failing_into(failures)
 
     t_phase = time.time()
     torch.cuda.empty_cache()
@@ -3124,6 +3125,47 @@ def phase_ba_scale(cams=(256, 512)):
     return records, launches, failures
 
 
+def only_launches(tag, name, n, launches, check_later):
+    """n launches of `name` and none of any other kernel."""
+    others = {k: v for k, v in launches.items() if v and k != name}
+    check_later(launches[name] == n and not others,
+                f"{tag}: launches {others or launches[name]}, expected "
+                f"{n} of {name} and no other")
+
+
+def record_two_nn(fn):
+    """fn() with every 2-NN call's arguments recorded (wrapping
+    `ops.matching.two_nn_pairs`, through which DescriptorTable launches
+    the kernel): (fn(), calls)."""
+    from bundler_sfm_tpu_torch.ops import matching
+    real = matching.two_nn_pairs
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+    matching.two_nn_pairs = record
+    try:
+        out = fn()
+    finally:
+        matching.two_nn_pairs = real
+    return out, calls
+
+
+def compare_recorded(tag, calls, sizes, shape, check_later):
+    """The recorded calls' pair counts and table against the path's (one
+    table of `shape` = (images, keys) rows, every call on it); then each
+    call's kernels bit-exact against the plain version (raises)."""
+    tab, counts = calls[0][0], calls[0][2]
+    got = [len(c[3]) for c in calls]
+    check_later(got == sizes and tab.shape[:2] == shape and all(
+        c[0] is tab and c[1] is tab and c[2] is counts for c in calls),
+        f"{tag}: 2-NN calls of {got} pairs on {tuple(tab.shape)}, "
+        f"expected {sizes} on one table of {shape[0]} x {shape[1]}")
+    for c, (_, _, _, pi, pj) in enumerate(calls):
+        compare_two_nn(tab, counts, pi, pj, f"{tag} call {c}")
+
+
 # Cameras the JAX package registers on the CPU (f64) from
 # probes/e2e_synthetic.py's default collection (32 images x 2048 keys,
 # seed 0): `benchmarks/e2e_synthetic.py 32 2048 --skip_reference` under
@@ -3162,46 +3204,9 @@ def phase_bench():
     clutter keys) and held bit-exact against its plain version on the
     very tensors it was given, after the counts are read.  Returns
     (lines, bench launches, e2e launches, failed checks)."""
-    from bundler_sfm_tpu_torch.ops import matching
     from bundler_sfm_tpu_torch.probes import e2e_synthetic
     failures = []
-    real = matching.two_nn_pairs
-
-    def check_later(ok, what):
-        if not ok:
-            log(f"FAILED: {what}")
-            failures.append(what)
-
-    def launches_only(tag, name, n, launches):
-        others = {k: v for k, v in launches.items() if v and k != name}
-        check_later(launches[name] == n and not others,
-                    f"{tag}: launches {others or launches[name]}, expected "
-                    f"{n} of {name} and no other")
-
-    def recorded(fn):
-        """fn() with every 2-NN call's arguments recorded: (fn(), calls)."""
-        calls = []
-
-        def record(*args):
-            calls.append(args)
-            return real(*args)
-        matching.two_nn_pairs = record
-        out = fn()
-        matching.two_nn_pairs = real
-        return out, calls
-
-    def compare_calls(tag, calls, sizes, images):
-        """The calls' pair counts and table against the path's; then each
-        call's kernels bit-exact against the plain version (raises)."""
-        tab, counts = calls[0][0], calls[0][2]
-        got = [len(c[3]) for c in calls]
-        check_later(got == sizes and tab.shape[:2] == (images, 2048) and all(
-            c[0] is tab and c[1] is tab and c[2] is counts for c in calls),
-            f"{tag}: 2-NN calls of {got} pairs on {tuple(tab.shape)}, "
-            f"expected {sizes} on one table of {images} x 2048")
-        for c, (_, _, _, pi, pj) in enumerate(calls):
-            compare_two_nn(tab, counts, pi, pj, f"{tag} call {c}")
-
+    check_later = failing_into(failures)
     t_phase = time.time()
     torch.cuda.empty_cache()
     tag = "[bench]"
@@ -3209,7 +3214,7 @@ def phase_bench():
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
-        res, calls = recorded(lambda: bench.main([]))
+        res, calls = record_two_nn(lambda: bench.main([]))
     log(f"{tag} {buf.getvalue().strip()}")
     log(f"{tag} {time.time() - t0:.1f} s")
     d = res["detail"]
@@ -3230,16 +3235,17 @@ def phase_bench():
                 f"{tag}: MFUs {mfus} outside (0, 1]")
     check_later(len(set(d["matches_runs"])) == 1 and d["matches"] > 0,
                 f"{tag}: match counts {d['matches_runs']}")
-    launches_only(tag, "two_nn", 24, launches)
+    only_launches(tag, "two_nn", 24, launches, check_later)
     bench_launches = launches
-    compare_calls(tag, calls, [1024, 992] * 4 + [2016] * 16, 64)
+    compare_recorded(tag, calls, [1024, 992] * 4 + [2016] * 16, (64, 2048),
+                     check_later)
 
     tag = "[e2e]"
     work = fresh_dir(os.path.join(ROOT, "build", "smoke", "e2e"))
     zero_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        line, calls = recorded(
+        line, calls = record_two_nn(
             lambda: e2e_synthetic.main(["--workdir", work]))
     log(f"{tag} {json.dumps(line)}")
     ours = line["ours"]
@@ -3252,14 +3258,113 @@ def phase_bench():
     e2e_launches = launch_counts()
     check_later(ours["launches"] == e2e_launches, f"{tag}: the line's "
                 f"launches differ from the counts {e2e_launches}")
-    launches_only(tag, "two_nn", 1, e2e_launches)
-    compare_calls(tag, calls, [496], 32)
+    only_launches(tag, "two_nn", 1, e2e_launches, check_later)
+    compare_recorded(tag, calls, [496], (32, 2048), check_later)
     log(f"[bench] phase {time.time() - t_phase:.1f} s")
     return dict(bench=res, e2e=line), bench_launches, e2e_launches, failures
 
 
+# The from-pixels phase's render (utils/render_scene.py's CLI defaults at
+# 800x600, the size of the JAX package's benchmarks/e2e_pixels.py runs)
+# and its gate: at least PIXELS_MIN_CAMERAS of the views registered.
+PIXELS_VIEWS, PIXELS_W, PIXELS_H, PIXELS_FOCAL = 24, 800, 600, 700.0
+PIXELS_MIN_CAMERAS = 20
+SCALING_BATCHES = (8, 16, 32, 64)
+
+
+def phase_pixels():
+    """Phase 11: the from-pixels program and the scaling program on the
+    card, each with the launch counts zeroed just before: (a) render
+    PIXELS_VIEWS views at 800x600 (f = 700) under build/smoke/pixels/ and
+    run `probes/e2e_pixels` on them at --max_keys 4096 (JPEGs -> SIFT ->
+    all 276 pairs on the 2-NN kernel -> verification -> stage 5 ->
+    bundle.out): at least PIXELS_MIN_CAMERAS cameras, mean reprojection
+    < 1 px, ate_rel < 0.02, one two_nn launch and none of any other
+    kernel, the .key files written; (b) `probes/scaling --iters 5`: every
+    number of its line finite, 32 two_nn launches (the matcher leg's
+    batches of 8-64 pairs, 4 a call, a warm and a timed call each) and
+    none of any other kernel.  Every 2-NN call of both runs is recorded
+    and held bit-exact against its plain version on the very tensors it
+    was given, after the counts are read.  Logs the stage seconds,
+    SIFT's peak device memory and the launches ("[pixels]",
+    "[scaling]").  Returns (lines, pixels launches, scaling launches,
+    failed checks)."""
+    from bundler_sfm_tpu_torch.probes import e2e_pixels, scaling
+    from bundler_sfm_tpu_torch.utils.render_scene import render_box_room
+    failures = []
+    check_later = failing_into(failures)
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    tag = "[pixels]"
+    work = fresh_dir(os.path.join(ROOT, "build", "smoke", "pixels"))
+    imgs = os.path.join(work, "images")
+    t0 = time.time()
+    render_box_room(imgs, n=PIXELS_VIEWS, W=PIXELS_W, H=PIXELS_H, seed=0,
+                    f=PIXELS_FOCAL)
+    log(f"{tag} rendered {PIXELS_VIEWS} views {PIXELS_W}x{PIXELS_H} in "
+        f"{time.time() - t0:.1f} s")
+    run = os.path.join(work, "run")
+    zero_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line, calls = record_two_nn(lambda: e2e_pixels.main(
+            [imgs, "--max_keys", "4096", "--workdir", run]))
+    log(f"{tag} {json.dumps(line)}")
+    ours = line["ours"]
+    stages = {k: round(v, 4) for k, v in ours["stages_s"].items()}
+    log(f"{tag} sift {ours['sift_s']:.3f} s ({ours['keys']} keys, "
+        f"{ours['keys_per_s']:.0f} keys/s, peak "
+        f"{ours['sift_peak_bytes'] / 2**30:.2f} GiB), match "
+        f"{ours['match_s']:.3f} s, bundle {ours['bundle_s']:.3f} s, total "
+        f"{ours['total_s']:.3f} s; stages {json.dumps(stages)}; LM "
+        f"iterations {ours['counters'].get('lm_iters', 0)}, host syncs "
+        f"{ours['counters'].get('host_syncs', 0)}, windowed BAs "
+        f"{ours['counters'].get('ba_schur_windowed', 0)}")
+    check_later(ours["cameras"] >= PIXELS_MIN_CAMERAS,
+                f"{tag}: {ours['cameras']} cameras < {PIXELS_MIN_CAMERAS} of "
+                f"{PIXELS_VIEWS}")
+    check_later(ours["mean_reproj_px"] < 1.0 and ours["ate_rel"] < 0.02,
+                f"{tag}: reprojection {ours['mean_reproj_px']} px, ate_rel "
+                f"{ours['ate_rel']}")
+    check_later(ours["keys"] > 0 and ours["sift_peak_bytes"] > 0,
+                f"{tag}: keys {ours['keys']}, SIFT peak "
+                f"{ours['sift_peak_bytes']}")
+    keys = sorted(f for f in os.listdir(run) if f.endswith(".key"))
+    check_later(len(keys) == PIXELS_VIEWS, f"{tag}: {len(keys)} .key files")
+    pixels_launches = launch_counts()
+    check_later(ours["launches"] == pixels_launches, f"{tag}: the line's "
+                f"launches differ from the counts {pixels_launches}")
+    only_launches(tag, "two_nn", 1, pixels_launches, check_later)
+    pairs = PIXELS_VIEWS * (PIXELS_VIEWS - 1) // 2
+    compare_recorded(tag, calls, [pairs],
+                     (PIXELS_VIEWS, calls[0][0].shape[1]), check_later)
+
+    tag = "[scaling]"
+    zero_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res, calls = record_two_nn(lambda: scaling.main(["--iters", "5"]))
+    log(f"{tag} {json.dumps(res)}")
+    log(f"{tag} {time.time() - t0:.1f} s")
+    numbers = [res["value"]] + [v for k in (
+        "ba_measured_ms_per_iter_per_shard", "ba_projected_ms_per_iter",
+        "ba_projected_efficiency", "matching_pairs_per_s_vs_batch")
+        for v in res[k].values()]
+    check_later(all(math.isfinite(x) and x > 0 for x in numbers)
+                and res["platform"] == "cuda", f"{tag}: numbers {numbers}")
+    scaling_launches = launch_counts()
+    only_launches(tag, "two_nn", 8 * len(SCALING_BATCHES), scaling_launches,
+                  check_later)
+    compare_recorded(tag, calls, [b for b in SCALING_BATCHES
+                                  for _ in range(8)], (32, 1024), check_later)
+    log(f"[pixels] phase {time.time() - t_phase:.1f} s")
+    return (dict(pixels=line, scaling=res), pixels_launches,
+            scaling_launches, failures)
+
+
 PHASES = ("build", "kernels", "main", "staged", "tools", "variants", "library",
-          "multi_device", "ba_scale", "bench")
+          "multi_device", "ba_scale", "bench", "pixels")
 
 
 def main(argv=None):
@@ -3281,7 +3386,8 @@ def main(argv=None):
     if set(phases) != set(PHASES):
         # Where each phase returns its failed checks (variants raises).
         failed_at = {"main": 1, "staged": 1, "tools": 1, "library": 2,
-                     "multi_device": 1, "ba_scale": 2, "bench": 3}
+                     "multi_device": 1, "ba_scale": 2, "bench": 3,
+                     "pixels": 3}
         for name in PHASES:
             if name in phases:
                 res = (phase_main(args.dump_scene) if name == "main"
@@ -3302,6 +3408,7 @@ def main(argv=None):
     md_launches, md_failures = phase_multi_device()
     _, ba_launches, ba_failures = phase_ba_scale()
     _, bench_launches, e2e_launches, bench_failures = phase_bench()
+    _, pixels_launches, scaling_launches, pixels_failures = phase_pixels()
     check(not failures, f"stage-5 checks failed: {failures}")
     check(not staged_failures, f"staged checks failed: {staged_failures}")
     check(not tools_failures, f"tools checks failed: {tools_failures}")
@@ -3309,6 +3416,7 @@ def main(argv=None):
     check(not md_failures, f"multi-device checks failed: {md_failures}")
     check(not ba_failures, f"ba_scale checks failed: {ba_failures}")
     check(not bench_failures, f"bench checks failed: {bench_failures}")
+    check(not pixels_failures, f"pixels checks failed: {pixels_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
     kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
@@ -3347,6 +3455,8 @@ def main(argv=None):
         k["ba_scale_launches"] = ba_launches.get(k["name"], 0)
         k["bench_launches"] = bench_launches.get(k["name"], 0)
         k["e2e_launches"] = e2e_launches.get(k["name"], 0)
+        k["pixels_launches"] = pixels_launches.get(k["name"], 0)
+        k["scaling_launches"] = scaling_launches.get(k["name"], 0)
     print(device_record(torch.device("cuda"))["nvidia_smi"][0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

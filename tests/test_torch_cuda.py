@@ -757,3 +757,52 @@ def test_e2e_synthetic_cuda(cuda, tmp_path):
     assert ours["cameras"] == 8 and ours["mean_reproj_px"] < 1.0
     assert ours["ate_rel"] < 0.02
     assert {k: v for k, v in ours["launches"].items() if v} == {"two_nn": 1}
+
+
+def test_e2e_pixels_cuda(cuda, tmp_path):
+    """JPEGs to bundle.out on the card from the 12-view 320x240 render
+    tests/test_torch_e2e_pixels.py holds the CPU run to the JAX package
+    on: the 5 cameras every CPU draw registers, within the quality gates,
+    SIFT's peak memory recorded, one two_nn launch, a .key file a view."""
+    from bundler_sfm_tpu_torch.probes import e2e_pixels
+    from bundler_sfm_tpu_torch.utils.render_scene import render_box_room
+    render_box_room(str(tmp_path / "views"), n=12, W=320, H=240, seed=0,
+                    f=140.0, sheet_size=512)
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = e2e_pixels.main([str(tmp_path / "views"), "--max_keys",
+                                "1024", "--workdir", str(tmp_path / "run")])
+    ours = line["ours"]
+    assert ours["device"]["nvidia_smi"] and ours["sift_peak_bytes"] > 0
+    assert ours["cameras"] == 5 and ours["mean_reproj_px"] < 1.0
+    assert ours["ate_rel"] < 0.02
+    assert {k: v for k, v in ours["launches"].items() if v} == {"two_nn": 1}
+    assert len(list((tmp_path / "run").glob("*.key"))) == 12
+
+
+def test_scaling_cuda(cuda):
+    """The scaling program on the card at a toy size: platform cuda, the
+    matcher leg's two_nn launches (2 batch sizes x a warm and a timed
+    call x 4 launches) and no other kernel."""
+    from bundler_sfm_tpu_torch.ops.matching import launch_counts
+    from bundler_sfm_tpu_torch.probes import scaling
+    before = launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = scaling.main(["--cams", "6", "--pts", "192", "--obs_per_pt",
+                            "4", "--iters", "3", "--match_keys", "256",
+                            "--match_batches", "2,4"])
+    moved = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+    assert res["platform"] == "cuda" and res["device"]["nvidia_smi"]
+    assert moved == {"two_nn": 16}
+    assert all(v > 0 for v in res["ba_measured_ms_per_iter_per_shard"]
+               .values())
+
+
+def test_scaling_mesh_cpu_on_card_host(cuda):
+    """The gloo CPU program on the card's host: D = 1 and 2 agree."""
+    from bundler_sfm_tpu_torch.probes import scaling_mesh_cpu
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = scaling_mesh_cpu.main(["--pts", "512", "--iters", "5",
+                                     "--devices", "1,2"])
+    cost = res["final_cost_by_devices"]
+    assert cost[2] == pytest.approx(cost[1], rel=1e-9, abs=0)

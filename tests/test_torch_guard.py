@@ -60,7 +60,8 @@ def test_import_leaves_jax_out():
         "bundle2pmvs", "bundle2vis", "bundle2ply", "models", "models.camera",
         "models.snavely", "models.fisheye", "ops.plane", "ops.horn",
         "io.xmlfile", "parallel.mesh", "parallel.ba_sharded",
-        "parallel.matching_sharded", "bench", "probes.e2e_synthetic")]
+        "parallel.matching_sharded", "bench", "probes.e2e_synthetic",
+        "probes.e2e_pixels", "probes.scaling", "probes.scaling_mesh_cpu")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'bundler_sfm_tpu')]\n"
@@ -95,7 +96,9 @@ def _entry_points(tmp_path):
     from bundler_sfm_tpu_torch.pipeline.incremental import bundle_adjust_fast
     from bundler_sfm_tpu_torch.pipeline.register import register_image
     from bundler_sfm_tpu_torch.pipeline.scene import Scene
-    from bundler_sfm_tpu_torch.probes import probe_two_nn_variants
+    from bundler_sfm_tpu_torch.probes import (
+        e2e_pixels, probe_two_nn_variants, scaling,
+    )
     from bundler_sfm_tpu_torch.ops.matching import match_pairs_batched
     from bundler_sfm_tpu_torch.ops.plane import knn_plane_normals
     from bundler_sfm_tpu_torch.ops.horn import estimate_similarity_ransac
@@ -164,6 +167,8 @@ def _entry_points(tmp_path):
             [str(tmp_path), "--num_devices", "2"]),
         "bundler --num_devices 2": lambda: bundler.main(
             ["list.txt", "--run_bundle", "--num_devices", "2"]),
+        "e2e_pixels": lambda: e2e_pixels.main([str(tmp_path)]),
+        "scaling": lambda: scaling.main([]),
     }
 
 
@@ -201,7 +206,8 @@ def _three_cameras():
                                   "estimate_similarity_ransac", "make_mesh",
                                   "launch", "initialize_multihost",
                                   "run_bundler --num_devices 2",
-                                  "bundler --num_devices 2"])
+                                  "bundler --num_devices 2", "e2e_pixels",
+                                  "scaling"])
 def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
     """Without a card, the default device raises instead of falling back
     (each entry point runs on the CPU only when asked: see the other
