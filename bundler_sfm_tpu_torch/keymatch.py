@@ -7,14 +7,13 @@ i match every earlier image j (or only j within a window radius) with 2-NN +
 0.6 ratio, write pairs with >= 16 matches to the output table.
 
     python -m bundler_sfm_tpu_torch.keymatch list_keys.txt matches.init.txt
-        [window] [--device cuda|cpu]
+        [window] [--device cuda|cpu] [--telemetry PATH]
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -28,17 +27,17 @@ def match_full(key_files: List[str], window_radius: int = -1,
     `DescriptorTable.match_pairs` (the 2-NN kernel on CUDA)."""
     from bundler_sfm_tpu_torch.io.keyfile import read_key_file
     from bundler_sfm_tpu_torch.ops.matching import DescriptorTable
-    from bundler_sfm_tpu_torch.utils import counter, get_telemetry
+    from bundler_sfm_tpu_torch.utils import stage
 
     descs = []
-    t0 = time.time()
-    for kf in key_files:
-        try:
-            _, d = read_key_file(kf)
-        except FileNotFoundError:
-            d = np.zeros((0, 128), np.uint8)
-        descs.append(d)
-    print(f"[KeyMatchFull] Reading keys took {time.time()-t0:.3f}s "
+    with stage("read_keys") as span:
+        for kf in key_files:
+            try:
+                _, d = read_key_file(kf)
+            except FileNotFoundError:
+                d = np.zeros((0, 128), np.uint8)
+            descs.append(d)
+    print(f"[KeyMatchFull] Reading keys took {span.seconds:.3f}s "
           f"({sum(len(d) for d in descs)} keys)")
 
     pairs = []
@@ -47,12 +46,10 @@ def match_full(key_files: List[str], window_radius: int = -1,
         for j in range(start, i):
             if len(descs[j]) and len(descs[i]):
                 pairs.append((j, i))
-    t0 = time.time()
-    table = DescriptorTable(descs, device=device)
-    out = table.match_pairs(pairs, ratio=ratio, min_matches=min_matches)
-    dt = time.time() - t0
-    counter("pairs_matched", len(pairs))
-    get_telemetry().add_time("match", dt)
+    with stage("match") as span:
+        table = DescriptorTable(descs, device=device)
+        out = table.match_pairs(pairs, ratio=ratio, min_matches=min_matches)
+    dt = span.seconds
     total = sum(len(v) for v in out.values())
     print(f"[KeyMatchFull] Matching took {dt:.3f}s "
           f"({len(pairs)} pairs, {len(pairs)/max(dt,1e-9):.1f} pairs/s, "
@@ -69,13 +66,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("window", nargs="?", type=int, default=-1,
                    help="match window radius (-1: all pairs)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--telemetry", metavar="PATH", default=None,
+                   help="log every span and write the log, the stage "
+                        "seconds and the counters to PATH (JSON)")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
     with open(args.list_file) as f:
         key_files = [line.split()[0] for line in f if line.strip()]
-    matches = match_full(key_files, window_radius=args.window,
-                         device=args.device)
     from bundler_sfm_tpu_torch.io.matchfile import write_match_file
-    write_match_file(args.out_file, matches)
+    from bundler_sfm_tpu_torch.utils import span_log
+    with span_log(args.telemetry):
+        matches = match_full(key_files, window_radius=args.window,
+                             device=args.device)
+        write_match_file(args.out_file, matches)
     return 0
 
 

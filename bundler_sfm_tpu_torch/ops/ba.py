@@ -693,7 +693,7 @@ def _pcg(matvec, precond, rhs, max_iters: int, tol: float,
     for it in range(max_iters):
         go = (r * r).sum() > tol * tol * b2
         if it % check_every == 0:
-            counter("host_syncs")
+            counter("ba_host_syncs")
             if not bool(go):
                 break
         Ap = matvec(p)
@@ -870,7 +870,7 @@ def _lm_loop(prob: BAProblem, max_iters: int, fix_points: bool, tau, eps1,
         dnorm = torch.sqrt((dcam * dcam).sum() + dpts_sq)
         done = (gnorm < eps1) | (dnorm < eps2 * (pnorm + eps2)) | (mu > 1e30)
         it += 1
-        counter("host_syncs")
+        counter("ba_host_syncs")
         accepted, finished = torch.stack([accept, done]).tolist()
         if finished:
             break
@@ -1009,7 +1009,7 @@ def run_ba_outlier_loop(
     counter(f"ba_runs_{dev.type}")
     while passes == 0 or (remove_outliers and passes < max_passes
                           and n_out > min_outliers):
-        counter("host_syncs")
+        counter("ba_host_syncs")
         if int(_psum(_point_any(ov, prob).sum(), mesh)) < min_points:
             too_few = True
             break
@@ -1032,7 +1032,7 @@ def run_ba_outlier_loop(
             removed = removed | bad_pt
         cam, pts, R0c = cam1, pts1, R1
         stats_b[passes], hist_b[passes], edge_b[passes] = stats, bins, edges
-        counter("host_syncs")
+        counter("ba_host_syncs")
         n_out = int(_psum(bad_pt.sum(), mesh))
         nout_b[passes] = n_out
         iters_tot += iters

@@ -10,7 +10,8 @@ The JAX package vmaps one LM while-loop per camera.  Here the cameras of a
 registration round are lanes of one batched tensor program: every
 iteration runs all lanes and a per-lane `active` mask keeps a lane's state
 once its own loop would have stopped, so each lane ends exactly where its
-own loop ends.  The host reads one flag per iteration (any lane active).
+own loop ends.  The host reads one flag per iteration (any lane active);
+counter `refine_lm_iters` counts the iterations that ran.
 """
 
 from __future__ import annotations
@@ -96,9 +97,9 @@ def camera_refine_batch(
     done = torch.zeros(B, dtype=torch.bool, device=dev) if active is None \
         else ~active
     for _ in range(max_iters):
-        counter("host_syncs")
         if bool(done.all()):
             break
+        counter("refine_lm_iters")
         J = _jac_batch(cam, *args, dw) * (pmask * inv_s)
         r = _res_batch(cam, *args, dw)
         Jt = J.transpose(-1, -2)
@@ -151,7 +152,6 @@ def camera_refine_trim_batch(
     done = ~mask0.any(-1)
     for _ in range(trim_iters):
         active = ~done & mask.any(-1)
-        counter("host_syncs")
         if not bool(active.any()):
             break
         cam1, R1, _ = camera_refine_batch(cam, R, points, projs, mask,

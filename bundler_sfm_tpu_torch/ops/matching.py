@@ -39,6 +39,7 @@ from bundler_sfm_tpu_torch.ops.matching_cuda import (
     DB_TILE, QUERY_TILE, two_nn_pairs,
 )
 from bundler_sfm_tpu_torch.utils.device import resolve_device
+from bundler_sfm_tpu_torch.utils.telemetry import stage
 
 
 def launch_counts() -> Dict[str, int]:
@@ -159,6 +160,7 @@ class DescriptorTable:
     gets the dict `mesh=None` gives.  Every rank must call match_pairs with
     the same pairs."""
 
+    @stage("match_table")           # packing and upload
     def __init__(self, descs: Sequence[np.ndarray], block: int = 2048,
                  device="cuda", mesh=None):
         self.mesh = mesh
@@ -191,9 +193,16 @@ class DescriptorTable:
         list deduped keep-first and in ascending idx1 order.  `batch` pairs
         go to one kernel launch (default 1024; with a mesh, the batch is
         split over the ranks)."""
-        batch = batch or 1024
         if not pairs:
             return {}
+        masked = self._fetch_masked_rows(pairs, ratio, batch or 1024)
+        with stage("match_decode"):
+            return decode_masked_rows(masked, pairs, min_matches)
+
+    @stage("match_fetch")
+    def _fetch_masked_rows(self, pairs, ratio, batch) -> np.ndarray:
+        """Every pair's masked rows on the host: the launches, then the
+        host waits for the kernels and the copy."""
         rows = []
         for start in range(0, len(pairs), batch):
             chunk = np.asarray(pairs[start:start + batch], dtype=np.int32)
@@ -214,8 +223,7 @@ class DescriptorTable:
                 m = self.mesh.all_gather(m, 0)[:n_real]
             rows.append(m)
         # One device->host fetch for all batches.
-        return decode_masked_rows(torch.cat(rows).cpu().numpy(), pairs,
-                                  min_matches)
+        return torch.cat(rows).cpu().numpy()
 
 
 def match_pairs_batched(

@@ -24,7 +24,7 @@ from bundler_sfm_tpu_torch.ops.triangulate import triangulate_tracks
 from bundler_sfm_tpu_torch.pipeline.incremental import (
     StageSampler, refine_camera_iterative,
 )
-from bundler_sfm_tpu_torch.utils import counter, resolve_device
+from bundler_sfm_tpu_torch.utils import resolve_device
 
 
 def coalesce_point_descriptors(bundle: BundleFile, key_descs) -> np.ndarray:
@@ -192,7 +192,6 @@ def refine_points(points: np.ndarray, projs: np.ndarray, views_pv: list,
         mask[i, :v + 1] = True
     ts = np.einsum("pvij,pvj->pvi", Rs, -cs)
     dev = resolve_device(device)
-    counter("dispatches")
     X, _ = triangulate_tracks(*(torch.as_tensor(a, device=dev)
                                 for a in (pv, Rs, ts, mask)), 5)
     out = X.cpu().numpy()

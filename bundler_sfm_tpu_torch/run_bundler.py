@@ -7,6 +7,7 @@ in-process on the device:
     python -m bundler_sfm_tpu_torch.run_bundler <image_dir>
         [--init_focal F | --no_exif] [--window N] [--max_keys N]
         [--out DIR] [--seed S] [--device cuda|cpu] [--num_devices D]
+        [--telemetry PATH]
     torchrun --nproc_per_node D -m bundler_sfm_tpu_torch.run_bundler <dir>
 
 Stages:
@@ -75,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "over all hosts (one process each)")
     p.add_argument("--process_id", type=int, default=None,
                    help="with --multihost_coordinator: this process's rank")
+    p.add_argument("--telemetry", metavar="PATH", default=None,
+                   help="log every span and write the log, the stage "
+                        "seconds and the counters to PATH (JSON; rank 0)")
     return p
 
 
@@ -88,7 +92,15 @@ def _parse(argv) -> argparse.Namespace:
 
 
 def _run(args, mesh) -> int:
-    """The pipeline on this rank: one device when `mesh` is None."""
+    """The pipeline on this rank: one device when `mesh` is None; rank 0
+    writes the span log to --telemetry."""
+    from bundler_sfm_tpu_torch.utils import span_log
+    writer = mesh is None or mesh.rank == 0
+    with span_log(args.telemetry if writer else None):
+        return _pipeline(args, mesh)
+
+
+def _pipeline(args, mesh) -> int:
     from PIL import Image
 
     from bundler_sfm_tpu_torch.config import default_pipeline_config
@@ -127,17 +139,18 @@ def _run(args, mesh) -> int:
 
     # 1. Focal estimates -> list.txt
     entries: List[ImageEntry] = []
-    for name in images:
-        path = os.path.join(args.image_dir, name)
-        if args.init_focal > 0:
-            focal = args.init_focal
-        elif not args.no_exif:
-            focal = extract_focal_pixels(path)
-        else:
-            focal = 0.0
-        entries.append(ImageEntry(path, init_focal=focal))
-    if writer:
-        write_list_file("list.txt", entries)
+    with stage("focal"):
+        for name in images:
+            path = os.path.join(args.image_dir, name)
+            if args.init_focal > 0:
+                focal = args.init_focal
+            elif not args.no_exif:
+                focal = extract_focal_pixels(path)
+            else:
+                focal = 0.0
+            entries.append(ImageEntry(path, init_focal=focal))
+        if writer:
+            write_list_file("list.txt", entries)
 
     # 2. SIFT (batched: same-shape images run each octave as one batch)
     t0 = time.time()
@@ -173,22 +186,24 @@ def _run(args, mesh) -> int:
     print(f"[RunBundler] matched {len(matches)}/{len(pairs)} pairs in "
           f"{time.time()-t0:.1f}s")
     if writer:
-        write_match_file("matches.init.txt", matches)
+        with stage("write_matches"):
+            write_match_file("matches.init.txt", matches)
 
     # 4. Geometric verification + tracks (f64 on every device).
     cfg = default_pipeline_config(num_devices=mesh.size if sharded else 1)
-    key_xy = [keys_to_centered(info, w, h)[:, :2].astype(np.float64)
-              for info, (w, h) in zip(infos, dims)]
-    key_color = []
-    for e, info in zip(entries, infos):
-        with Image.open(e.name) as img:
-            arr = np.asarray(img.convert("RGB"))
-        h, w = arr.shape[:2]
-        xs = np.clip(info[:, 0].astype(int), 0, w - 1)
-        ys = np.clip(info[:, 1].astype(int), 0, h - 1)
-        key_color.append(arr[ys, xs])
-    scene = Scene(config=cfg, entries=entries, dims=dims, key_xy=key_xy,
-                  key_color=key_color, matches=matches, device=device)
+    with stage("key_colors"):
+        key_xy = [keys_to_centered(info, w, h)[:, :2].astype(np.float64)
+                  for info, (w, h) in zip(infos, dims)]
+        key_color = []
+        for e, info in zip(entries, infos):
+            with Image.open(e.name) as img:
+                arr = np.asarray(img.convert("RGB"))
+            h, w = arr.shape[:2]
+            xs = np.clip(info[:, 0].astype(int), 0, w - 1)
+            ys = np.clip(info[:, 1].astype(int), 0, h - 1)
+            key_color.append(arr[ys, xs])
+        scene = Scene(config=cfg, entries=entries, dims=dims, key_xy=key_xy,
+                      key_color=key_color, matches=matches, device=device)
     t0 = time.time()
     compute_geometric_constraints(
         scene, seed=args.seed,

@@ -1039,7 +1039,8 @@ def stage5_checks(work, imgs, box, stages, counters, rc_ok):
                "prune", "total")},
            "stage5_wall_s": box["wall"],
            "lm_iters": int(counters.get("lm_iters", 0)),
-           "host_syncs": int(counters.get("host_syncs", 0)),
+           "refine_lm_iters": int(counters.get("refine_lm_iters", 0)),
+           "ba_host_syncs": int(counters.get("ba_host_syncs", 0)),
            "ba_runs_cuda": int(counters.get("ba_runs_cuda", 0)),
            "obs_iters_per_s": counters.get("ba_observations", 0.0)
            / max(ba_s, 1e-9),
@@ -3317,8 +3318,9 @@ def phase_pixels():
         f"{ours['sift_peak_bytes'] / 2**30:.2f} GiB), match "
         f"{ours['match_s']:.3f} s, bundle {ours['bundle_s']:.3f} s, total "
         f"{ours['total_s']:.3f} s; stages {json.dumps(stages)}; LM "
-        f"iterations {ours['counters'].get('lm_iters', 0)}, host syncs "
-        f"{ours['counters'].get('host_syncs', 0)}, windowed BAs "
+        f"iterations {ours['counters'].get('lm_iters', 0)}, BA host syncs "
+        f"{ours['counters'].get('ba_host_syncs', 0)}, refine LM iterations "
+        f"{ours['counters'].get('refine_lm_iters', 0)}, windowed BAs "
         f"{ours['counters'].get('ba_schur_windowed', 0)}")
     check_later(ours["cameras"] >= PIXELS_MIN_CAMERAS,
                 f"{tag}: {ours['cameras']} cameras < {PIXELS_MIN_CAMERAS} of "

@@ -664,6 +664,43 @@ def test_keymatch_match_full_cuda_matches_cpu(cuda, tmp_path):
             assert np.array_equal(g[k], c[k])
 
 
+def test_two_nn_kernels_lie_inside_match_fetch(cuda, tmp_path):
+    """Under a CUDA-activity profiler, every 2-NN kernel of a small
+    match_full runs inside the span log's `match_fetch` span: the spans
+    and the device trace share a clock, and the host waits for the
+    kernels inside that span."""
+    from bundler_sfm_tpu_torch.io.keyfile import write_key_file
+    from bundler_sfm_tpu_torch.keymatch import match_full
+    from bundler_sfm_tpu_torch.utils import get_telemetry
+    rng = np.random.default_rng(2)
+    base = rng.integers(0, 256, (500, 128))
+    paths = []
+    for i in range(5):
+        desc = np.clip(base + rng.integers(-9, 10, base.shape), 0, 255)
+        paths.append(str(tmp_path / f"k{i}.key"))
+        write_key_file(paths[-1], rng.uniform(0, 500, (500, 4)), desc)
+    with contextlib.redirect_stdout(io.StringIO()):
+        match_full(paths, device=cuda)             # builds the kernel
+    tel = get_telemetry()
+    tel.log_spans(True)
+    try:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with contextlib.redirect_stdout(io.StringIO()):
+                match_full(paths, device=cuda)
+        fetch = [s for s in tel.spans if s.name == "match_fetch"]
+    finally:
+        tel.log_spans(False)
+    assert len(fetch) == 1
+    kernels = [(ev.start_ns(), ev.end_ns())
+               for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == torch.autograd.DeviceType.CUDA
+               and "two_nn" in ev.name()]
+    assert kernels
+    for start, end in kernels:
+        assert fetch[0].start_ns <= start <= end <= fetch[0].end_ns
+
+
 def _registration_problem(rng, held=3):
     """A BundleFile of 3 cameras around 300 points with a descriptor per
     point, and a 4th camera's keys (point projections + 100 distractors)
