@@ -7,11 +7,17 @@ points, with the reference's focal prior and distortion shrink as penalty
 residuals (`sfm.c:1088-1160`).
 
 The JAX package vmaps one LM while-loop per camera.  Here the cameras of a
-registration round are lanes of one batched tensor program: every
-iteration runs all lanes and a per-lane `active` mask keeps a lane's state
-once its own loop would have stopped, so each lane ends exactly where its
-own loop ends.  The host reads one flag per iteration (any lane active);
-counter `refine_lm_iters` counts the iterations that ran.
+registration round are lanes of one call.  On CUDA tensors the call is one
+launch of a hand-written kernel (`ops/lm_cuda.py`, `csrc/refine_lm.cu`)
+that runs each lane's whole LM on the device.  On the CPU it is the plain
+version, `camera_refine_batch_plain`: one batched tensor program whose
+every iteration runs all lanes, with a per-lane `active` mask that keeps a
+lane's state once its own loop would have stopped, so each lane ends
+exactly where its own loop ends; the host reads one flag per iteration
+(any lane active).  Both return each lane's iteration count;
+`camera_refine_trim_batch` adds the largest of each call to counter
+`refine_lm_iters` (the lockstep iterations) at the host read each trim
+pass already makes.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Tuple
 import torch
 from torch.func import jacfwd, vmap
 
+from bundler_sfm_tpu_torch.ops import lm_cuda
 from bundler_sfm_tpu_torch.ops.ba import F_SCALE, K_SCALE
 from bundler_sfm_tpu_torch.ops.linalg_small import cholesky_solve
 from bundler_sfm_tpu_torch.ops.projection import project_one
@@ -60,13 +67,42 @@ def camera_refine_batch(
     max_iters: int = 50,
     tau: float = 1e-3,
     active=None,               # [B] bool: lanes to refine (default all)
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """LM refinement of each lane's camera; returns (cam [B,9] with w
-    folded, R [B,3,3], cost [B]).  Lanes outside `active` come back as
-    given.  LM runs in the scaled space q = s∘x (F_SCALE, K_SCALE) and stops
-    a lane once an accepted step improves its cost by less than ~100 ulp
-    (the JAX package's relative-cost test), on a tiny gradient or step, or
-    when mu passes 1e30."""
+    folded, R [B,3,3], cost [B], iterations int32 [B]: each lane's LM
+    iterations, 0 outside `active`).  Lanes outside `active` come back as
+    given.  CUDA tensors (float64 only) run `lm_cuda.refine_lm`, one
+    launch; others the plain version."""
+    args = (cam0, R0, points, projs, mask, adjust_focal, estimate_distortion,
+            focal_constraint, focal_weight, distortion_weight, max_iters, tau,
+            active)
+    if cam0.device.type == "cuda":
+        return lm_cuda.refine_lm(*args)
+    return camera_refine_batch_plain(*args)
+
+
+def camera_refine_batch_plain(
+    cam0: torch.Tensor,        # [B,9] (c, w=0, f, k1, k2)
+    R0: torch.Tensor,          # [B,3,3]
+    points: torch.Tensor,      # [B,N,3] fixed
+    projs: torch.Tensor,       # [B,N,2]
+    mask: torch.Tensor,        # [B,N] bool
+    adjust_focal: bool = True,
+    estimate_distortion: bool = False,
+    focal_constraint=0.0,      # [B] target focal (0 = none)
+    focal_weight=0.0,          # [B]
+    distortion_weight: float = 1.0e2,
+    max_iters: int = 50,
+    tau: float = 1e-3,
+    active=None,               # [B] bool: lanes to refine (default all)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`camera_refine_batch` as a lockstep tensor loop: returns (cam [B,9]
+    with w folded, R [B,3,3], cost [B], iterations int32 [B]).  Lanes
+    outside `active` come back as given.  LM runs in the scaled space
+    q = s∘x (F_SCALE, K_SCALE) and stops a lane once an accepted step
+    improves its cost by less than ~100 ulp (the JAX package's
+    relative-cost test), on a tiny gradient or step, or when mu passes
+    1e30."""
     B = cam0.shape[0]
     dtype, dev = cam0.dtype, cam0.device
     pmask = torch.ones(CNP, dtype=dtype, device=dev)
@@ -96,10 +132,11 @@ def camera_refine_batch(
     cam = cam0
     done = torch.zeros(B, dtype=torch.bool, device=dev) if active is None \
         else ~active
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
     for _ in range(max_iters):
         if bool(done.all()):
             break
-        counter("refine_lm_iters")
+        iters += (~done).int()
         J = _jac_batch(cam, *args, dw) * (pmask * inv_s)
         r = _res_batch(cam, *args, dw)
         Jt = J.transpose(-1, -2)
@@ -129,7 +166,14 @@ def camera_refine_batch(
     if active is not None:
         cam = _sel(active, cam, cam0)
         R = _sel(active, R, R0)
-    return cam, R, cost
+    return cam, R, cost, iters
+
+
+def _most(iters: torch.Tensor) -> torch.Tensor:
+    """The largest iteration count of a call (0 for no lane), int64 on the
+    call's device."""
+    return iters.amax().long() if iters.numel() else \
+        torch.zeros((), dtype=torch.int64, device=iters.device)
 
 
 def camera_refine_trim_batch(
@@ -146,16 +190,24 @@ def camera_refine_trim_batch(
               focal_constraint=focal_constraint, focal_weight=focal_weight,
               distortion_weight=distortion_weight, max_iters=max_iters,
               tau=tau)
-    cam, R, _ = camera_refine_batch(cam0, R0, points, projs, mask0, False,
-                                    **kw)
+    cam, R, _, iters = camera_refine_batch(cam0, R0, points, projs, mask0,
+                                           False, **kw)
+    pending = _most(iters)
     mask = mask0
     done = ~mask0.any(-1)
     for _ in range(trim_iters):
         active = ~done & mask.any(-1)
-        if not bool(active.any()):
+        # The pass's one host read: whether a lane is left, and the
+        # iterations of the LM just run.
+        go, ran = torch.stack([active.any().long(), pending]).tolist()
+        pending = None
+        if ran:
+            counter("refine_lm_iters", ran)
+        if not go:
             break
-        cam1, R1, _ = camera_refine_batch(cam, R, points, projs, mask,
-                                          adjust_focal, active=active, **kw)
+        cam1, R1, _, iters = camera_refine_batch(
+            cam, R, points, projs, mask, adjust_focal, active=active, **kw)
+        pending = _most(iters)
         pred = project_one(cam1[:, None], R1[:, None], points)
         errs = torch.sqrt(((pred - projs) ** 2).sum(-1))
         n = mask.sum(-1)
@@ -170,4 +222,8 @@ def camera_refine_trim_batch(
         R = _sel(active, R1, R)
         mask = _sel(active, keep, mask)
         done = done | (active & stable)
+    if pending is not None:     # the passes ran out after a refine
+        ran = int(pending)
+        if ran:
+            counter("refine_lm_iters", ran)
     return cam, R, mask

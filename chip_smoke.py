@@ -8,7 +8,8 @@ Phases (any failure raises, so the exit code is non-zero):
                wgmma kernels (two_nn.cu's int8 four: one-launch and
                two-launch, 2-NN and product-only; its f32 two;
                two_nn_variants.cu's twenty-one: eleven one-launch, ten
-               two-launch), serialises no wgmma and drops no setmaxnreg.
+               two-launch), serialises no wgmma and drops no setmaxnreg;
+               log the refine LM kernel's registers and spills.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
                on the card: the int8 2-NN (`wgmma`, one launch), its
                two-launch form (identical bits) and the norms kernel, the
@@ -26,7 +27,11 @@ Phases (any failure raises, so the exit code is non-zero):
                and the pre-pass); split an int8 call's device time (CUDA
                events around queued bare launches) and host time
                ("[split]"), one launch against two in turns, at the bench
-               and the main-path shapes.
+               and the main-path shapes; the refine LM kernel against its
+               plain version at room800.full24's shapes (1-8 cameras, up
+               to 9000 points: cameras within 1e-8, R within 1e-7, a second
+               launch bit-identical), each shape timed per call beside
+               the plain version on the same CUDA tensors ("[refine]").
   3. main    — render a 24-view 1024x768 box room and run
                `bundler_sfm_tpu_torch.run_bundler --out bundle` on CUDA (SIFT,
                matching on the kernels, F/H verification, tracks, and the
@@ -34,7 +39,9 @@ Phases (any failure raises, so the exit code is non-zero):
                adjustment with the outlier loop) with every launch count
                zeroed; check its outputs and the launch counts (one two_nn
                launch a 2-NN call and no yardstick: no norms kernel; the
-               BA's `ba_runs_cuda` count too); hold bundle.out against gt.json
+               BA's `ba_runs_cuda` count too; one refine_lm launch a
+               camera_refine_batch call, `refine_lm_launches`); hold
+               bundle.out against gt.json
                (similarity-aligned centre error < 0.02, mean reprojection
                error < 1 px, at least as many cameras as the JAX package
                registers on the CPU from the same scene); run the
@@ -225,6 +232,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from bundler_sfm_tpu_torch import bench  # noqa: E402
+from bundler_sfm_tpu_torch.ops import lm, lm_cuda  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_cuda  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_variants  # noqa: E402
 from bundler_sfm_tpu_torch.ops.matching import (  # noqa: E402
@@ -238,6 +246,8 @@ BF16_TOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES_S = 3.35e12    # H100 SXM HBM3
 TWO_NN_SOURCE = "bundler_sfm_tpu_torch/csrc/two_nn.cu"
 TWO_NN_REPLACES = "bundler_sfm_tpu/ops/matching_pallas.py:193"
+REFINE_SOURCE = "bundler_sfm_tpu_torch/csrc/refine_lm.cu"
+F64_FLOPS = 33.5e12      # H100 SXM dense f64 outside the tensor cores
 VARIANTS_SOURCE = "bundler_sfm_tpu_torch/csrc/two_nn_variants.cu"
 PROBE = "benchmarks/probes/probe_pallas_variants.py"
 # Cameras the JAX package's bundle_adjust_fast registers on the CPU (f64)
@@ -269,7 +279,8 @@ def failing_into(failures):
 
 def zero_launches():
     """Every kernel's launch count to 0, just before a path is driven."""
-    for counts in (matching_cuda.LAUNCHES, matching_variants.LAUNCHES):
+    for counts in (matching_cuda.LAUNCHES, matching_variants.LAUNCHES,
+                   lm_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -651,7 +662,8 @@ def phase_build():
     t0 = time.time()
     sources = sorted(f for f in os.listdir(os.path.join(
         ROOT, "bundler_sfm_tpu_torch", "csrc")) if f.endswith(".cu"))
-    check(sources == ["two_nn.cu", "two_nn_variants.cu"], sources)
+    check(sources == ["refine_lm.cu", "two_nn.cu", "two_nn_variants.cu"],
+          sources)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), ThreadPoolExecutor(
             len(sources)) as pool:
@@ -679,6 +691,14 @@ def phase_build():
                           r"(?:.*\n)*?.*Used (\d+) registers", out)
         log(f"[build] {kernel} ({n} instantiations): no spills; registers "
             f"{regs}")
+    # The refine LM kernel (128 and 256 threads): its registers, stack
+    # and spills, logged.
+    for props in re.findall(r"Compiling entry function '\S*refine_lm_kernel"
+                            r"\S*'(?:.*\n)*?.*Used \d+ registers.*",
+                            out):
+        log("[build] refine_lm_kernel: " + " | ".join(
+            ln.split("ptxas info    :")[-1].strip()
+            for ln in props.splitlines()[1:]))
     serial = [ln for ln in out.splitlines() if "serialized" in ln]
     check(not serial, f"ptxas serialised wgmma: {serial}")
     # A register budget the producer or consumer code cannot keep makes
@@ -793,7 +813,97 @@ def phase_kernels():
     pi, pj = pair_tensors([(i, j) for i in range(6) for j in range(6)])
     t32["tolerance_ratio"] = compare_two_nn_real(
         table.table, table.counts, pi, pj, "(g) real-valued")
-    return t32
+    return t32, refine_at_cell_shapes()
+
+
+def refine_problem(rng, sizes):
+    """A padded batch of new-camera refines like a registration round's:
+    lane b sees sizes[b] points 2-8 units in front of its camera, seen at
+    f = 700 with 0.4 px of noise, about 5 % masked out;
+    the start is off by 0.05 in the centre, 0.02 rad and 5 % in focal.
+    Returns camera_refine_batch's leading tensors, on the card."""
+    B, N = len(sizes), max(sizes)
+    cam0 = np.zeros((B, 9))
+    R0 = np.tile(np.eye(3), (B, 1, 1))
+    pts = np.ones((B, N, 3))
+    projs = np.ones((B, N, 2))
+    mask = np.zeros((B, N), bool)
+    for b, n in enumerate(sizes):
+        X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                      -rng.uniform(2, 8, n)], 1)
+        pts[b, :n] = X
+        projs[b, :n] = -700.0 * X[:, :2] / X[:, 2:] + rng.normal(
+            0, 0.4, (n, 2))
+        mask[b, :n] = rng.random(n) < 0.95
+        w = rng.normal(size=3) * 0.02
+        t = np.linalg.norm(w)
+        K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        R0[b] = np.eye(3) + np.sin(t) / t * K + (1 - np.cos(t)) / t**2 * K @ K
+        cam0[b, :3] = rng.normal(size=3) * 0.05
+        cam0[b, 6] = 700.0 * rng.uniform(0.95, 1.05)
+    return [torch.from_numpy(a).cuda() for a in (cam0, R0, pts, projs, mask)]
+
+
+def refine_bounds_ms(mask, iters):
+    """Two least times for the f64 operations the LM needs (per iteration
+    ~300 a valid observation for the residual, its two Jacobian rows and
+    their 54 sums, ~40 for the trial cost; the 9x9 solve's ~500 left out):
+    all lanes' over the card's f64 rate, and the largest lane's over one
+    SM's (1/132 of it: the kernel gives a lane one CTA, and its iterations
+    depend on each other)."""
+    flops = 340.0 * mask.sum(1).double().cpu() * iters.double().cpu()
+    return (float(flops.sum()) / F64_FLOPS * 1e3,
+            float(flops.max()) / (F64_FLOPS / 132) * 1e3)
+
+
+def refine_at_cell_shapes():
+    """The refine LM kernel against the plain version at
+    room800.full24's shapes (1-8 cameras a round, up to ~9000 points each):
+    cameras within 1e-8 of each lane's largest entry, R within 1e-7, the
+    kernel bit-identical on a second launch; each shape timed per call
+    (CUDA events) for the kernel and for the plain version on the same
+    CUDA tensors (the tensor loop the kernel replaced), in turns."""
+    rng = np.random.default_rng(19)
+    kw = dict(adjust_focal=True, estimate_distortion=False,
+              focal_constraint=0.0, focal_weight=0.0)
+    rows = []
+    for sizes in ([9000], [700, 2500, 1200], [3000] * 4,
+                  [400, 9000, 2000, 6000, 1500, 800, 5000, 3500]):
+        ins = refine_problem(rng, sizes)
+        got = lm.camera_refine_batch(*ins, **kw)
+        again = lm.camera_refine_batch(*ins, **kw)
+        want = lm.camera_refine_batch_plain(*ins, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"refine_lm: two launches differ at {sizes}")
+        scale = want[0].abs().amax(1)
+        cam_err = float(((got[0] - want[0]).abs().amax(1) / scale).max())
+        r_err = float((got[1] - want[1]).abs().max())
+        check(cam_err <= 1e-8 and r_err <= 1e-7,
+              f"refine_lm vs plain at {sizes}: cam {cam_err}, R {r_err}")
+        ms, plain_ms = [], []
+        for turn in range(2):
+            k = cuda_ms(lambda: lm.camera_refine_batch(*ins, **kw), 10)
+            p = cuda_ms(lambda: lm.camera_refine_batch_plain(*ins, **kw), 2)
+            ms.append(k)
+            plain_ms.append(p)
+        iters = int(got[3].max())
+        bound, sm_bound = refine_bounds_ms(ins[4], got[3])
+        row = {"B": len(sizes), "N": max(sizes), "iters": iters,
+               "plain_iters": int(want[3].max()), "ms": min(ms),
+               "plain_ms": min(plain_ms), "ms_per_iter": min(ms) / iters,
+               "plain_ms_per_iter": min(plain_ms) / int(want[3].max()),
+               "bound_ms": bound, "sm_bound_ms": sm_bound,
+               "cam_err": cam_err, "R_err": r_err}
+        log(f"[refine] B {row['B']} N {row['N']}: kernel {row['ms']:.4f} ms "
+            f"({iters} iterations, {row['ms_per_iter']:.4f} ms each), plain "
+            f"{row['plain_ms']:.2f} ms ({row['plain_iters']} iterations, "
+            f"{row['plain_ms_per_iter']:.3f} ms each), f64 bound "
+            f"{bound:.4f} ms, one SM's {sm_bound:.4f} ms; cam "
+            f"{cam_err:.2e}, R {r_err:.2e}; turns "
+            f"{[round(x, 4) for x in ms]} / {[round(x, 2) for x in plain_ms]}")
+        rows.append(row)
+    return rows
 
 
 def read_scene(workdir):
@@ -1029,6 +1139,9 @@ def stage5_checks(work, imgs, box, stages, counters, rc_ok):
     plys = sorted(f for f in os.listdir(out) if f.endswith(".ply"))
     check(len(plys) > 0, "no round PLY was written")
     check(counters.get("ba_runs_cuda", 0) > 0, "the BA did not run on CUDA")
+    check(0 < counters.get("refine_lm_launches", 0)
+          == box["refine_launches"], "the refine LM kernel did not run "
+          f"once a call: {counters}, {box['refine_launches']}")
     q = bundle_quality(os.path.join(out, "bundle.out"), gt)
     ba_s = stages.get("ba", 0.0)
     rec = {"cameras": q["cameras"], "points": q["points"],
@@ -1040,6 +1153,7 @@ def stage5_checks(work, imgs, box, stages, counters, rc_ok):
            "stage5_wall_s": box["wall"],
            "lm_iters": int(counters.get("lm_iters", 0)),
            "refine_lm_iters": int(counters.get("refine_lm_iters", 0)),
+           "refine_lm_launches": int(counters.get("refine_lm_launches", 0)),
            "ba_host_syncs": int(counters.get("ba_host_syncs", 0)),
            "ba_runs_cuda": int(counters.get("ba_runs_cuda", 0)),
            "obs_iters_per_s": counters.get("ba_observations", 0.0)
@@ -1129,7 +1243,7 @@ def phase_main(dump=None):
                                    "--out", "bundle"])
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(matching_cuda.LAUNCHES)
+        launches = {**matching_cuda.LAUNCHES, **lm_cuda.LAUNCHES}
         variant_launches = sum(matching_variants.LAUNCHES.values())
         stages = dict(get_telemetry().stage_seconds)
         counters = dict(get_telemetry().counters)
@@ -1155,6 +1269,7 @@ def phase_main(dump=None):
         f"{box['peak'] / 2**30:.2f} GiB")
     if dump:
         dump_scene(box["scene"], dump)
+    box["refine_launches"] = launches["refine_lm"]
     failures = stage5_checks(work, imgs, box, stages, counters, rc == 0)
     log(f"[main] keys {sum(len(k) for k in key_xy)} "
         f"({min(len(k) for k in key_xy)}..{max(len(k) for k in key_xy)} per "
@@ -3401,7 +3516,7 @@ def main(argv=None):
         log(f"[partial] phases {phases} passed on {smi}")
         return 0
     phase_build()
-    t32 = phase_kernels()
+    t32, refine_rows = phase_kernels()
     kernels, failures, main_launches = phase_main(args.dump_scene)
     staged_launches, staged_failures = phase_staged()
     tools_launches, tools_failures = phase_tools()
@@ -3459,6 +3574,17 @@ def main(argv=None):
         k["e2e_launches"] = e2e_launches.get(k["name"], 0)
         k["pixels_launches"] = pixels_launches.get(k["name"], 0)
         k["scaling_launches"] = scaling_launches.get(k["name"], 0)
+    # The refine LM kernel's launches are counted on the main path only
+    # (the later phases count the 2-NN kernels' launches).
+    kernels.append(
+        {"name": "refine_lm", "route": "cuda", "source": REFINE_SOURCE,
+         "replaces": None, "launches": main_launches["refine_lm"],
+         "ms": [r["ms"] for r in refine_rows],
+         "plain_ms": [r["plain_ms"] for r in refine_rows],
+         "bound_ms": [r["bound_ms"] for r in refine_rows],
+         "sm_bound_ms": [r["sm_bound_ms"] for r in refine_rows],
+         "bound_by": "f64 operations (latency-bound)", "library_ms": None,
+         "shapes": [[r["B"], r["N"], r["iters"]] for r in refine_rows]})
     print(device_record(torch.device("cuda"))["nvidia_smi"][0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -130,6 +130,30 @@ def test_refine_lm_iters_counts_the_iterations_run(tel, rng, monkeypatch):
     assert tel.counters["refine_lm_iters"] == len(solves)
 
 
+def test_refine_on_cpu_takes_the_plain_path(tel, rng):
+    """camera_refine_batch on CPU tensors runs the plain version: no kernel
+    launch is counted, and each lane's iteration count comes back (0 for
+    a lane outside `active`); the kernel's wrapper refuses CPU tensors."""
+    from bundler_sfm_tpu_torch.ops import lm_cuda
+    B, N = 2, 40
+    sc = Scene(rng, num_cams=B, num_pts=N, noise=0.4)
+    cam0 = np.zeros((B, 9))
+    cam0[:, 0:3] = sc.centers + rng.normal(size=(B, 3)) * 0.05
+    cam0[:, 6] = sc.f
+    t = torch.from_numpy
+    args = (t(cam0), t(sc.R), t(np.broadcast_to(sc.points, (B, N, 3)).copy()),
+            t(np.stack(sc.obs)), torch.ones((B, N), dtype=torch.bool))
+    before = dict(lm_cuda.LAUNCHES)
+    cam, R, cost, iters = T_lm.camera_refine_batch(
+        *args, active=torch.tensor([True, False]))
+    assert lm_cuda.LAUNCHES == before
+    assert "refine_lm_launches" not in tel.counters
+    assert iters.dtype == torch.int32 and iters[0] > 0 and iters[1] == 0
+    assert torch.equal(cam[1], args[0][1]) and torch.equal(R[1], args[1][1])
+    with pytest.raises(ValueError, match="needs CUDA"):
+        lm_cuda.refine_lm(*args, True, False, 0.0, 0.0, 100.0, 50, 1e-3)
+
+
 def _self_s():
     from sfmbench import harness
     return harness.load_module(harness.PKG, "metrics", "sfm_self_s")
