@@ -24,8 +24,13 @@ class ImageEntry:
         return self.init_focal > 0.0
 
     def key_name(self, key_directory: str = ".") -> str:
-        base = os.path.splitext(os.path.basename(self.name))[0] + ".key"
-        return os.path.join(key_directory, base)
+        """The image's key file: beside the image with `key_directory`
+        ".", where ToSift writes it (`bin/ToSift.sh`; RunBundler.sh passes
+        no --key_dir), else the image's base name in `key_directory`."""
+        stem = os.path.splitext(self.name)[0]
+        if key_directory == ".":
+            return stem + ".key"
+        return os.path.join(key_directory, os.path.basename(stem) + ".key")
 
 
 def read_list_file(path: str, image_directory: str = ".") -> List[ImageEntry]:
