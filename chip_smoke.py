@@ -169,7 +169,13 @@ Phases (any failure raises, so the exit code is non-zero):
                largest entry of the full-C ones (one-shot tables at 256,
                chunked at 512); (c) at 256, 3 LM iterations of the
                windowed, chunked and one-shot full-C forms in turns, costs
-               within 1e-10 relative; window, groups, wide points,
+               within 1e-10 relative; (d) on the same arc at 24 cameras
+               / 4096 points and 32 / 6144 (6 views a point, the full-C
+               form) and on the 256-camera windowed problem, run_ba to
+               150 iterations replayed as CUDA graphs and run eagerly,
+               once each untimed, then in turns (graph, eager, eager,
+               graph): bit-identical, ms an iteration with the capture
+               left out, the capture's ms; window, groups, wide points,
                iterations, ms an iteration, BA seconds and peak memory
                printed as "[ba_scale]" lines.
  10. bench — the port's two benchmark programs, each with the launch
@@ -3109,6 +3115,57 @@ def _timed_assembly(prob, Y, W, g_p, **kw):
 
 
 @contextlib.contextmanager
+def _eager_lm():
+    """The LM loop run eagerly on the card for the duration (as on the
+    CPU): `_lm_graphs` holds no graphs."""
+    from bundler_sfm_tpu_torch.ops import ba as BA
+    saved = BA._lm_graphs
+    BA._lm_graphs = lambda *a: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        BA._lm_graphs = saved
+
+
+def _graph_vs_eager(tag, prob, check_later, **kw):
+    """run_ba(prob, 150, **kw) replayed as CUDA graphs and run eagerly,
+    once each untimed (the process's first BA pays its libraries' start),
+    then in turns (graph, eager, eager, graph): every result bit-identical;
+    ms an iteration of each turn with the capture (span ba_graph_capture)
+    left out, and the capture's ms."""
+    from bundler_sfm_tpu_torch.ops.ba import run_ba
+    from bundler_sfm_tpu_torch.utils import get_telemetry
+    tel = get_telemetry()
+    turns = {"graph": [], "eager": []}
+    capture_ms, results = [], {}
+    for mode in ("graph", "eager", "graph", "eager", "eager", "graph"):
+        cap0 = tel.stage_seconds.get("ba_graph_capture", 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _eager_lm() if mode == "eager" else contextlib.nullcontext():
+            r = run_ba(prob, 150, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cap = tel.stage_seconds.get("ba_graph_capture", 0.0) - cap0
+        if mode in results:
+            turns[mode].append(1e3 * (secs - cap) / r.iters)
+            if mode == "graph":
+                capture_ms.append(1e3 * cap)
+        results.setdefault(mode, r)
+    g, e = results["graph"], results["eager"]
+    same = g.iters == e.iters and all(torch.equal(
+        getattr(g, f), getattr(e, f))
+        for f in ("cam", "R", "pts", "cost", "initial_cost", "mu"))
+    rec = dict(iters=g.iters, graph_ms_per_iter=turns["graph"],
+               eager_ms_per_iter=turns["eager"], capture_ms=capture_ms,
+               bit_identical=same)
+    log(f"{tag} (d) {json.dumps(rec)}")
+    check_later(same, f"{tag} (d): the graph run differs from the eager "
+                "one")
+    return rec
+
+
+@contextlib.contextmanager
 def _one_shot_tables():
     """The full-C assembly in one chunk (the port's dense tables before
     they were chunked): SCHUR_TABLE_BYTES out of reach for the duration."""
@@ -3133,8 +3190,10 @@ def phase_ba_scale(cams=(256, 512)):
     full-C ones (256: the one-shot tables; 512: chunked), each assembly
     timed with its peak memory; (c) at 256, 3 LM iterations of the
     windowed, chunked full-C and one-shot full-C forms in turns: costs
-    within 1e-10 relative, ms per iteration.  No kernel may launch.
-    Returns (records, launches, failed checks)."""
+    within 1e-10 relative, ms per iteration; (d) the graph and eager LM
+    loops in turns (`_graph_vs_eager`) on the 24- and 32-camera arcs and at
+    256.  No kernel may launch.  Returns (records, launches, failed
+    checks)."""
     from bundler_sfm_tpu_torch.ops.ba import run_ba
     from bundler_sfm_tpu_torch.probes import ba_scale
     failures, records = [], {}
@@ -3143,6 +3202,11 @@ def phase_ba_scale(cams=(256, 512)):
     t_phase = time.time()
     torch.cuda.empty_cache()
     zero_launches()
+    for C, P, V in ((24, 4096, 6), (32, 6144, 6)):
+        sp = ba_scale.build(C, P, V, device="cuda")
+        records[C] = {"graph": _graph_vs_eager(
+            f"[ba_scale] {C} cams", sp.prob, check_later)}
+        del sp
     for n in cams:
         C, P, V = BA_SCALE_SIZES[n]
         tag = f"[ba_scale] {C} cams"
@@ -3175,6 +3239,10 @@ def phase_ba_scale(cams=(256, 512)):
         rec["rerun"] = dict(ba_s=rec2["ba_s"], ms_per_iter=rec2["ms_per_iter"],
                             bit_identical=same)
         del res, res2
+        if C == 256:
+            rec["graph"] = _graph_vs_eager(
+                tag, sp.prob, check_later, window=win["window"],
+                group_pts=win["group_pts"])
         # (b) one assembly of each form on the first linearization.
         prob = sp.prob
         Y, W, g_p = _ba_linearization(prob)
