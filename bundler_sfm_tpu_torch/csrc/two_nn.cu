@@ -15,8 +15,7 @@
 // Entry points:
 //   two_nn_pairs_i8      — the main path.  Centered int8 descriptors
 //                          (u8 - 128), a warp-specialised wgmma kernel (below),
-//                          one launch; with two_launch != 0 the instantiation
-//                          that reads two_nn_norms_i8's constants instead.
+//                          one launch.
 //   two_nn_pairs_f32     — f32 tables on the same machinery, operands rounded
 //                          to bf16, f32 accumulate, norms from the unrounded
 //                          values, d = (|q|^2 + |b|^2) - 2 q.b and the top-2 in
@@ -24,16 +23,14 @@
 //                          |x| <= 255: every quantity is an integer below 2^24
 //                          until the last subtraction, rounded as the plain
 //                          version rounds it); two_nn_prepass_f32 first.
-//   two_nn_pairs_i8_mma, two_nn_pairs_f32_mma — the first design (mma.sync
-//                          m16n8k32 / m16n8k16, db tiles staged synchronously
-//                          by all warps), kept as yardsticks.
 //
 // Bound on an H100: 2*B*Nq*Nd*128 int8 tensor-core operations (1979 TOP/s
 // dense, 4096 int8 MAC per clock per SM), and B*Nq*Nd top-2 updates on the
 // CUDA cores.  Every int8 distance is an integer below 2^23, so all of it
 // runs in int32 and is converted to f32 once: bit-identical to the XLA path.
 //
-// What held the first design back, and what this one does about it:
+// What held a first design (mma.sync m16n8k32 / m16n8k16, db tiles staged
+// synchronously by all warps) back, and what this one does about it:
 //  * Operand bandwidth.  Each of 8 warps loaded its own B fragments from
 //    shared memory with 32-bit loads: 256 B per m16n8k32 (4096 MAC, one SM
 //    clock at peak), against the 128 B per clock shared memory gives, so
@@ -62,10 +59,9 @@
 //    barrier (a cooperative launch keeps every block resident; the grid is
 //    one block per SM at most), then the ring copies each tile's constants
 //    beside it.  So an int8 call is one launch.  Two other designs were
-//    measured first (PERF.md, section 6): a separate norms kernel
-//    (two_nn_norms_i8, kept with the EXT instantiation as the two-launch
-//    yardstick) costs a launch and an allocation, 20-50 us of host time a
-//    call against its 3-6 us of device time; and two idle producer warps
+//    measured first (PERF.md, section 6): a separate norms kernel costs a
+//    launch and an allocation, 20-50 us of host time a call against its
+//    3-6 us of device time; and two idle producer warps
 //    writing each staged tile's constants from shared memory slowed the
 //    kernel by a third at 128 query rows a tile, because they share the
 //    issue slots with the consumers' epilogue, which bounds the kernel and
@@ -175,11 +171,10 @@ __device__ unsigned int grid_arrived;
 
 // TOP2: the exact 2-NN; else the product-only ablation (row max of q.b,
 // i0 = d1 = 0), which splits the kernel's time between product and top-2.
-// EXT: `norms` holds the column constants two_nn_norms_kernel wrote (the
-// two-launch form, kept as a yardstick); else the launch writes them there
-// itself in a pre-phase over the db table, then meets at a grid barrier
-// (a cooperative launch), and the ring loads them as before.
-template <bool TOP2, bool EXT>
+// The launch writes the column constants into `norms` itself in a
+// pre-phase over the db table, then meets at a grid barrier (a cooperative
+// launch), and the ring loads them beside each db tile.
+template <bool TOP2>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
                  const int8_t* __restrict__ qtab, long long q_stride, int nq,
@@ -189,12 +184,10 @@ two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
                  const int* __restrict__ pj, int num_items,
                  float* __restrict__ d0_out, int* __restrict__ i0_out,
                  float* __restrict__ d1_out) {
-  if constexpr (!EXT) {
-    table_constants(dbtab, n_img, nd, kp, db_counts, 0, norms, nullptr);
-    fence_proxy_async_global();
-    grid_barrier(&grid_arrived);
-    fence_proxy_async_global();
-  }
+  table_constants(dbtab, n_img, nd, kp, db_counts, 0, norms, nullptr);
+  fence_proxy_async_global();
+  grid_barrier(&grid_arrived);
+  fence_proxy_async_global();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -339,285 +332,6 @@ two_nn_ws_kernel(const __grid_constant__ CUtensorMap db_map,
   }
 }
 
-// c[j, r] = |b|^2 * 256 + r % NT for r < counts[j], else KEY_POISON, over
-// [n_img, kp]; eight threads share a row.
-__global__ void __launch_bounds__(256)
-two_nn_norms_kernel(const int8_t* __restrict__ tab, int n_img, int nd, int kp,
-                    const int* __restrict__ counts, int* __restrict__ out) {
-  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                         threadIdx.x) / 8;
-  const int part = threadIdx.x % 8;
-  const bool live = row < static_cast<long long>(n_img) * kp;
-  const int j = live ? static_cast<int>(row / kp) : 0;
-  const int r = live ? static_cast<int>(row % kp) : 0;
-  int s = 0;
-  if (live && r < nd) {
-    const int4 v = *reinterpret_cast<const int4*>(
-        tab + (static_cast<long long>(j) * nd + r) * DIM + part * 16);
-    s = __dp4a(v.x, v.x, s);
-    s = __dp4a(v.y, v.y, s);
-    s = __dp4a(v.z, v.z, s);
-    s = __dp4a(v.w, v.w, s);
-  }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  s += __shfl_xor_sync(0xffffffffu, s, 4);
-  if (live && part == 0) out[row] = r < counts[j] ? s * 256 + r % NT : KEY_POISON;
-}
-
-// ---------------------------- mma.sync template (i8_mma, f32_mma) ----
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int QT = WARPS * 16;    // query rows per block: one m16 tile per warp
-constexpr int DT = 64;            // db rows per shared-memory tile
-constexpr int POISON_I = 1 << 30; // |b|^2 of a padded int8 row
-constexpr int FAR_I = 1 << 29;    // int8 distances at or above this are padding
-
-// Centered int8 rows, int32 distances.
-struct I8 {
-  using elem = int8_t;
-  using dist = int;
-  static constexpr int STAGED_BYTES = 1;         // bytes per element in smem
-  static constexpr int ROW_BYTES = DIM + 16;     // +16: conflict-free fragment loads
-  static constexpr int KSTEPS = DIM / 32;        // m16n8k32
-  static constexpr dist INIT = 0x7fffffff;
-
-  // Thread `tid` stages 32 elements (row tid/4, chunk tid%4) of `rows` rows
-  // and returns the partial |row|^2 of its chunk.
-  __device__ static dist stage_chunk(const elem* src, unsigned char* dst) {
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4 v0 = s[0], v1 = s[1];
-    int4* d = reinterpret_cast<int4*>(dst);
-    d[0] = v0;
-    d[1] = v1;
-    int acc = 0;
-    acc = __dp4a(v0.x, v0.x, acc); acc = __dp4a(v0.y, v0.y, acc);
-    acc = __dp4a(v0.z, v0.z, acc); acc = __dp4a(v0.w, v0.w, acc);
-    acc = __dp4a(v1.x, v1.x, acc); acc = __dp4a(v1.y, v1.y, acc);
-    acc = __dp4a(v1.z, v1.z, acc); acc = __dp4a(v1.w, v1.w, acc);
-    return acc;
-  }
-  __device__ static dist poison() { return POISON_I; }
-
-  __device__ static void mma(int c[4], const uint32_t a[4], uint32_t b0,
-                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ static dist distance(dist qsq, dist bsq, int acc) {
-    return qsq + bsq - 2 * acc;
-  }
-  __device__ static dist dmin(dist a, dist b) { return min(a, b); }
-  __device__ static float to_float(dist d) {
-    return d >= FAR_I ? BIG : static_cast<float>(d);
-  }
-};
-
-// f32 rows staged as bf16, f32 distances.
-struct F32 {
-  using elem = float;
-  using dist = float;
-  static constexpr int STAGED_BYTES = 2;         // staged as bf16
-  static constexpr int ROW_BYTES = DIM * 2 + 16;
-  static constexpr int KSTEPS = DIM / 16;        // m16n8k16
-  static constexpr float INIT = BIG;
-
-  __device__ static dist stage_chunk(const elem* src, unsigned char* dst) {
-    const float4* s = reinterpret_cast<const float4*>(src);
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float4 v = s[i];
-      acc = __fadd_rn(acc, __fmul_rn(v.x, v.x));
-      acc = __fadd_rn(acc, __fmul_rn(v.y, v.y));
-      acc = __fadd_rn(acc, __fmul_rn(v.z, v.z));
-      acc = __fadd_rn(acc, __fmul_rn(v.w, v.w));
-      d[2 * i] = __floats2bfloat162_rn(v.x, v.y);
-      d[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
-    }
-    return acc;
-  }
-  __device__ static dist poison() { return BIG; }
-
-  __device__ static void mma(float c[4], const uint32_t a[4], uint32_t b0,
-                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ static dist distance(dist qsq, dist bsq, float acc) {
-    // (q_sq + b_sq) - 2*dots, the XLA path's order; no FMA contraction.
-    return __fsub_rn(__fadd_rn(qsq, bsq), __fmul_rn(2.0f, acc));
-  }
-  __device__ static dist dmin(dist a, dist b) { return fminf(a, b); }
-  __device__ static float to_float(dist d) { return d; }
-};
-
-// Stage `rows` rows of 128 elements into shared memory (row stride
-// T::ROW_BYTES) and write their squared norms; rows at or past `valid` get
-// the poisoned norm.  Four consecutive threads share a row.
-template <class T>
-__device__ void stage_rows(const typename T::elem* src, int rows, int valid,
-                           unsigned char* dst, typename T::dist* norms) {
-  constexpr int CHUNK = DIM / 4;
-  for (int r = threadIdx.x / 4; r < rows; r += THREADS / 4) {
-    const int c = threadIdx.x % 4;
-    typename T::dist s =
-        T::stage_chunk(src + static_cast<long long>(r) * DIM + c * CHUNK,
-                       dst + r * T::ROW_BYTES + c * CHUNK * T::STAGED_BYTES);
-    s = s + __shfl_xor_sync(0xffffffffu, s, 1);
-    s = s + __shfl_xor_sync(0xffffffffu, s, 2);
-    if (c == 0) norms[r] = r < valid ? s : T::poison();
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void top2_update(typename T::dist d, int col,
-                                            typename T::dist& b0, int& i0,
-                                            typename T::dist& b1) {
-  // Candidates reach a lane in increasing column order, so a strict `<`
-  // keeps the lowest index on ties; an equal distance becomes the runner-up.
-  const bool lt = d < b0;
-  b1 = lt ? b0 : T::dmin(b1, d);
-  i0 = lt ? col : i0;
-  b0 = lt ? d : b0;
-}
-
-template <class T>
-__device__ __forceinline__ void top2_merge(typename T::dist& b0, int& i0,
-                                           typename T::dist& b1, int lane_mask) {
-  const typename T::dist o0 = __shfl_xor_sync(0xffffffffu, b0, lane_mask);
-  const int oi = __shfl_xor_sync(0xffffffffu, i0, lane_mask);
-  const typename T::dist o1 = __shfl_xor_sync(0xffffffffu, b1, lane_mask);
-  const bool other = (o0 < b0) || (o0 == b0 && oi < i0);
-  const typename T::dist n1 = other ? T::dmin(b0, o1) : T::dmin(o0, b1);
-  b0 = other ? o0 : b0;
-  i0 = other ? oi : i0;
-  b1 = n1;
-}
-
-template <class T>
-__global__ void __launch_bounds__(THREADS)
-two_nn_kernel(const typename T::elem* __restrict__ qtab, long long q_stride,
-              int nq, const typename T::elem* __restrict__ dbtab,
-              long long db_stride, const int* __restrict__ db_counts,
-              const int* __restrict__ pi, const int* __restrict__ pj,
-              float* __restrict__ d0_out, int* __restrict__ i0_out,
-              float* __restrict__ d1_out) {
-  using dist = typename T::dist;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* q_s = smem;
-  unsigned char* db_s = q_s + QT * T::ROW_BYTES;
-  dist* qsq_s = reinterpret_cast<dist*>(db_s + DT * T::ROW_BYTES);
-  dist* bsq_s = qsq_s + QT;
-
-  const int q_tiles = nq / QT;
-  const int b = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * QT;
-  const int dj = pj[b];
-  const int dbc = db_counts[dj];
-  const typename T::elem* qbase =
-      qtab + static_cast<long long>(pi[b]) * q_stride +
-      static_cast<long long>(q0) * DIM;
-  const typename T::elem* dbase = dbtab + static_cast<long long>(dj) * db_stride;
-
-  stage_rows<T>(qbase, QT, QT, q_s, qsq_s);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row group
-  const int t = lane & 3;    // thread in group
-  const int r0 = warp * 16 + g;
-
-  // A fragments for this warp's 16 query rows stay in registers.
-  uint32_t a[T::KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < T::KSTEPS; ++kk) {
-    const unsigned char* p0 = q_s + r0 * T::ROW_BYTES + kk * 32 + t * 4;
-    const unsigned char* p1 = p0 + 8 * T::ROW_BYTES;
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(p0);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(p1);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-  }
-  const dist qs_lo = qsq_s[r0];
-  const dist qs_hi = qsq_s[r0 + 8];
-
-  dist lo0 = T::INIT, lo1 = T::INIT, hi0 = T::INIT, hi1 = T::INIT;
-  int lo_i = 0, hi_i = 0;
-
-  // Only tiles holding a valid row run, so a db without one leaves i0 = 0.
-  const int n_tiles = (dbc + DT - 1) / DT;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<T>(dbase + static_cast<long long>(tile) * DT * DIM, DT,
-                  dbc - tile * DT, db_s, bsq_s);
-    __syncthreads();
-#pragma unroll 2
-    for (int nt = 0; nt < DT / 8; ++nt) {
-      dist c[4] = {0, 0, 0, 0};
-      const unsigned char* brow = db_s + (nt * 8 + g) * T::ROW_BYTES + t * 4;
-#pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(brow + kk * 32);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(brow + kk * 32 + 16);
-        T::mma(c, a[kk], b0, b1);
-      }
-      const int cl = nt * 8 + t * 2;
-      const dist bs0 = bsq_s[cl];
-      const dist bs1 = bsq_s[cl + 1];
-      const int col = tile * DT + cl;
-      top2_update<T>(T::distance(qs_lo, bs0, c[0]), col, lo0, lo_i, lo1);
-      top2_update<T>(T::distance(qs_lo, bs1, c[1]), col + 1, lo0, lo_i, lo1);
-      top2_update<T>(T::distance(qs_hi, bs0, c[2]), col, hi0, hi_i, hi1);
-      top2_update<T>(T::distance(qs_hi, bs1, c[3]), col + 1, hi0, hi_i, hi1);
-    }
-  }
-
-  // The four lanes of a row group hold interleaved columns: merge them.
-  top2_merge<T>(lo0, lo_i, lo1, 1);
-  top2_merge<T>(lo0, lo_i, lo1, 2);
-  top2_merge<T>(hi0, hi_i, hi1, 1);
-  top2_merge<T>(hi0, hi_i, hi1, 2);
-  if (t == 0) {
-    const long long o = static_cast<long long>(b) * nq + q0 + r0;
-    d0_out[o] = T::to_float(lo0);
-    i0_out[o] = lo_i;
-    d1_out[o] = T::to_float(lo1);
-    d0_out[o + 8] = T::to_float(hi0);
-    i0_out[o + 8] = hi_i;
-    d1_out[o + 8] = T::to_float(hi1);
-  }
-}
-
-template <class T>
-int launch(const void* qtab, long long q_stride, int nq, const void* dbtab,
-           long long db_stride, const int* db_counts, const int* pi,
-           const int* pj, int num_pairs, float* d0, int* i0, float* d1,
-           cudaStream_t stream) {
-  if (num_pairs == 0 || nq == 0) return 0;
-  const int smem = (QT + DT) * T::ROW_BYTES +
-                   (QT + DT) * static_cast<int>(sizeof(typename T::dist));
-  static std::atomic<int> cache[MAX_DEVICES];
-  const int sms = sm_count_for(two_nn_kernel<T>, smem, cache);
-  if (sms < 0) return -sms;
-  const long long blocks = static_cast<long long>(num_pairs) * (nq / QT);
-  two_nn_kernel<T><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
-      static_cast<const typename T::elem*>(qtab), q_stride, nq,
-      static_cast<const typename T::elem*>(dbtab), db_stride, db_counts, pi,
-      pj, d0, i0, d1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ------------------------------------------------- f32 wgmma kernel ----
 
 constexpr int F32_TILE_BYTES = 2 * BOX_BYTES;   // 128 bf16 rows: two boxes
@@ -652,6 +366,20 @@ __device__ __forceinline__ void top2f(float d, int col, float& b0, int& k0,
   k0 = d < b0 ? col : k0;
   b1 = fminf(b1, fmaxf(b0, d));
   b0 = fminf(b0, d);
+}
+
+// Merge the running top-2 of the lanes `lane ^ lane_mask` (on ties the
+// lower column wins; afterwards both lanes hold the same entry).
+__device__ __forceinline__ void top2_merge(float& b0, int& i0, float& b1,
+                                           int lane_mask) {
+  const float o0 = __shfl_xor_sync(0xffffffffu, b0, lane_mask);
+  const int oi = __shfl_xor_sync(0xffffffffu, i0, lane_mask);
+  const float o1 = __shfl_xor_sync(0xffffffffu, b1, lane_mask);
+  const bool other = (o0 < b0) || (o0 == b0 && oi < i0);
+  const float n1 = other ? fminf(b0, o1) : fminf(o0, b1);
+  b0 = other ? o0 : b0;
+  i0 = other ? oi : i0;
+  b1 = n1;
 }
 
 // Merge a tile's top-2 (b0, column col0 + k0, b1) into the running
@@ -869,10 +597,10 @@ two_nn_f32_ws_kernel(const __grid_constant__ CUtensorMap q_map,
       // The four lanes of a row group hold interleaved columns: merge them.
       const long long o = static_cast<long long>(b) * nq + row;
       if constexpr (TOP2) {
-        top2_merge<F32>(e0lo, i0lo, e1lo, 1);
-        top2_merge<F32>(e0lo, i0lo, e1lo, 2);
-        top2_merge<F32>(e0hi, i0hi, e1hi, 1);
-        top2_merge<F32>(e0hi, i0hi, e1hi, 2);
+        top2_merge(e0lo, i0lo, e1lo, 1);
+        top2_merge(e0lo, i0lo, e1lo, 2);
+        top2_merge(e0hi, i0hi, e1hi, 1);
+        top2_merge(e0hi, i0hi, e1hi, 2);
         if (t == 0) {
           d0_out[o] = e0lo;
           i0_out[o] = i0lo;
@@ -977,7 +705,7 @@ int launch_f32(const void* q16, long long q_stride, int n_img_q, int nq,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TOP2, bool EXT>
+template <bool TOP2>
 int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
               int n_img, int nd, const int* db_counts, int* norms,
               const int* pi, const int* pj, int num_pairs, float* d0, int* i0,
@@ -991,15 +719,15 @@ int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
                    static_cast<long long>(n_img) * nd, DIM, DIM))
     return static_cast<int>(cudaErrorInvalidValue);
   const int kp = (nd + NT - 1) / NT * NT;
-  if (!EXT && static_cast<long long>(n_img) * kp >= PRE_MAX_ROWS)
+  if (static_cast<long long>(n_img) * kp >= PRE_MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   static std::atomic<int> cache[MAX_DEVICES];
-  const int sms = sm_count_for(two_nn_ws_kernel<TOP2, EXT>, SMEM_WS, cache);
+  const int sms = sm_count_for(two_nn_ws_kernel<TOP2>, SMEM_WS, cache);
   if (sms < 0) return -sms;
   const long long items = static_cast<long long>(num_pairs) * (nq / QT_WS);
   const int grid = static_cast<int>(items < sms ? items : sms);
-  return launch_kernel(two_nn_ws_kernel<TOP2, EXT>, grid, WS_THREADS, SMEM_WS,
-                       stream, !EXT, map, static_cast<const int8_t*>(qtab),
+  return launch_kernel(two_nn_ws_kernel<TOP2>, grid, WS_THREADS, SMEM_WS,
+                       stream, true, map, static_cast<const int8_t*>(qtab),
                        q_stride, nq, static_cast<const int8_t*>(dbtab), n_img,
                        nd, db_counts, norms, kp, pi, pj,
                        static_cast<int>(items), d0, i0, d1);
@@ -1009,68 +737,31 @@ int launch_ws(const void* qtab, long long q_stride, int nq, const void* dbtab,
 
 extern "C" {
 
-// Norm constants of a centered int8 table [n_img, nd, 128] for
-// two_nn_pairs_i8: out is int32 [n_img, kp], kp = nd rounded up to 128.
-int two_nn_norms_i8(const void* dbtab, int n_img, int nd, const int* db_counts,
-                    int* out, void* stream) {
-  const int kp = (nd + NT - 1) / NT * NT;
-  const long long threads = static_cast<long long>(n_img) * kp * 8;
-  if (threads == 0) return 0;
-  two_nn_norms_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(dbtab), n_img, nd, kp, db_counts, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Centered int8 tables: qtab [*, nq, 128] with per-image element stride
 // q_stride, dbtab [n_img, nd, 128] contiguous and 16-byte aligned, norms
-// int32 [n_img, kp] (kp = nd rounded up to 128): with two_launch != 0 the
-// constants two_nn_norms_i8 wrote for the same table and counts, else
-// scratch the kernel writes them to itself (one launch).  nq % 128 == 0,
+// int32 [n_img, kp] (kp = nd rounded up to 128): scratch the kernel writes
+// the column constants to itself (one launch).  nq % 128 == 0,
 // db_counts[j] <= nd.  Outputs are [num_pairs, nq].  Returns a CUDA error
 // code (0 on success).
 int two_nn_pairs_i8(const void* qtab, long long q_stride, int nq,
                     const void* dbtab, int n_img, int nd, const int* db_counts,
-                    int* norms, int two_launch, const int* pi, const int* pj,
-                    int num_pairs, float* d0, int* i0, float* d1,
-                    void* stream) {
-  auto launch = two_launch ? launch_ws<true, true> : launch_ws<true, false>;
-  return launch(qtab, q_stride, nq, dbtab, n_img, nd, db_counts, norms, pi, pj,
-                num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
+                    int* norms, const int* pi, const int* pj, int num_pairs,
+                    float* d0, int* i0, float* d1, void* stream) {
+  return launch_ws<true>(qtab, q_stride, nq, dbtab, n_img, nd, db_counts,
+                         norms, pi, pj, num_pairs, d0, i0, d1,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The same kernel with the top-2 epilogue replaced by one max a score:
 // d0 = max of q.b over the valid db rows (-3e38 if none), i0 = d1 = 0.
 int two_nn_product_max_i8(const void* qtab, long long q_stride, int nq,
                           const void* dbtab, int n_img, int nd,
-                          const int* db_counts, int* norms, int two_launch,
-                          const int* pi, const int* pj, int num_pairs,
-                          float* d0, int* i0, float* d1, void* stream) {
-  auto launch = two_launch ? launch_ws<false, true> : launch_ws<false, false>;
-  return launch(qtab, q_stride, nq, dbtab, n_img, nd, db_counts, norms, pi, pj,
-                num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
-}
-
-// The mma.sync instantiations.  Tables are contiguous [n_img, rows, 128];
-// q_stride / db_stride are the per-image element strides.  nq % 128 == 0,
-// db rows per image % 64 == 0, db_counts[j] <= db rows.  Outputs are
-// [num_pairs, nq].  Returns the CUDA error code of the launch.
-int two_nn_pairs_i8_mma(const void* qtab, long long q_stride, int nq,
-                        const void* dbtab, long long db_stride,
-                        const int* db_counts, const int* pi, const int* pj,
-                        int num_pairs, float* d0, int* i0, float* d1,
-                        void* stream) {
-  return launch<I8>(qtab, q_stride, nq, dbtab, db_stride, db_counts, pi, pj,
-                    num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
-}
-
-int two_nn_pairs_f32_mma(const void* qtab, long long q_stride, int nq,
-                         const void* dbtab, long long db_stride,
-                         const int* db_counts, const int* pi, const int* pj,
-                         int num_pairs, float* d0, int* i0, float* d1,
-                         void* stream) {
-  return launch<F32>(qtab, q_stride, nq, dbtab, db_stride, db_counts, pi, pj,
-                     num_pairs, d0, i0, d1, static_cast<cudaStream_t>(stream));
+                          const int* db_counts, int* norms, const int* pi,
+                          const int* pj, int num_pairs, float* d0, int* i0,
+                          float* d1, void* stream) {
+  return launch_ws<false>(qtab, q_stride, nq, dbtab, n_img, nd, db_counts,
+                          norms, pi, pj, num_pairs, d0, i0, d1,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The f32 kernel's pre-pass: tab f32 [n_img, nd, 128] contiguous and

@@ -27,11 +27,8 @@
 // two db rows are valid included, and ties go to the lowest db index
 // (_tile_top2; the 512-row fold keeps the running entry, _merge_top2).
 //
-// Two designs live here.
-//
-// 1. Warp-specialised (variant_ws_kernel): every oneblock instantiation of
-//    both dots, blockmerge and both ablations -- what the probe path
-//    launches.
+// The design: a warp-specialised kernel (variant_ws_kernel) for every
+// oneblock instantiation of both dots, blockmerge and both ablations.
 //    The machinery of two_nn.cu's int8 kernel (wgmma_ring.cuh), generalised to TQ:
 //    a persistent grid walks (pair, query tile of TQ rows) items; a producer
 //    thread keeps a 4-stage TMA + mbarrier ring of 128-row db tiles
@@ -50,9 +47,8 @@
 //    |q|^2 of every table row once, into scratch the wrapper allocates
 //    with the outputs, and the grid meets at a barrier (a cooperative
 //    launch) before the ring starts; as in two_nn.cu, neither a separate
-//    pre-pass kernel (prepass_kernel, kept with the EXT instantiations as
-//    the two-launch yardsticks: a launch and 30-60 us of host time for 3-6
-//    us of device work) nor producer warps writing constants per staged
+//    pre-pass kernel (a launch and 30-60 us of host time for 3-6 us of
+//    device work) nor producer warps writing constants per staged
 //    tile (a third slower at TQ 128, twice as slow with the bf16 dot, in
 //    the issue slots the epilogue needs) did as well (PERF.md, section 6).
 //    The epilogue is two_nn.cu's: packed (distance,
@@ -66,8 +62,8 @@
 //    raised to KEY_POISON.
 //    The bf16 dot: wgmma m64n128k16.f32.bf16.bf16.  The ring needs bf16 B,
 //    and TMA cannot convert, so it loads a bf16 copy of the table, which
-//    prepass_kernel writes (the table alone: tab16 without norms) once per
-//    table: the caller makes it and passes it to every call on that table
+//    prepass_kernel writes once per table: the caller makes it and passes
+//    it to every call on that table
 //    (the probe: one launch for all its bf16 calls), else the wrapper
 //    makes it per call.  It is 12.6 MB at 24 x 2048 rows, a few
 //    microseconds of bytes, and stands in for the TPU kernel's in-VMEM
@@ -128,25 +124,6 @@
 //    in two_nn.cu: 4 integer instructions a score (5 with the bf16 FADD, 2
 //    for TOP1, 1 for MAX) against one m64n128k32 wgmma (64 tensor clocks)
 //    per 8192 scores.
-//
-// 2. The first design (variant_kernel, mma.sync), kept as the yardstick:
-//    two_nn_oneblock_mma, two_nn_blockmerge_bf16_mma, two_nn_ablation_mma.
-//    Its notes follow.
-//
-// What TQ means in the first design.  On the TPU, TQ rows of queries meet
-// the whole db in one [TQ, K] f32 score tile in VMEM.  Here no score tile
-// exists in memory: scores live in mma accumulators and are folded into
-// per-row registers at once.  TQ is the number of query rows that share one
-// 64-row db tile staged in shared memory (K/TQ reloads per pair).  The block
-// has 8 warps at every TQ, the query tile is staged once in shared memory as
-// int8 (TQ x 144 B), and each warp owns TQ/128 m-tiles whose top-2 state
-// stays in registers; a warp reloads an m-tile's A fragments from shared
-// memory once per db tile and converts int8 to bf16 there for the bf16 dot.
-// What held it back (measured, PERF.md): each of 8 warps loads its own B
-// fragments from shared memory with 32-bit loads (256 B per m16n8k32
-// against 128 B per clock), the A reloads at TQ > 128, db staging that
-// overlaps nothing and recomputes |b|^2 K/TQ times per pair, and ~6
-// instructions a score of top-2 in f32 max form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,12 +139,7 @@ namespace {
 using namespace wsk;
 
 constexpr int DIM = 128;              // descriptor length
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int DT = 64;                // db rows per staged shared-memory tile
 constexpr int BD = 512;               // db rows per block of the blockmerge fold
-constexpr int Q_ROW = DIM + 16;       // staged int8 query row (+16: conflict-free)
-constexpr float HALF_POISON = 0.5f * BIG;
 
 enum Mode { TOP2 = 0, TOP1 = 1, MAX = 2 };
 
@@ -186,346 +158,11 @@ __device__ __forceinline__ uint32_t pack_bf16x2(int lo, int hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// int8 operands, int32 accumulators: mma.sync.m16n8k32.
-struct I8Dot {
-  using acc = int;
-  static constexpr int KSTEPS = DIM / 32;
-  static constexpr int DB_ROW = DIM + 16;        // staged db row, bytes
-
-  // A fragments of k-step kk for rows g and g + 8 of the m-tile at `row_g`.
-  __device__ static void load_a(uint32_t a[4], const unsigned char* row_g,
-                                int kk, int t) {
-    const unsigned char* p0 = row_g + kk * 32 + t * 4;
-    const unsigned char* p1 = p0 + 8 * Q_ROW;
-    a[0] = ld32(p0);
-    a[1] = ld32(p1);
-    a[2] = ld32(p0 + 16);
-    a[3] = ld32(p1 + 16);
-  }
-  // Thread's 32 int8 of a db row (words w[0..7]) into the staged row.
-  __device__ static void stage(const uint32_t w[8], unsigned char* row, int c) {
-    uint4* d = reinterpret_cast<uint4*>(row + c * 32);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  }
-  // B fragments of k-step kk; `brow` = staged row g of the n-tile + t*4 bytes.
-  __device__ static void load_b(uint32_t& b0, uint32_t& b1,
-                                const unsigned char* brow, int kk) {
-    b0 = ld32(brow + kk * 32);
-    b1 = ld32(brow + kk * 32 + 16);
-  }
-  __device__ static void mma(int c[4], const uint32_t a[4], uint32_t b0,
-                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ static float to_f32(int c) { return __int2float_rn(c); }
-};
-
-// The int8 values as bf16 operands, f32 accumulators: mma.sync.m16n8k16.
-struct Bf16Dot {
-  using acc = float;
-  static constexpr int KSTEPS = DIM / 16;
-  static constexpr int DB_ROW = 2 * DIM + 16;    // staged as bf16
-
-  __device__ static uint32_t cvt2(const unsigned char* p) {
-    const signed char* s = reinterpret_cast<const signed char*>(p);
-    return pack_bf16x2(s[0], s[1]);
-  }
-  __device__ static void load_a(uint32_t a[4], const unsigned char* row_g,
-                                int kk, int t) {
-    const unsigned char* p0 = row_g + kk * 16 + t * 2;
-    const unsigned char* p1 = p0 + 8 * Q_ROW;
-    a[0] = cvt2(p0);
-    a[1] = cvt2(p1);
-    a[2] = cvt2(p0 + 8);
-    a[3] = cvt2(p1 + 8);
-  }
-  __device__ static void stage(const uint32_t w[8], unsigned char* row, int c) {
-    uint32_t h[16];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      h[2 * i] = pack_bf16x2(sbyte(w[i], 0), sbyte(w[i], 1));
-      h[2 * i + 1] = pack_bf16x2(sbyte(w[i], 2), sbyte(w[i], 3));
-    }
-    uint4* d = reinterpret_cast<uint4*>(row + c * 64);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      d[i] = make_uint4(h[4 * i], h[4 * i + 1], h[4 * i + 2], h[4 * i + 3]);
-  }
-  __device__ static void load_b(uint32_t& b0, uint32_t& b1,
-                                const unsigned char* brow, int kk) {
-    b0 = ld32(brow + kk * 32);
-    b1 = ld32(brow + kk * 32 + 16);
-  }
-  __device__ static void mma(float c[4], const uint32_t a[4], uint32_t b0,
-                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ static float to_f32(float c) { return c; }
-};
-
-// Thread `tid` loads 32 int8 (row tid/4, chunk tid%4) as 8 words and returns
-// the squared norm of the whole row (summed over the row's 4 lanes).
-__device__ __forceinline__ int load_chunk(const int8_t* row_src, int c,
-                                          uint32_t w[8]) {
-  const uint4* s = reinterpret_cast<const uint4*>(row_src + c * 32);
-  const uint4 v0 = s[0], v1 = s[1];
-  w[0] = v0.x; w[1] = v0.y; w[2] = v0.z; w[3] = v0.w;
-  w[4] = v1.x; w[5] = v1.y; w[6] = v1.z; w[7] = v1.w;
-  int acc = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    acc = __dp4a(static_cast<int>(w[i]), static_cast<int>(w[i]), acc);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  return acc;
+// Two int8 values as a pair of bf16.
+__device__ __forceinline__ uint32_t cvt2(const unsigned char* p) {
+  const signed char* s = reinterpret_cast<const signed char*>(p);
+  return pack_bf16x2(s[0], s[1]);
 }
-
-// Running top-2 of one query row on one lane, in max form.
-struct Top2 {
-  float b0, b1;
-  int i0;
-  __device__ void reset() { b0 = -BIG; b1 = -BIG; i0 = 0; }
-};
-
-template <int MODE>
-__device__ __forceinline__ void consider(Top2& s, float m, int col) {
-  if (MODE == MAX) {
-    s.b0 = fmaxf(s.b0, m);
-  } else {
-    const bool gt = m > s.b0;
-    if (MODE == TOP2) s.b1 = gt ? s.b0 : fmaxf(s.b1, m);
-    s.i0 = gt ? col : s.i0;
-    s.b0 = gt ? m : s.b0;
-  }
-}
-
-// Merge the top-2 of the lanes `lane ^ mask` (on ties the lower index wins;
-// afterwards both lanes hold the same entry).
-__device__ __forceinline__ void merge_lanes(Top2& s, int mask) {
-  const float o0 = __shfl_xor_sync(0xffffffffu, s.b0, mask);
-  const int oi = __shfl_xor_sync(0xffffffffu, s.i0, mask);
-  const float o1 = __shfl_xor_sync(0xffffffffu, s.b1, mask);
-  const bool other = o0 > s.b0 || (o0 == s.b0 && oi < s.i0);
-  const float n1 = other ? fmaxf(s.b0, o1) : fmaxf(o0, s.b1);
-  s.b0 = other ? o0 : s.b0;
-  s.i0 = other ? oi : s.i0;
-  s.b1 = n1;
-}
-
-// _merge_top2: fold a block's top-2 into the running one; ties keep the
-// running (earlier, lower-index) entry.
-__device__ __forceinline__ void fold_block(Top2& r, const Top2& m) {
-  const bool a_first = r.b0 >= m.b0;
-  const float loser = a_first ? m.b0 : r.b0;
-  const float own2 = a_first ? r.b1 : m.b1;
-  r.i0 = a_first ? r.i0 : m.i0;
-  r.b0 = a_first ? r.b0 : m.b0;
-  r.b1 = fmaxf(loser, own2);
-}
-
-__device__ __forceinline__ float distance(float qsq, float m) {
-  return __fsub_rn(qsq, __fmul_rn(2.0f, m));
-}
-
-// One block: TQ query rows of one pair against that pair's db, 8 warps, each
-// owning MT = TQ/128 m-tiles of 16 rows (rows (mt*8 + warp)*16 ...).  With
-// MERGE, per-lane state is reset every BD db rows and the block's top-2 is
-// folded into a running top-2 (the blockmerge variant).
-template <int TQ, class D, int MODE, bool MERGE>
-__global__ void __launch_bounds__(THREADS)
-variant_kernel(const int8_t* __restrict__ table, int K,
-               const int* __restrict__ counts, const int* __restrict__ pi,
-               const int* __restrict__ pj, float* __restrict__ d0_out,
-               int* __restrict__ i0_out, float* __restrict__ d1_out) {
-  constexpr int MT = TQ / (WARPS * 16);
-  constexpr bool NORMS = MODE != MAX;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* q_s = smem;
-  unsigned char* db_s = q_s + TQ * Q_ROW;
-  float* hb_s = reinterpret_cast<float*>(db_s + DT * D::DB_ROW);
-  int* qsq_s = reinterpret_cast<int*>(hb_s + DT);
-
-  const int q_tiles = K / TQ;
-  const int b = blockIdx.x / q_tiles;
-  const int q0 = (blockIdx.x % q_tiles) * TQ;
-  const int dj = pj[b];
-  const int count = counts[dj];
-  const int8_t* qbase =
-      table + (static_cast<long long>(pi[b]) * K + q0) * DIM;
-  const int8_t* dbase = table + static_cast<long long>(dj) * K * DIM;
-
-  const int c = threadIdx.x % 4;
-  for (int r = threadIdx.x / 4; r < TQ; r += THREADS / 4) {
-    uint32_t w[8];
-    const int sq = load_chunk(qbase + static_cast<long long>(r) * DIM, c, w);
-    I8Dot::stage(w, q_s + r * Q_ROW, c);
-    if (c == 0) qsq_s[r] = sq;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  Top2 run[MT][2], blk[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    run[mt][0].reset(); run[mt][1].reset();
-    blk[mt][0].reset(); blk[mt][1].reset();
-  }
-  uint32_t a[D::KSTEPS][4];
-  auto load_tile_a = [&](int mt) {
-    const unsigned char* row_g = q_s + ((mt * WARPS + warp) * 16 + g) * Q_ROW;
-#pragma unroll
-    for (int kk = 0; kk < D::KSTEPS; ++kk) D::load_a(a[kk], row_g, kk, t);
-  };
-  if constexpr (MT == 1) load_tile_a(0);
-
-  // Tiles past the count hold only poisoned rows and cannot change the
-  // top-2 (at least one tile always runs); "matmul_max" reads all K rows.
-  const int n_tiles =
-      MODE == MAX ? K / DT : max(1, (count + DT - 1) / DT);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    __syncthreads();  // every warp is done with the previous tile
-    {
-      const int r = threadIdx.x / 4;   // DT * 4 == THREADS: one chunk each
-      uint32_t w[8];
-      const int sq = load_chunk(
-          dbase + (static_cast<long long>(tile) * DT + r) * DIM, c, w);
-      D::stage(w, db_s + r * D::DB_ROW, c);
-      if (NORMS && c == 0)
-        hb_s[r] = tile * DT + r < count ? 0.5f * __int2float_rn(sq)
-                                        : HALF_POISON;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      if constexpr (MT > 1) load_tile_a(mt);
-      Top2& lo = MERGE ? blk[mt][0] : run[mt][0];
-      Top2& hi = MERGE ? blk[mt][1] : run[mt][1];
-#pragma unroll 2
-      for (int nt = 0; nt < DT / 8; ++nt) {
-        typename D::acc acc[4] = {0, 0, 0, 0};
-        const unsigned char* brow = db_s + (nt * 8 + g) * D::DB_ROW + t * 4;
-#pragma unroll
-        for (int kk = 0; kk < D::KSTEPS; ++kk) {
-          uint32_t b0, b1;
-          D::load_b(b0, b1, brow, kk);
-          D::mma(acc, a[kk], b0, b1);
-        }
-        const int cl = nt * 8 + t * 2;
-        const int col = tile * DT + cl;
-        float s[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i] = D::to_f32(acc[i]);
-        if (NORMS) {
-          const float h0 = hb_s[cl], h1 = hb_s[cl + 1];
-          s[0] = __fsub_rn(s[0], h0);
-          s[1] = __fsub_rn(s[1], h1);
-          s[2] = __fsub_rn(s[2], h0);
-          s[3] = __fsub_rn(s[3], h1);
-        }
-        consider<MODE>(lo, s[0], col);
-        consider<MODE>(lo, s[1], col + 1);
-        consider<MODE>(hi, s[2], col);
-        consider<MODE>(hi, s[3], col + 1);
-      }
-    }
-    if constexpr (MERGE) {
-      if ((tile + 1) % (BD / DT) == 0 || tile + 1 == n_tiles) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            merge_lanes(blk[mt][h], 1);
-            merge_lanes(blk[mt][h], 2);
-            fold_block(run[mt][h], blk[mt][h]);
-            blk[mt][h].reset();
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      Top2& s = run[mt][h];
-      if constexpr (!MERGE) {   // the four lanes of a row hold other columns
-        merge_lanes(s, 1);
-        merge_lanes(s, 2);
-      }
-      if (t == 0) {
-        const int row = (mt * WARPS + warp) * 16 + g + 8 * h;
-        const long long o = static_cast<long long>(b) * K + q0 + row;
-        const float qsq = __int2float_rn(qsq_s[row]);
-        if (MODE == MAX) {
-          d0_out[o] = s.b0;
-          i0_out[o] = 0;
-          d1_out[o] = 0.0f;
-        } else {
-          d0_out[o] = distance(qsq, s.b0);
-          i0_out[o] = s.i0;
-          d1_out[o] = MODE == TOP2 ? distance(qsq, s.b1) : 0.0f;
-        }
-      }
-    }
-  }
-}
-
-struct Args {
-  const void* table;
-  int K;
-  const int* counts;
-  const int* pi;
-  const int* pj;
-  int num_pairs;
-  float* d0;
-  int* i0;
-  float* d1;
-  cudaStream_t stream;
-};
-
-template <int TQ, class D, int MODE, bool MERGE>
-int launch(const Args& x) {
-  if (x.K <= 0 || x.K % TQ || (MERGE && x.K % BD))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (x.num_pairs == 0) return 0;
-  const int smem = TQ * Q_ROW + DT * D::DB_ROW + DT * 4 + TQ * 4;
-  static std::atomic<int> cache[MAX_DEVICES];
-  const int sms = sm_count_for(variant_kernel<TQ, D, MODE, MERGE>, smem,
-                               cache);
-  if (sms < 0) return -sms;
-  const long long blocks = static_cast<long long>(x.num_pairs) * (x.K / TQ);
-  variant_kernel<TQ, D, MODE, MERGE>
-      <<<static_cast<unsigned>(blocks), THREADS, smem, x.stream>>>(
-      static_cast<const int8_t*>(x.table), x.K, x.counts, x.pi, x.pj, x.d0,
-      x.i0, x.d1);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class D>
-int launch_oneblock(const Args& x, int tq) {
-  switch (tq) {
-    case 128: return launch<128, D, TOP2, false>(x);
-    case 256: return launch<256, D, TOP2, false>(x);
-    case 512: return launch<512, D, TOP2, false>(x);
-    case 1024: return launch<1024, D, TOP2, false>(x);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 
 // ------------------------------------------- warp-specialised design ----
 
@@ -610,10 +247,10 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[C::A_REGS][4],
   for (int kk = 0; kk < C::KSTEPS; ++kk) {
     if constexpr (C::BF16) {
       const int c = kk * 16 + 2 * t;
-      a[kk][0] = Bf16Dot::cvt2(lo + c);
-      a[kk][1] = Bf16Dot::cvt2(hi + c);
-      a[kk][2] = Bf16Dot::cvt2(lo + c + 8);
-      a[kk][3] = Bf16Dot::cvt2(hi + c + 8);
+      a[kk][0] = cvt2(lo + c);
+      a[kk][1] = cvt2(hi + c);
+      a[kk][2] = cvt2(lo + c + 8);
+      a[kk][3] = cvt2(hi + c + 8);
     } else {
       const int c = kk * 32 + 4 * t;
       a[kk][0] = ld32(lo + c);
@@ -708,11 +345,10 @@ __device__ unsigned int grid_arrived;
 // TQ 128 with the int8 dot only: the ablations "top1" (d0, i0 of the
 // nearest valid row, d1 = 0) and "matmul_max" (d0 = row max of q.b over all
 // K db rows, i0 = d1 = 0; the producer streams every tile of the db image
-// and no column constants).  EXT: `norms` and `qsq` hold what
-// prepass_kernel wrote (the two-launch form, kept as a yardstick); else
-// the launch writes them there itself in a pre-phase over the table, then
+// and no column constants).  The launch writes the column constants and
+// |q|^2 into `norms` and `qsq` itself in a pre-phase over the table, then
 // meets at a grid barrier (a cooperative launch).  MAX reads neither.
-template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
+template <int TQ, bool BF16, bool MERGE, int MODE>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 variant_ws_kernel(const __grid_constant__ CUtensorMap map,
                   const int8_t* __restrict__ table, int n_img, int K,
@@ -721,7 +357,7 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
                   const int* __restrict__ pj, int num_items,
                   float* __restrict__ d0_out, int* __restrict__ i0_out,
                   float* __restrict__ d1_out) {
-  if constexpr (!EXT && MODE != MAX) {
+  if constexpr (MODE != MAX) {
     table_constants(table, n_img, K, K, counts, BF16 ? F32_MAGIC_BIAS : 0,
                     norms, qsq);
     fence_proxy_async_global();
@@ -1009,51 +645,26 @@ variant_ws_kernel(const __grid_constant__ CUtensorMap map,
   if constexpr (CL > 1) cluster_sync();
 }
 
-// The warp-specialised design's pre-pass over the table, eight threads a
-// row: when norms is given, the column constants c = |b|^2*256 + row%128 +
-// bias (KEY_POISON at or past the count) and |q|^2 of every row (what the
-// two-launch yardstick reads), and when tab16 is given the table as bf16
-// (what the bf16 dot's ring loads: TMA cannot convert).
+// The warp-specialised design's pre-pass: the table as bf16 (what the bf16
+// dot's ring loads: TMA cannot convert), eight threads a row.
 __global__ void __launch_bounds__(256)
-prepass_kernel(const int8_t* __restrict__ tab, long long rows, int K,
-               const int* __restrict__ counts, int bias, int* __restrict__ norms,
-               int* __restrict__ qsq, __nv_bfloat16* __restrict__ tab16) {
+prepass_kernel(const int8_t* __restrict__ tab, long long rows,
+               __nv_bfloat16* __restrict__ tab16) {
   const long long row =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 8;
   const int part = threadIdx.x % 8;
-  const bool live = row < rows;
-  uint32_t w[4] = {0, 0, 0, 0};
-  if (live) {
-    const uint4 v = *reinterpret_cast<const uint4*>(tab + row * DIM + part * 16);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  }
-  int s = 0;
+  if (row >= rows) return;
+  const uint4 v = *reinterpret_cast<const uint4*>(tab + row * DIM + part * 16);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t h[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    s = __dp4a(static_cast<int>(w[i]), static_cast<int>(w[i]), s);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  s += __shfl_xor_sync(0xffffffffu, s, 4);
-  if (live && tab16 != nullptr) {
-    uint32_t h[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[2 * i] = pack_bf16x2(sbyte(w[i], 0), sbyte(w[i], 1));
-      h[2 * i + 1] = pack_bf16x2(sbyte(w[i], 2), sbyte(w[i], 3));
-    }
-    uint4* d = reinterpret_cast<uint4*>(tab16 + row * DIM + part * 16);
-    d[0] = make_uint4(h[0], h[1], h[2], h[3]);
-    d[1] = make_uint4(h[4], h[5], h[6], h[7]);
+  for (int i = 0; i < 4; ++i) {
+    h[2 * i] = pack_bf16x2(sbyte(w[i], 0), sbyte(w[i], 1));
+    h[2 * i + 1] = pack_bf16x2(sbyte(w[i], 2), sbyte(w[i], 3));
   }
-  if (live && part == 0 && norms != nullptr) {
-    const int j = static_cast<int>(row / K);
-    const int r = static_cast<int>(row % K);
-    qsq[row] = s;
-    norms[row] = r < counts[j]
-                     ? static_cast<int>(static_cast<uint32_t>(s * 256 + r % NT) +
-                                        static_cast<uint32_t>(bias))
-                     : KEY_POISON;
-  }
+  uint4* d = reinterpret_cast<uint4*>(tab16 + row * DIM + part * 16);
+  d[0] = make_uint4(h[0], h[1], h[2], h[3]);
+  d[1] = make_uint4(h[4], h[5], h[6], h[7]);
 }
 
 struct WsArgs {
@@ -1062,9 +673,8 @@ struct WsArgs {
   int n_img;
   int K;
   const int* counts;
-  int* norms;            // [n_img, K]: from the pre-pass (two_launch), or
-  int* qsq;              // [n_img, K]  scratch the kernel fills itself
-  bool two_launch;
+  int* norms;            // [n_img, K]: scratch the kernel fills itself
+  int* qsq;              // [n_img, K]
   const int* pi;
   const int* pj;
   int num_pairs;
@@ -1077,15 +687,15 @@ struct WsArgs {
 // The work items an instantiation's grid takes at once: one block an SM
 // (one fits, at 227 KB of shared memory), or with clusters the clusters
 // that can be resident together.  Minus the CUDA error on failure.
-template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
+template <int TQ, bool BF16, bool MERGE, int MODE>
 int resident_ws() {
   using C = Ws<TQ, BF16>;
   static std::atomic<int> cache[MAX_DEVICES];
-  return resident_for(variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>, C::SMEM,
+  return resident_for(variant_ws_kernel<TQ, BF16, MERGE, MODE>, C::SMEM,
                       C::CL, WS_THREADS, cache);
 }
 
-template <int TQ, bool BF16, bool MERGE, int MODE, bool EXT>
+template <int TQ, bool BF16, bool MERGE, int MODE = TOP2>
 int launch_ws(const WsArgs& x) {
   using C = Ws<TQ, BF16>;
   if (x.K <= 0 || x.K % TQ || (MERGE && x.K % BD))
@@ -1104,39 +714,26 @@ int launch_ws(const WsArgs& x) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (MODE != MAX && (x.norms == nullptr || x.qsq == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!EXT && MODE != MAX &&
-      static_cast<long long>(x.n_img) * x.K >= PRE_MAX_ROWS)
+  if (MODE != MAX && static_cast<long long>(x.n_img) * x.K >= PRE_MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int slots = resident_ws<TQ, BF16, MERGE, MODE, EXT>();
+  const int slots = resident_ws<TQ, BF16, MERGE, MODE>();
   if (slots < 0) return -slots;
   const long long items = static_cast<long long>(x.num_pairs) * (x.K / TQ);
   const int grid = static_cast<int>(items < slots ? items : slots) * C::CL;
   return launch_kernel_cluster(
-      variant_ws_kernel<TQ, BF16, MERGE, MODE, EXT>, grid, C::CL, WS_THREADS,
-      C::SMEM, x.stream, !EXT && MODE != MAX, map,
+      variant_ws_kernel<TQ, BF16, MERGE, MODE>, grid, C::CL, WS_THREADS,
+      C::SMEM, x.stream, MODE != MAX, map,
       static_cast<const int8_t*>(x.table), x.n_img, x.K, x.counts, x.norms,
       x.qsq, x.pi, x.pj, static_cast<int>(items), x.d0, x.i0, x.d1);
-}
-
-// The one-launch instantiation, or with two_launch its yardstick; MAX
-// reads no constants and has one instantiation.
-template <int TQ, bool BF16, bool MERGE, int MODE = TOP2>
-int launch_ws_any(const WsArgs& x) {
-  if constexpr (MODE == MAX)
-    return launch_ws<TQ, BF16, MERGE, MODE, false>(x);
-  else if (x.two_launch)
-    return launch_ws<TQ, BF16, MERGE, MODE, true>(x);
-  else
-    return launch_ws<TQ, BF16, MERGE, MODE, false>(x);
 }
 
 template <bool BF16>
 int launch_oneblock_ws(const WsArgs& x, int tq) {
   switch (tq) {
-    case 128: return launch_ws_any<128, BF16, false>(x);
-    case 256: return launch_ws_any<256, BF16, false>(x);
-    case 512: return launch_ws_any<512, BF16, false>(x);
-    case 1024: return launch_ws_any<1024, BF16, false>(x);
+    case 128: return launch_ws<128, BF16, false>(x);
+    case 256: return launch_ws<256, BF16, false>(x);
+    case 512: return launch_ws<512, BF16, false>(x);
+    case 1024: return launch_ws<1024, BF16, false>(x);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1144,7 +741,7 @@ int launch_oneblock_ws(const WsArgs& x, int tq) {
 template <int TQ, bool BF16>
 int layout_ws(int* out) {
   using C = Ws<TQ, BF16>;
-  const int slots = resident_ws<TQ, BF16, false, TOP2, false>();
+  const int slots = resident_ws<TQ, BF16, false, TOP2>();
   out[0] = C::CL;
   out[1] = C::SMEM;
   out[2] = slots;
@@ -1172,36 +769,30 @@ extern "C" {
 // point returns the CUDA error code of the launch (0 on success), or
 // cudaErrorInvalidValue for a shape or parameter it does not take.
 
-// The warp-specialised design's pre-pass: with norms (else null, and then
-// counts and qsq are unused) norms and qsq int32 [n_img, K] (column
-// constants with the f32 offset when bf16 != 0, |q|^2); with bf16 != 0
-// also tab16, the table as bf16 [n_img, K, 128].  K % 128 == 0.
-int two_nn_variants_prepass(const void* table, int n_img, int K,
-                            const int* counts, int bf16, int* norms, int* qsq,
-                            void* tab16, void* stream) {
+// The warp-specialised design's pre-pass: tab16, the table as bf16
+// [n_img, K, 128].  K % 128 == 0.
+int two_nn_variants_bf16_table(const void* table, int n_img, int K,
+                                void* tab16, void* stream) {
   if (K <= 0 || K % NT) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(n_img) * K;
   if (rows == 0) return 0;
   prepass_kernel<<<static_cast<unsigned>((rows * 8 + 255) / 256), 256, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(table), rows, K, counts,
-      bf16 ? F32_MAGIC_BIAS : 0, norms, qsq,
-      bf16 ? static_cast<__nv_bfloat16*>(tab16) : nullptr);
+      static_cast<const int8_t*>(table), rows,
+      static_cast<__nv_bfloat16*>(tab16));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Exact 2-NN on the warp-specialised design: int8 or bf16 dot at tq in
 // {128, 256, 512, 1024}, K % tq == 0 (bf16 at 512 and 1024 on clusters of
-// 2 and 4 CTAs).  norms and qsq int32 [n_img, K]: with two_launch != 0
-// what two_nn_variants_prepass wrote with the same bf16 flag (the
-// yardstick), else scratch the kernel writes them to itself (one launch).
-// The bf16 dot's ring loads tab16, the table as bf16
-// (two_nn_variants_prepass with bf16 != 0, norms null or not).
+// 2 and 4 CTAs).  norms and qsq int32 [n_img, K]: scratch the kernel
+// writes the column constants and |q|^2 to itself (one launch).  The bf16
+// dot's ring loads tab16, the table as bf16 (two_nn_variants_bf16_table).
 int two_nn_oneblock(const void* table, const void* tab16, int n_img, int K,
-                    const int* counts, int* norms, int* qsq, int two_launch,
-                    const int* pi, const int* pj, int num_pairs, int tq,
-                    int bf16, float* d0, int* i0, float* d1, void* stream) {
-  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
+                    const int* counts, int* norms, int* qsq, const int* pi,
+                    const int* pj, int num_pairs, int tq, int bf16, float* d0,
+                    int* i0, float* d1, void* stream) {
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq,
                  pi, pj, num_pairs, d0, i0, d1,
                  static_cast<cudaStream_t>(stream)};
   return bf16 ? launch_oneblock_ws<true>(x, tq)
@@ -1221,61 +812,27 @@ int two_nn_oneblock_layout(int tq, int bf16, int* out) {
 // the other arguments as for two_nn_oneblock's bf16 dot.
 int two_nn_blockmerge_bf16(const void* table, const void* tab16, int n_img,
                            int K, const int* counts, int* norms, int* qsq,
-                           int two_launch, const int* pi, const int* pj,
-                           int num_pairs, float* d0, int* i0, float* d1,
-                           void* stream) {
-  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
+                           const int* pi, const int* pj, int num_pairs,
+                           float* d0, int* i0, float* d1, void* stream) {
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq,
                  pi, pj, num_pairs, d0, i0, d1,
                  static_cast<cudaStream_t>(stream)};
-  return launch_ws_any<256, true, true>(x);
-}
-
-// The first design (mma.sync): tq in {128, 256, 512, 1024}, K % tq == 0;
-// bf16 != 0 runs the dot in bf16 (m16n8k16), else in int8 (m16n8k32).
-int two_nn_oneblock_mma(const void* table, int K, const int* counts,
-                        const int* pi, const int* pj, int num_pairs, int tq,
-                        int bf16, float* d0, int* i0, float* d1, void* stream) {
-  const Args x{table, K, counts, pi, pj, num_pairs, d0, i0, d1,
-               static_cast<cudaStream_t>(stream)};
-  return bf16 ? launch_oneblock<Bf16Dot>(x, tq) : launch_oneblock<I8Dot>(x, tq);
-}
-
-// The first design's blockmerge: bf16 dot, 256 query rows, 512-row db
-// blocks; K % 512 == 0.
-int two_nn_blockmerge_bf16_mma(const void* table, int K, const int* counts,
-                               const int* pi, const int* pj, int num_pairs,
-                               float* d0, int* i0, float* d1, void* stream) {
-  const Args x{table, K, counts, pi, pj, num_pairs, d0, i0, d1,
-               static_cast<cudaStream_t>(stream)};
-  return launch<256, Bf16Dot, TOP2, true>(x);
+  return launch_ws<256, true, true>(x);
 }
 
 // Epilogue ablations on the warp-specialised design, int8 dot, 128 query
 // rows; K % 128 == 0; the arguments of two_nn_oneblock (tab16 unused).
-// mode 0: "matmul_max" (norms, qsq and two_launch unused), mode 1: "top1".
+// mode 0: "matmul_max" (norms and qsq unused), mode 1: "top1".
 int two_nn_ablation(const void* table, const void* tab16, int n_img, int K,
-                    const int* counts, int* norms, int* qsq, int two_launch,
-                    const int* pi, const int* pj, int num_pairs, int mode,
-                    float* d0, int* i0, float* d1, void* stream) {
-  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq, two_launch != 0,
+                    const int* counts, int* norms, int* qsq, const int* pi,
+                    const int* pj, int num_pairs, int mode, float* d0, int* i0,
+                    float* d1, void* stream) {
+  const WsArgs x{table, tab16, n_img, K, counts, norms, qsq,
                  pi, pj, num_pairs, d0, i0, d1,
                  static_cast<cudaStream_t>(stream)};
   switch (mode) {
-    case 0: return launch_ws_any<128, false, false, MAX>(x);
-    case 1: return launch_ws_any<128, false, false, TOP1>(x);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The same ablations on the first design (mma.sync).
-int two_nn_ablation_mma(const void* table, int K, const int* counts,
-                        const int* pi, const int* pj, int num_pairs, int mode,
-                        float* d0, int* i0, float* d1, void* stream) {
-  const Args x{table, K, counts, pi, pj, num_pairs, d0, i0, d1,
-               static_cast<cudaStream_t>(stream)};
-  switch (mode) {
-    case 0: return launch<128, I8Dot, MAX, false>(x);
-    case 1: return launch<128, I8Dot, TOP1, false>(x);
+    case 0: return launch_ws<128, false, false, MAX>(x);
+    case 1: return launch_ws<128, false, false, TOP1>(x);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

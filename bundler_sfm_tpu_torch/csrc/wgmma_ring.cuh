@@ -356,8 +356,8 @@ __device__ __forceinline__ float to_dist(int qsq, int e) {
 // rest (the padding to kp included); with sq, also |b|^2 into sq [n_img,
 // nd].  The pre-phase of a one-launch kernel: every thread of the grid
 // takes units of 16 bytes, eight lanes a row (dp4a, then an xor tree over
-// the eight, as two_nn_norms_kernel sums), PRE_UNROLL loads in flight
-// before any is used, since the grid has far fewer threads than units.
+// the eight), PRE_UNROLL loads in flight before any is used, since the
+// grid has far fewer threads than units.
 // 32-bit indices: the launcher refuses n_img * kp >= PRE_MAX_ROWS.
 constexpr int PRE_UNROLL = 16;
 constexpr long long PRE_MAX_ROWS = 1LL << 26;

@@ -9,8 +9,8 @@ distance tile never reaches device memory.
 
 Bound on an H100: 2·B·Nq·Nd·128 int8 tensor-core operations (1979 TOP/s,
 4096 int8 MAC a clock per SM), beside B·Nq·Nd top-2 updates on the CUDA
-cores.  The first design (kept as `two_nn_pairs_mma`) fed `mma.sync` from
-8 warps that each loaded their own B fragments from shared memory: 256 B
+cores.  A first design fed `mma.sync` from 8 warps that each
+loaded their own B fragments from shared memory: 256 B
 per m16n8k32, twice the 128 B a clock shared memory gives, with the db
 tiles staged synchronously and an epilogue of ~6 integer instructions a
 score.  The int8 kernel now runs two consumer warpgroups of `wgmma`
@@ -36,18 +36,10 @@ Wrappers, each counting its kernel launches in `LAUNCHES`:
                    a matcher.
   prepass_f32      the f32 kernel's bf16 table, |x|² and column norms
                    ("two_nn_f32_prepass").
-Yardsticks, for comparison only (no path calls them):
-  two_nn_pairs_two_launch, two_nn_product_max_two_launch  the int8
-                   kernels' two-launch form: `two_nn_norms`, then the same
-                   kernel reading those constants ("two_nn_two_launch",
-                   "two_nn_product_max_two_launch").
-  two_nn_norms     |b|²·256 + row % 128 per table row, poisoned past the
-                   count: the int8 kernel's per-column constants.
-  two_nn_pairs_mma the first design (`mma.sync`), int8 ("two_nn_mma") or
-                   f32 ("two_nn_f32_mma").
 For CPU tensors each runs its plain PyTorch version (`two_nn_reference`,
-`two_nn_norms_plain`, `prepass_f32_plain`, `product_max_plain`); for CUDA
-tensors it launches its kernel or raises.
+`prepass_f32_plain`, `product_max_plain`); for CUDA tensors it launches its
+kernel or raises.  `two_nn_norms_plain` is the int8 kernel's column
+constants, which its first phase writes.
 The library is built with `nvcc` from the sources in this package at
 first use, into `build/kernels/` at the repository root; `csrc/two_nn.cu`
 shares its TMA ring, `wgmma` and packed-key helpers with
@@ -81,15 +73,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma`
 # kernel), "two_nn_f32" (the f32 `wgmma` kernel), "two_nn_f32_prepass",
 # "two_nn_product_max" / "two_nn_product_max_f32" (the `wgmma` kernels'
-# product-only ablations), and the yardsticks: "two_nn_norms",
-# "two_nn_two_launch" / "two_nn_product_max_two_launch" (the int8 kernels
-# reading the norms kernel's constants) and "two_nn_mma" /
-# "two_nn_f32_mma" (the first design's `mma.sync` kernels).
+# product-only ablations).
 LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_f32_prepass": 0,
-            "two_nn_product_max": 0, "two_nn_product_max_f32": 0,
-            "two_nn_norms": 0, "two_nn_two_launch": 0,
-            "two_nn_product_max_two_launch": 0, "two_nn_mma": 0,
-            "two_nn_f32_mma": 0}
+            "two_nn_product_max": 0, "two_nn_product_max_f32": 0}
 
 _lib = None
 
@@ -138,21 +124,17 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # qtab, q_stride, nq, dbtab, n_img, nd, counts, norms, two_launch,
-        # pi, pj, B, d0, i0, d1, stream
-        ws = [p, ll, i, p, i, i, p, p, i, p, p, i, p, p, p, p]
+        # qtab, q_stride, nq, dbtab, n_img, nd, counts, norms, pi, pj, B,
+        # d0, i0, d1, stream
+        ws = [p, ll, i, p, i, i, p, p, p, p, i, p, p, p, p]
         # q16, q_stride, n_img_q, nq, qsq, db16, n_img, nd, counts, bsq,
         # pi, pj, B, d0, i0, d1, stream
         f32 = [p, ll, i, i, p, p, i, i, p, p, p, p, i, p, p, p, p]
-        mma = [p, ll, i, p, ll, p, p, p, i, p, p, p, p]
         for name, args in (("two_nn_pairs_i8", ws),
                            ("two_nn_product_max_i8", ws),
-                           ("two_nn_norms_i8", [p, i, i, p, p, p]),
                            ("two_nn_pairs_f32", f32),
                            ("two_nn_product_max_f32", f32),
-                           ("two_nn_prepass_f32", [p, i, i, p, p, p, p, p]),
-                           ("two_nn_pairs_i8_mma", mma),
-                           ("two_nn_pairs_f32_mma", mma)):
+                           ("two_nn_prepass_f32", [p, i, i, p, p, p, p, p])):
             fn = getattr(lib, name)
             fn.restype = i
             fn.argtypes = args
@@ -374,35 +356,6 @@ def prepass_f32(tab: torch.Tensor, counts: Optional[torch.Tensor] = None
     return tab16, sq, bsq
 
 
-def two_nn_norms(dbtab: torch.Tensor, db_counts: torch.Tensor
-                 ) -> torch.Tensor:
-    """`two_nn_norms_plain` of a centered int8 table [n_img, Nd, 128] and
-    its int32 counts [n_img]; on CUDA by the norms kernel (the two-launch
-    yardstick's first launch: the int8 kernels compute these themselves)."""
-    if dbtab.device.type == "cpu":
-        return two_nn_norms_plain(dbtab, db_counts)
-    if dbtab.device.type != "cuda" or db_counts.device != dbtab.device:
-        raise ValueError(f"two_nn_norms: table on {dbtab.device}, counts "
-                         f"on {db_counts.device}")
-    if (dbtab.dtype != torch.int8 or dbtab.dim() != 3
-            or dbtab.shape[2] != 128 or db_counts.dtype != torch.int32
-            or db_counts.shape != dbtab.shape[:1]):
-        raise ValueError("two_nn_norms: need an int8 [n_img, Nd, 128] table "
-                         "and int32 [n_img] counts")
-    dbtab, db_counts = dbtab.contiguous(), db_counts.contiguous()
-    n_img, nd = dbtab.shape[0], dbtab.shape[1]
-    out = torch.empty((n_img, -(-nd // NORM_TILE) * NORM_TILE),
-                      dtype=torch.int32, device=dbtab.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dbtab.device):
-        err = _load().two_nn_norms_i8(
-            dbtab.data_ptr(), n_img, nd, db_counts.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _launched(err, "two_nn_norms")
-    return out
-
-
 def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
                  db_counts: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -420,22 +373,6 @@ def two_nn_pairs(qtab: torch.Tensor, dbtab: torch.Tensor,
     if qtab.dtype == torch.float32:
         return _launch_f32(qtab, dbtab, db_counts, pi, pj, "two_nn_f32")
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn")
-
-
-def two_nn_pairs_two_launch(qtab: torch.Tensor, dbtab: torch.Tensor,
-                            db_counts: torch.Tensor, pi: torch.Tensor,
-                            pj: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """`two_nn_pairs` of centered int8 tables in its two-launch form: the
-    norms kernel, then the `wgmma` kernel reading its constants
-    ("two_nn_two_launch"); for timing and checks beside the one-launch
-    kernel."""
-    if qtab.device.type == "cpu":
-        return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
-    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
-    return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn_two_launch",
-                      two_launch=True)
 
 
 def product_max_plain(qtab, dbtab, db_counts, pi, pj, chunk_elems=1 << 26):
@@ -476,20 +413,6 @@ def two_nn_product_max(qtab: torch.Tensor, dbtab: torch.Tensor,
     return _launch_ws(qtab, dbtab, db_counts, pi, pj, "two_nn_product_max")
 
 
-def two_nn_product_max_two_launch(qtab: torch.Tensor, dbtab: torch.Tensor,
-                                  db_counts: torch.Tensor, pi: torch.Tensor,
-                                  pj: torch.Tensor
-                                  ) -> Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]:
-    """`two_nn_product_max` of centered int8 tables in its two-launch form
-    (the norms kernel first; "two_nn_product_max_two_launch")."""
-    if qtab.device.type == "cpu":
-        return product_max_plain(qtab, dbtab, db_counts, pi, pj)
-    _check_tables(qtab, dbtab, db_counts, pi, pj, (torch.int8,))
-    return _launch_ws(qtab, dbtab, db_counts, pi, pj,
-                      "two_nn_product_max_two_launch", two_launch=True)
-
-
 def _launch_f32(qtab, dbtab, db_counts, pi, pj, counter):
     """The f32 `wgmma` kernel: the 2-NN ("two_nn_f32") or its product-only
     ablation; the pre-pass first, once for a query table that is the db
@@ -518,11 +441,10 @@ def _launch_f32(qtab, dbtab, db_counts, pi, pj, counter):
     return d0, i0, d1
 
 
-def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter, two_launch=False):
+def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter):
     """The int8 `wgmma` kernel: the 2-NN ("two_nn") or its product-only
     ablation, one launch that writes its column constants into scratch
-    allocated with the outputs; with `two_launch`, the norms kernel first
-    and the kernel's instantiation that reads its constants."""
+    allocated with the outputs."""
     qtab, dbtab = qtab.contiguous(), dbtab.contiguous()
     db_counts = db_counts.contiguous()
     pi, pj = pi.contiguous(), pj.contiguous()
@@ -530,57 +452,17 @@ def _launch_ws(qtab, dbtab, db_counts, pi, pj, counter, two_launch=False):
     n_img, nd = dbtab.shape[0], dbtab.shape[1]
     kp = -(-nd // NORM_TILE) * NORM_TILE
     d0, i0, d1, norms = _outputs(B, nq, qtab.device,
-                                 0 if two_launch or B == 0 else n_img * kp)
+                                 0 if B == 0 else n_img * kp)
     if B == 0:
         return d0, i0, d1
-    if two_launch:
-        norms = two_nn_norms(dbtab, db_counts)
     lib = _load()
     fn = (lib.two_nn_product_max_i8 if "product_max" in counter
           else lib.two_nn_pairs_i8)
     with torch.cuda.device(qtab.device):
         err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(), n_img, nd,
-                 db_counts.data_ptr(), norms.data_ptr(), int(two_launch),
+                 db_counts.data_ptr(), norms.data_ptr(),
                  pi.data_ptr(), pj.data_ptr(), B, d0.data_ptr(),
                  i0.data_ptr(), d1.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    _launched(err, counter)
-    return d0, i0, d1
-
-
-def two_nn_pairs_mma(qtab: torch.Tensor, dbtab: torch.Tensor,
-                     db_counts: torch.Tensor, pi: torch.Tensor,
-                     pj: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`two_nn_pairs` on the first design's `mma.sync` kernels (int8
-    "two_nn_mma", f32 "two_nn_f32_mma"); for timing and checks beside the
-    `wgmma` kernels."""
-    if qtab.device.type == "cpu":
-        return _two_nn_pairs_plain(qtab, dbtab, db_counts, pi, pj)
-    _check_tables(qtab, dbtab, db_counts, pi, pj,
-                  (torch.int8, torch.float32))
-    return _launch_mma(qtab, dbtab, db_counts, pi, pj,
-                       "two_nn_mma" if qtab.dtype == torch.int8
-                       else "two_nn_f32_mma")
-
-
-def _launch_mma(qtab, dbtab, db_counts, pi, pj, counter):
-    """The `mma.sync` template: int8 (`two_nn_pairs_i8_mma`) or f32
-    (`two_nn_pairs_f32_mma`)."""
-    qtab, dbtab = qtab.contiguous(), dbtab.contiguous()
-    db_counts = db_counts.contiguous()
-    pi, pj = pi.contiguous(), pj.contiguous()
-    B, nq, nd = pi.shape[0], qtab.shape[1], dbtab.shape[1]
-    d0, i0, d1, _ = _outputs(B, nq, qtab.device)
-    if B == 0:
-        return d0, i0, d1
-    lib = _load()
-    fn = (lib.two_nn_pairs_i8_mma if qtab.dtype == torch.int8
-          else lib.two_nn_pairs_f32_mma)
-    with torch.cuda.device(qtab.device):
-        err = fn(qtab.data_ptr(), nq * 128, nq, dbtab.data_ptr(), nd * 128,
-                 db_counts.data_ptr(), pi.data_ptr(), pj.data_ptr(), B,
-                 d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
     _launched(err, counter)
     return d0, i0, d1

@@ -23,8 +23,8 @@ Outputs d0 f32, i0 int32, d1 f32, each [B, K].  The arithmetic is exact
 (half-integers below 2²³), so the exact variants are bit-identical to
 `matching_cuda.two_nn_pairs(table, table, counts, pi, pj)`.
 
-Two kernel designs (see the source note).  `two_nn_oneblock` (both dots at
-every tq; bf16 at tq 512 and 1024 on thread-block clusters of 2 and 4 CTAs
+The kernels (see the source note): `two_nn_oneblock` (both dots at every
+tq; bf16 at tq 512 and 1024 on thread-block clusters of 2 and 4 CTAs
 sharing one ring by TMA multicast), `two_nn_blockmerge_bf16` and
 `two_nn_ablation` run the warp-specialised `wgmma` design: one launch of a
 persistent kernel whose first phase writes the table's column constants
@@ -32,18 +32,13 @@ and |q|² (scratch allocated with the outputs; the grid then meets at a
 barrier), then a TMA ring of db tiles and a packed-key top-2 (top-1 for "top1", one max a score
 and no constants for "matmul_max").  The bf16 dot reads a bf16 copy of the
 table (TMA cannot convert): `bf16_table` makes it, once per table when the
-caller passes it in (`table16=`), else once per call.  Yardsticks, for comparison only: the two-launch form of each
-`wgmma` instantiation that reads constants (`two_nn_oneblock_two_launch`,
-`two_nn_blockmerge_bf16_two_launch`, `two_nn_ablation_two_launch`: the
-pre-pass kernel `variants_prepass`, then the kernel reading its constants
-and |q|²), and the first design's `mma.sync` kernels
-(`two_nn_oneblock_mma`, `two_nn_blockmerge_bf16_mma`,
-`two_nn_ablation_mma`).  `oneblock_layout` says how a oneblock
+caller passes it in (`table16=`), else once per call.  `oneblock_layout`
+says how a oneblock
 instantiation is laid out on the card (CTAs a cluster, shared memory a
 CTA, clusters resident at once).
 
-For CPU tensors a wrapper runs its plain PyTorch version (the query tile,
-the dot type and the design do not change the result); for CUDA tensors it
+For CPU tensors a wrapper runs its plain PyTorch version (the query tile
+and the dot type do not change the result); for CUDA tensors it
 launches the kernel or raises.  Bound on an H100: 2·128·K² int8 (or bf16)
 tensor-core operations per pair.
 """
@@ -72,23 +67,13 @@ ABLATION_TQ = 128
 F32_MAGIC_BIAS = 0x80000000
 
 # Kernel launches, one count per kernel instantiation the wrappers reach:
-# the probe's variants (the `wgmma` design), the pre-pass kernel (the
-# bf16 table, and the yardsticks' first launch), the two-launch
-# yardsticks and the first design's `mma.sync` yardsticks.
-TWO_LAUNCH = ([f"two_nn_oneblock_two_launch_{d}_{tq}" for d in DOTS
-               for tq in ONEBLOCK_TILES]
-              + ["two_nn_blockmerge_bf16_two_launch",
-                 "two_nn_ablation_two_launch_top1"])
+# the probe's variants (the `wgmma` design) and the pre-pass kernel (the
+# bf16 table).
 LAUNCHES = {**{f"two_nn_oneblock_{d}_{tq}": 0 for d in DOTS
                for tq in ONEBLOCK_TILES},
             "two_nn_blockmerge_bf16": 0,
             **{f"two_nn_ablation_{m}": 0 for m in ABLATION_MODES},
-            "two_nn_variants_prepass": 0,
-            **dict.fromkeys(TWO_LAUNCH, 0),
-            **{f"two_nn_oneblock_mma_{d}_{tq}": 0 for d in DOTS
-               for tq in ONEBLOCK_TILES},
-            "two_nn_blockmerge_bf16_mma": 0,
-            **{f"two_nn_ablation_mma_{m}": 0 for m in ABLATION_MODES}}
+            "two_nn_variants_prepass": 0}
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -100,18 +85,14 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build(SOURCE))
         p, i = ctypes.c_void_p, ctypes.c_int
-        head = [p, i, p, p, p, i]              # table, K, counts, pi, pj, B
-        # table, tab16, n_img, K, counts, norms, qsq, two_launch, pi, pj, B
-        ws = [p, p, i, i, p, p, p, i, p, p, i]
+        # table, tab16, n_img, K, counts, norms, qsq, pi, pj, B
+        ws = [p, p, i, i, p, p, p, p, p, i]
         tail = [p, p, p, p]                    # d0, i0, d1, stream
         for name, args in (
                 ("two_nn_oneblock", ws + [i, i] + tail),
                 ("two_nn_blockmerge_bf16", ws + tail),
                 ("two_nn_ablation", ws + [i] + tail),
-                ("two_nn_oneblock_mma", head + [i, i] + tail),
-                ("two_nn_blockmerge_bf16_mma", head + tail),
-                ("two_nn_ablation_mma", head + [i] + tail),
-                ("two_nn_variants_prepass", [p, i, i, p, i, p, p, p, p]),
+                ("two_nn_variants_bf16_table", [p, i, i, p, p]),
                 ("two_nn_oneblock_layout", [i, i, p])):
             fn = getattr(lib, name)
             fn.restype = i
@@ -208,10 +189,11 @@ def ablation_plain(table, counts, pi, pj, mode: str) -> Outputs:
 
 def prepass_plain(table: torch.Tensor, counts: torch.Tensor, bf16: bool
                   ) -> Outputs:
-    """The `wgmma` design's per-call pre-pass: int32 column constants
+    """What the `wgmma` design's first phase writes: int32 column constants
     [n_img, K] (|b|²·256 + row % 128, plus F32_MAGIC_BIAS wrapped to int32
-    for the bf16 dot; KEY_POISON at or past the count), |q|² int32 [n_img,
-    K], and for the bf16 dot the table as bf16 (else None)."""
+    for the bf16 dot; KEY_POISON at or past the count) and |q|² int32
+    [n_img, K]; and for the bf16 dot the table as bf16 (`bf16_table`, else
+    None)."""
     t = table.int()
     sq = (t * t).sum(-1)
     row = torch.arange(table.shape[1], device=table.device)
@@ -292,83 +274,47 @@ def _launched(err: int, name: str, counter: str) -> None:
     LAUNCHES[counter] += 1
 
 
-def variants_prepass(table: torch.Tensor, counts: torch.Tensor,
-                     bf16: bool = False):
-    """`prepass_plain` of a centered int8 table [n_img, K, 128] (K % 128
-    == 0) and its int32 counts; on CUDA by the pre-pass kernel (count
-    "two_nn_variants_prepass"): the two-launch yardsticks' first launch."""
-    if table.device.type == "cpu":
-        return prepass_plain(table, counts, bf16)
-    _check_prepass("variants_prepass", table, counts)
-    table, counts = table.contiguous(), counts.contiguous()
-    norms = torch.empty(table.shape[:2], dtype=torch.int32,
-                        device=table.device)
-    qsq = torch.empty_like(norms)
-    tab16 = _prepass(table, counts, norms, qsq, bf16)
-    return norms, qsq, tab16
-
-
 def bf16_table(table: torch.Tensor) -> torch.Tensor:
     """The bf16 copy of a centered int8 table [n_img, K, 128] (K % 128 ==
-    0) that the bf16 dot's ring loads; on CUDA by the pre-pass kernel with
-    the table alone (count "two_nn_variants_prepass").  Make it once per
-    table and pass it to the bf16 variants as `table16`."""
+    0) that the bf16 dot's ring loads; on CUDA by the pre-pass kernel
+    (count "two_nn_variants_prepass").  Make it once per table and pass it
+    to the bf16 variants as `table16`."""
     if table.device.type == "cpu":
         return table.to(torch.bfloat16)
-    _check_prepass("bf16_table", table)
-    return _prepass(table.contiguous(), None, None, None, True)
-
-
-def _check_prepass(name, table, counts=None):
     if (table.device.type != "cuda" or table.dtype != torch.int8
             or table.dim() != 3 or table.shape[2] != 128
-            or table.shape[1] % NORM_TILE
-            or (counts is not None and (
-                counts.device != table.device or counts.dtype != torch.int32
-                or counts.shape != table.shape[:1]))):
-        raise ValueError(f"{name}: need a CUDA int8 [n_img, K, 128] table "
-                         "with K % 128 == 0 (and int32 [n_img] counts on the "
-                         "same device)")
-
-
-def _prepass(table, counts, norms, qsq, bf16):
-    """Launch the pre-pass kernel; returns the bf16 table (bf16) or None."""
-    n_img, K = table.shape[0], table.shape[1]
-    tab16 = (torch.empty(table.shape, dtype=torch.bfloat16,
-                         device=table.device) if bf16 else None)
+            or table.shape[1] % NORM_TILE):
+        raise ValueError("bf16_table: need a CUDA int8 [n_img, K, 128] table "
+                         "with K % 128 == 0")
+    table = table.contiguous()
+    tab16 = torch.empty(table.shape, dtype=torch.bfloat16, device=table.device)
     if table.numel():
-        ptr = (lambda t: None if t is None else t.data_ptr())   # noqa: E731
         with torch.cuda.device(table.device):
-            err = _load().two_nn_variants_prepass(
-                table.data_ptr(), n_img, K, ptr(counts), int(bf16), ptr(norms),
-                ptr(qsq), ptr(tab16), torch.cuda.current_stream().cuda_stream)
-        _launched(err, "variants_prepass", "two_nn_variants_prepass")
+            err = _load().two_nn_variants_bf16_table(
+                table.data_ptr(), table.shape[0], table.shape[1],
+                tab16.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _launched(err, "bf16_table", "two_nn_variants_prepass")
     return tab16
 
 
-def _ws_launch(entry: str, bf16: bool, *extra, two_launch: bool = False,
-               table16=None):
+def _ws_launch(entry: str, bf16: bool, *extra, table16=None):
     """The `wgmma` design's launch: one launch that writes the column
     constants and |q|² into the scratch (the bf16 dot reads `table16`,
-    made here if not given), or with `two_launch` the pre-pass and the
-    kernel reading its constants and |q|²."""
+    made here if not given)."""
     def launch(table, counts, pi, pj, out, scratch, stream):
         norms = qsq = None
         tab16 = table16
-        if two_launch:
-            norms, qsq, tab16 = variants_prepass(table, counts, bf16)
-        else:
-            if scratch.numel():                 # not "matmul_max"
-                norms, qsq = scratch.view(2, -1)
-            if bf16 and tab16 is None:
-                tab16 = bf16_table(table)
-            elif bf16:
-                _check_table16(table, tab16)
+        if scratch.numel():                     # not "matmul_max"
+            norms, qsq = scratch.view(2, -1)
+        if bf16 and tab16 is None:
+            tab16 = bf16_table(table)
+        elif bf16:
+            _check_table16(table, tab16)
         ptr = (lambda t: None if t is None else t.data_ptr())   # noqa: E731
         return getattr(_load(), entry)(
             table.data_ptr(), ptr(tab16) if bf16 else None, table.shape[0],
             table.shape[1], counts.data_ptr(), ptr(norms), ptr(qsq),
-            int(two_launch), pi.data_ptr(), pj.data_ptr(), pi.shape[0],
+            pi.data_ptr(), pj.data_ptr(), pi.shape[0],
             *extra, *(o.data_ptr() for o in out), stream)
     return launch
 
@@ -378,16 +324,6 @@ def _check_table16(table, tab16):
             or tab16.device != table.device or not tab16.is_contiguous()):
         raise ValueError("table16 must be bf16_table(table): a contiguous "
                          "bf16 tensor of the table's shape on its device")
-
-
-def _mma_launch(entry: str, *extra):
-    """The first design's launch."""
-    def launch(table, counts, pi, pj, out, scratch, stream):
-        return getattr(_load(), entry)(
-            table.data_ptr(), table.shape[1], counts.data_ptr(),
-            pi.data_ptr(), pj.data_ptr(), pi.shape[0], *extra,
-            *(o.data_ptr() for o in out), stream)
-    return launch
 
 
 def _oneblock_args(tq: int, dot: str) -> None:
@@ -415,21 +351,6 @@ def two_nn_oneblock(table: torch.Tensor, counts: torch.Tensor,
                 table, counts, pi, pj, tq, 2)
 
 
-def two_nn_oneblock_two_launch(table: torch.Tensor, counts: torch.Tensor,
-                               pi: torch.Tensor, pj: torch.Tensor,
-                               tq: int = 128, dot: str = "int8") -> Outputs:
-    """`two_nn_oneblock` on the `wgmma` design in its two-launch form (the
-    pre-pass, then the kernel reading its constants and |q|²), for timing
-    and checks beside the one-launch kernel."""
-    _oneblock_args(tq, dot)
-    return _run("two_nn_oneblock_two_launch",
-                f"two_nn_oneblock_two_launch_{dot}_{tq}",
-                lambda: oneblock_plain(table, counts, pi, pj),
-                _ws_launch("two_nn_oneblock", dot == "bf16", tq,
-                           int(dot == "bf16"), two_launch=True),
-                table, counts, pi, pj, tq)
-
-
 def oneblock_layout(tq: int, dot: str) -> dict:
     """How the one-launch `two_nn_oneblock` instantiation at (tq, dot) runs
     on the current CUDA device: {"cluster": CTAs a work item, "smem":
@@ -455,39 +376,6 @@ def two_nn_blockmerge_bf16(table: torch.Tensor, counts: torch.Tensor,
                 table, counts, pi, pj, BLOCKMERGE_BD, 2)
 
 
-def two_nn_blockmerge_bf16_two_launch(table: torch.Tensor,
-                                      counts: torch.Tensor, pi: torch.Tensor,
-                                      pj: torch.Tensor) -> Outputs:
-    """`two_nn_blockmerge_bf16` in its two-launch form."""
-    return _run("two_nn_blockmerge_bf16_two_launch",
-                "two_nn_blockmerge_bf16_two_launch",
-                lambda: blockmerge_plain(table, counts, pi, pj),
-                _ws_launch("two_nn_blockmerge_bf16", True, two_launch=True),
-                table, counts, pi, pj, BLOCKMERGE_BD)
-
-
-def two_nn_oneblock_mma(table: torch.Tensor, counts: torch.Tensor,
-                        pi: torch.Tensor, pj: torch.Tensor, tq: int = 128,
-                        dot: str = "int8") -> Outputs:
-    """`two_nn_oneblock` on the first design's `mma.sync` kernel, for
-    timing and checks beside the `wgmma` design."""
-    _oneblock_args(tq, dot)
-    return _run("two_nn_oneblock_mma", f"two_nn_oneblock_mma_{dot}_{tq}",
-                lambda: oneblock_plain(table, counts, pi, pj),
-                _mma_launch("two_nn_oneblock_mma", tq, int(dot == "bf16")),
-                table, counts, pi, pj, tq)
-
-
-def two_nn_blockmerge_bf16_mma(table: torch.Tensor, counts: torch.Tensor,
-                               pi: torch.Tensor, pj: torch.Tensor
-                               ) -> Outputs:
-    """`two_nn_blockmerge_bf16` on the first design's `mma.sync` kernel."""
-    return _run("two_nn_blockmerge_bf16_mma", "two_nn_blockmerge_bf16_mma",
-                lambda: blockmerge_plain(table, counts, pi, pj),
-                _mma_launch("two_nn_blockmerge_bf16_mma"),
-                table, counts, pi, pj, BLOCKMERGE_BD)
-
-
 def _ablation_mode(mode: str) -> int:
     if mode not in ABLATION_MODES:
         raise ValueError(f"two_nn_ablation: unknown mode {mode!r}; "
@@ -505,29 +393,3 @@ def two_nn_ablation(table: torch.Tensor, counts: torch.Tensor,
                 lambda: ablation_plain(table, counts, pi, pj, mode),
                 _ws_launch("two_nn_ablation", False, m),
                 table, counts, pi, pj, ABLATION_TQ, 2 * m)
-
-
-def two_nn_ablation_two_launch(table: torch.Tensor, counts: torch.Tensor,
-                               pi: torch.Tensor, pj: torch.Tensor,
-                               mode: str = "top1") -> Outputs:
-    """`two_nn_ablation` in its two-launch form: "top1" only ("matmul_max"
-    reads no constants)."""
-    if mode != "top1":
-        raise ValueError(f"two_nn_ablation_two_launch: mode must be 'top1', "
-                         f"got {mode!r}")
-    return _run("two_nn_ablation_two_launch",
-                "two_nn_ablation_two_launch_top1",
-                lambda: ablation_plain(table, counts, pi, pj, mode),
-                _ws_launch("two_nn_ablation", False, 1, two_launch=True),
-                table, counts, pi, pj, ABLATION_TQ)
-
-
-def two_nn_ablation_mma(table: torch.Tensor, counts: torch.Tensor,
-                        pi: torch.Tensor, pj: torch.Tensor, mode: str
-                        ) -> Outputs:
-    """`two_nn_ablation` on the first design's `mma.sync` kernel."""
-    m = _ablation_mode(mode)
-    return _run("two_nn_ablation_mma", f"two_nn_ablation_mma_{mode}",
-                lambda: ablation_plain(table, counts, pi, pj, mode),
-                _mma_launch("two_nn_ablation_mma", m),
-                table, counts, pi, pj, ABLATION_TQ)

@@ -5,29 +5,24 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. build   — compile the hand-written kernels (csrc/*.cu) with nvcc, in
                parallel; check that ptxas reports no spills for the
-               wgmma kernels (two_nn.cu's int8 four: one-launch and
-               two-launch, 2-NN and product-only; its f32 two;
-               two_nn_variants.cu's twenty-one: eleven one-launch, ten
-               two-launch), serialises no wgmma and drops no setmaxnreg;
-               log the refine LM kernel's registers and spills.
+               wgmma kernels (two_nn.cu's int8 two, 2-NN and product-only;
+               its f32 two; two_nn_variants.cu's eleven), serialises no
+               wgmma and drops no setmaxnreg; log the refine LM kernel's
+               registers and spills.
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
-               on the card: the int8 2-NN (`wgmma`, one launch), its
-               two-launch form (identical bits) and the norms kernel, the
-               f32 2-NN (`wgmma`) and its pre-pass kernel, and the first
-               design's `mma.sync` kernel of each type beside them, at 64
-               images x 2048 keys (all 2016 pairs), ragged keys up to 4096,
-               duplicated rows (ties), integer-valued f32 tables and
-               garbage rows past the counts; the f32 kernels within the
-               stated tolerance on a real-valued table; time each `wgmma`
-               kernel, the int8 one's two-launch form and the `mma.sync`
-               twin in turns, the plain version, a library yardstick (f32
-               matmul + topk), and the bound (the int8 rate; the bf16 rate
-               for f32 tables, timed at 2016 pairs x 2048^2 on
-               integer-valued f32 descriptors with the product-only split
-               and the pre-pass); split an int8 call's device time (CUDA
-               events around queued bare launches) and host time
-               ("[split]"), one launch against two in turns, at the bench
-               and the main-path shapes; the refine LM kernel against its
+               on the card: the int8 2-NN (`wgmma`, one launch), the f32
+               2-NN (`wgmma`) and its pre-pass kernel, at 64 images x 2048
+               keys (all 2016 pairs), ragged keys up to 4096, duplicated
+               rows (ties), integer-valued f32 tables and garbage rows past
+               the counts; the f32 kernel within the stated tolerance on a
+               real-valued table; time each `wgmma` kernel, the plain
+               version, a library yardstick (f32 matmul + topk), and the
+               bound (the int8 rate; the bf16 rate for f32 tables, timed at
+               2016 pairs x 2048^2 on integer-valued f32 descriptors with
+               the product-only split and the pre-pass); split an int8
+               call's device time (CUDA events around queued bare
+               launches) and host time ("[split]") at the bench and the
+               main-path shapes; the refine LM kernel against its
                plain version at room800.full24's shapes (1-8 cameras, up
                to 9000 points: cameras within 1e-8, R within 1e-7, a second
                launch bit-identical), each shape timed per call beside
@@ -38,7 +33,7 @@ Phases (any failure raises, so the exit code is non-zero):
                reconstruction: initial pair, resection, Schur-LM bundle
                adjustment with the outlier loop) with every launch count
                zeroed; check its outputs and the launch counts (one two_nn
-               launch a 2-NN call and no yardstick: no norms kernel; the
+               launch a 2-NN call and no other 2-NN kernel; the
                BA's `ba_runs_cuda` count too; one refine_lm launch a
                camera_refine_batch call, `refine_lm_launches`); hold
                bundle.out against gt.json
@@ -47,8 +42,7 @@ Phases (any failure raises, so the exit code is non-zero):
                registers on the CPU from the same scene); run the
                reconstruction again on CUDA from the same scene (bundle.out
                byte-identical) and on the CPU with the same draw (the same
-               camera count); check that the `mma.sync` kernel gives
-               byte-identical matches; compare and time the kernels at the
+               camera count); compare and time the kernels at the
                main path's shapes; re-run verification on the CPU with the
                same RANSAC draw and count differing pairs.
   4. staged — the reference's staged flow on phase 3's render, list.txt
@@ -87,28 +81,23 @@ Phases (any failure raises, so the exit code is non-zero):
                --options_file --fisheye` (24/24 cameras, centre error <
                0.02, reprojection < 1 px), then `fisheyeundistort` on CUDA
                and on the CPU, compared as in (b).
-  6. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu) of
-               both designs (the `wgmma` design, one launch each, its
-               two-launch forms `_two_launch` and its `mma.sync` twins
-               `_mma`; both ablation modes included) bit-exact against its
-               plain version and each one-launch kernel against its
-               two-launch form, its twin and (the exact ones) two_nn_pairs,
-               logging the cluster size, shared memory a CTA and resident
-               clusters of bf16 oneblock at tq 256-1024 (clusters of 2 and
-               4 CTAs at 512 and 1024), and the pre-pass kernel and
-               bf16_table against their own, at the probe's shape (276
-               pairs x 2048 keys), at ragged counts, on ties and with
-               garbage rows past the counts; run the probe entry point
-               (`probes/probe_two_nn_variants.py`) with the launch counts
-               zeroed, check every exact variant IDENTICAL to two_nn,
-               every kernel launched once per probe call, no yardstick ran
-               and the pre-pass ran once (the bf16 table the probe makes);
-               time two_nn, its two-launch form and `mma.sync` kernel,
-               each variant kernel beside its two-launch form and
-               `mma.sync` twin in turns, its plain version, a library
-               yardstick, the int8 and bf16 bounds and the pre-pass at
-               2208 pairs x 2048^2, and split each call's device and host
-               time, one launch against two.
+  6. variants — hold every 2-NN variant kernel (csrc/two_nn_variants.cu;
+               the `wgmma` design, one launch each; both ablation modes
+               included) bit-exact against its plain version and (the
+               exact ones) two_nn_pairs, logging the cluster size, shared
+               memory a CTA and resident clusters of bf16 oneblock at tq
+               256-1024 (clusters of 2 and 4 CTAs at 512 and 1024), and
+               the pre-pass kernel (bf16_table) against its own, at the
+               probe's shape (276 pairs x 2048 keys), at ragged counts, on
+               ties and with garbage rows past the counts; run the probe
+               entry point (`probes/probe_two_nn_variants.py`) with the
+               launch counts zeroed, check every exact variant IDENTICAL
+               to two_nn, every kernel launched once per probe call, no
+               other kernel and the pre-pass once (the bf16 table the
+               probe makes); time two_nn, each variant kernel, its plain
+               version, a library yardstick, the int8 and bf16 bounds and
+               the pre-pass at 2208 pairs x 2048^2, and split each call's
+               device and host time.
   7. library — the JAX package's library modules on phase 3's bundle.out
                (24 cameras, 13402 points) and its 24 x 4096-key
                descriptors, under build/smoke/library/, each step's
@@ -145,8 +134,8 @@ Phases (any failure raises, so the exit code is non-zero):
                matcher (ShardedDescriptorTable) and the pair-split
                DescriptorTable(mesh=) over the 276 pairs, each dict
                identical to DescriptorTable.match_pairs, the 2-NN kernel
-               bit-exact on one rotation's tensors (and identical to its
-               two-launch form there), each call timed first and warm, ten
+               bit-exact on one rotation's tensors, each call timed first
+               and warm, ten
                two_nn launches in the counted runs and no other 2-NN
                kernel; (b) the point-sharded outlier loop on phase 3's
                final bundle (points moved by seeded noise): bit-identical
@@ -371,12 +360,11 @@ def compare_outputs(got, want, what):
     return err
 
 
-def yardstick_launches(launches):
-    """The launches of kernels no path may reach: the int8 2-NN's
-    two-launch form (norms kernel included), every variant's, and the
-    `mma.sync` kernels."""
-    return {k: v for k, v in launches.items() if v and (
-        k == "two_nn_norms" or "two_launch" in k or "_mma" in k)}
+def stray_launches(launches):
+    """The launches of 2-NN kernels other than `two_nn`: on a path that
+    matches uint8 keys, one two_nn launch a 2-NN call and nothing else."""
+    return {k: v for k, v in launches.items()
+            if v and k in matching_cuda.LAUNCHES and k != "two_nn"}
 
 
 def compare_prepass_f32(tab, counts, name):
@@ -394,76 +382,48 @@ def compare_prepass_f32(tab, counts, name):
 
 
 def compare_two_nn(tab, counts, pi, pj, name):
-    """The 2-NN kernels vs the plain version on the same inputs: two_nn
-    (int8 or f32 `wgmma`; for int8 also its two-launch yardstick, which
-    must give the same bits) and the first design's `mma.sync` kernel of
-    the same type, and the norms kernel (int8) or the pre-pass kernel
-    (f32) against its own plain version.  Bit-exact or raise; returns
-    two_nn's max |err| over finite distances (0)."""
+    """two_nn (int8 or f32 `wgmma`) vs the plain version on the same
+    inputs, and for f32 the pre-pass kernel against its own plain version.
+    Bit-exact or raise; returns two_nn's max |err| over finite distances
+    (0)."""
     M = matching_cuda
     label = f"{len(pi)} pairs x {tab.shape[1]} keys {tab.dtype}"
     want = M._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     f32 = tab.dtype == torch.float32
-    kernels = [("two_nn_f32" if f32 else "two_nn", M.two_nn_pairs),
-               ("two_nn_f32_mma" if f32 else "two_nn_mma",
-                M.two_nn_pairs_mma)]
-    if not f32:
-        kernels.insert(1, ("two_nn_two_launch", M.two_nn_pairs_two_launch))
     if f32:
         compare_prepass_f32(tab, counts, name)
-    else:
-        norms = matching_cuda.two_nn_norms(tab, counts)
-        torch.cuda.synchronize()
-        bad = int((norms != matching_cuda.two_nn_norms_plain(tab, counts))
-                  .sum())
-        log(f"[kernels] {name} two_nn_norms: {tab.shape[0]} x "
-            f"{tab.shape[1]} rows, mismatches {bad}")
-        check(bad == 0, f"two_nn_norms disagrees with its plain version: "
-              f"{name}")
-    errs, outs = [], []
-    for kname, fn in kernels:
-        outs.append(fn(tab, tab, counts, pi, pj))
-        torch.cuda.synchronize()
-        errs.append(compare_outputs(outs[-1], want, f"[kernels] {name} "
-                                    f"{kname}: {label}"))
-    if not f32:
-        same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
-        log(f"[kernels] {name} two_nn identical to its two-launch form: "
-            f"{same}")
-        check(same, f"two_nn differs from its two-launch form: {name}")
-    return errs[0]
+    got = M.two_nn_pairs(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    return compare_outputs(got, want, f"[kernels] {name} "
+                           f"{'two_nn_f32' if f32 else 'two_nn'}: {label}")
 
 
 def compare_two_nn_real(tab, counts, pi, pj, name):
-    """The f32 kernels on a real-valued table, where tensor-core sums run
+    """The f32 kernel on a real-valued table, where tensor-core sums run
     in another order than the plain version's: within
     `matching_cuda.f32_tolerance` (|d - d_plain| <= 1e-5 (|q|^2 + |b|^2), i0
     equal wherever the plain d1 - d0 exceeds twice that) or raise.  Returns
-    two_nn_f32's largest |d - d_plain| / tolerance."""
+    its largest |d - d_plain| / tolerance."""
     M = matching_cuda
     want = M._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     tol = M.f32_tolerance(tab, tab, counts, pi, pj)
-    worst = []
-    for kname, fn in (("two_nn_f32", M.two_nn_pairs),
-                      ("two_nn_f32_mma", M.two_nn_pairs_mma)):
-        got = fn(tab, tab, counts, pi, pj)
-        torch.cuda.synchronize()
-        bad = M.f32_mismatches(got, want, tol)
-        ratio = max(float(((g - w).abs() / tol)[w < M.BIG].max())
-                    for g, w in ((got[0], want[0]), (got[2], want[2])))
-        # Rows whose nearest two are further apart than twice the
-        # tolerance; the zero rows that pad a short image tie everywhere.
-        sep = (want[2] - want[0]) > 2 * tol
-        log(f"[kernels] {name} {kname}: {len(pi)} pairs x {tab.shape[1]} "
-            f"keys real-valued f32: outside the tolerance d0 {bad[0]}, i0 "
-            f"{bad[1]}, d1 {bad[2]}; largest |err| / tolerance {ratio:.4f}; "
-            f"i0 equal at {int((got[1] == want[1])[sep].sum())} of the "
-            f"{int(sep.sum())} rows separated by more than twice it; "
-            f"bit-identical d0 {int((got[0] == want[0]).sum())} of "
-            f"{got[0].numel()}")
-        check(not any(bad), f"{kname} outside its tolerance: {name}")
-        worst.append(ratio)
-    return worst[0]
+    got = M.two_nn_pairs(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    bad = M.f32_mismatches(got, want, tol)
+    ratio = max(float(((g - w).abs() / tol)[w < M.BIG].max())
+                for g, w in ((got[0], want[0]), (got[2], want[2])))
+    # Rows whose nearest two are further apart than twice the tolerance;
+    # the zero rows that pad a short image tie everywhere.
+    sep = (want[2] - want[0]) > 2 * tol
+    log(f"[kernels] {name} two_nn_f32: {len(pi)} pairs x {tab.shape[1]} "
+        f"keys real-valued f32: outside the tolerance d0 {bad[0]}, i0 "
+        f"{bad[1]}, d1 {bad[2]}; largest |err| / tolerance {ratio:.4f}; "
+        f"i0 equal at {int((got[1] == want[1])[sep].sum())} of the "
+        f"{int(sep.sum())} rows separated by more than twice it; "
+        f"bit-identical d0 {int((got[0] == want[0]).sum())} of "
+        f"{got[0].numel()}")
+    check(not any(bad), f"two_nn_f32 outside its tolerance: {name}")
+    return ratio
 
 
 def yardstick(tab, counts, pi, pj, chunk=64):
@@ -494,28 +454,13 @@ def two_nn_bound_ms(tab, counts, pi, pj, peak=INT8_TOPS):
 
 
 def time_two_nn(tab, counts, pi, pj, reps, what):
-    """Times of the int8 2-NN at one shape, all in this call (CUDA events
-    around back-to-back wrapper calls): the `wgmma` wrapper (one launch),
-    its two-launch form (norms kernel + 2-NN kernel) and the `mma.sync`
-    kernel in turns (one, two, mma, mma, two, one; the means are kept), the
-    norms wrapper alone, the plain version and the library yardstick;
-    logged beside the bound.  Returns a dict of ms."""
+    """Times of the int8 2-NN at one shape (CUDA events around
+    back-to-back wrapper calls): the `wgmma` wrapper (one launch), the
+    plain version and the library yardstick; logged beside the bound.
+    Returns a dict of ms."""
     M = matching_cuda
-
-    def one():
-        return M.two_nn_pairs(tab, tab, counts, pi, pj)
-
-    def two():
-        return M.two_nn_pairs_two_launch(tab, tab, counts, pi, pj)
-
-    def old():
-        return M.two_nn_pairs_mma(tab, tab, counts, pi, pj)
-    turns = [cuda_ms(f, reps) for f in (one, two, old, old, two, one)]
-    t = {"ms": (turns[0] + turns[5]) / 2,
-         "ms_two_launch": (turns[1] + turns[4]) / 2,
-         "ms_before": (turns[2] + turns[3]) / 2,
-         "norms_ms": cuda_ms(lambda: matching_cuda.two_nn_norms(tab, counts),
-                             reps),
+    t = {"ms": cuda_ms(lambda: M.two_nn_pairs(tab, tab, counts, pi, pj),
+                       reps),
          "plain_ms": cuda_ms(lambda: matching_cuda._two_nn_pairs_plain(
              tab, tab, counts, pi, pj), max(1, reps // 10)),
          "library_ms": cuda_ms(lambda: yardstick(tab, counts, pi, pj),
@@ -523,103 +468,59 @@ def time_two_nn(tab, counts, pi, pj, reps, what):
     bound, by = two_nn_bound_ms(tab, counts, pi, pj)
     t.update(bound_ms=bound, bound_by=by)
     log(f"[kernels] {what}: two_nn (wgmma, one launch) {t['ms']:.4f} ms "
-        f"({turns[0]:.4f}, {turns[5]:.4f}; {100 * bound / t['ms']:.2f} % of "
-        f"the bound), two-launch form {t['ms_two_launch']:.4f} ms "
-        f"({turns[1]:.4f}, {turns[4]:.4f}), mma.sync {t['ms_before']:.4f} ms "
-        f"({turns[2]:.4f}, {turns[3]:.4f}; "
-        f"{100 * bound / t['ms_before']:.2f} %), speed-up "
-        f"{t['ms_before'] / t['ms']:.3f}x; norms wrapper {t['norms_ms']:.4f} "
-        f"ms; plain {t['plain_ms']:.4f} ms, matmul+topk "
-        f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+        f"({100 * bound / t['ms']:.2f} % of the bound); plain "
+        f"{t['plain_ms']:.4f} ms, matmul+topk {t['library_ms']:.4f} ms, "
+        f"bound {bound:.4f} ms ({by})")
     return t
 
 
 def split_two_nn_call(tab, counts, pi, pj, what, calls=20):
-    """Where an int8 two_nn_pairs call's time goes, the one-launch kernel
-    beside its two-launch form, in turns (one, two, two, one): the device
-    time of each form launched bare through ctypes on preallocated tensors
-    (`device_us`: the 2-NN kernel alone, and the norms kernel plus the 2-NN
-    kernel that reads its constants) and the host time of each wrapper;
-    then the host time of the norms wrapper, of the wrapper's output
-    allocation and of each bare 2-NN launch.  Returns
-    {"device_us", "device_us_two_launch", "host_us",
-    "host_us_two_launch"}."""
+    """Where an int8 two_nn_pairs call's time goes: the device time of the
+    kernel launched bare through ctypes on preallocated tensors
+    (`device_us`) and the host time of the wrapper; then the host time of
+    the wrapper's output allocation and of a bare launch.  Returns
+    {"device_us", "host_us"}."""
     M = matching_cuda
     lib = M._load()
     stream = torch.cuda.current_stream().cuda_stream
     B, nq = len(pi), tab.shape[1]
     n_img, nd = tab.shape[0], tab.shape[1]
-    norms = M.two_nn_norms(tab, counts)
-    d0, i0, d1, scratch = M._outputs(B, nq, tab.device, norms.numel())
+    kp = -(-nd // M.NORM_TILE) * M.NORM_TILE
+    d0, i0, d1, scratch = M._outputs(B, nq, tab.device, n_img * kp)
 
-    def bare_norms():
-        lib.two_nn_norms_i8(tab.data_ptr(), n_img, nd, counts.data_ptr(),
-                            norms.data_ptr(), stream)
-
-    def bare(cst, two_launch):
-        return lambda: lib.two_nn_pairs_i8(
+    def bare():
+        return lib.two_nn_pairs_i8(
             tab.data_ptr(), nq * 128, nq, tab.data_ptr(), n_img, nd,
-            counts.data_ptr(), cst.data_ptr(), two_launch, pi.data_ptr(),
+            counts.data_ptr(), scratch.data_ptr(), pi.data_ptr(),
             pj.data_ptr(), B, d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
             stream)
-    one, ext = bare(scratch, 0), bare(norms, 1)
-
-    def dev_one():
-        return device_us(one, calls)
-
-    def dev_two():
-        return device_us(lambda: (bare_norms(), ext()), calls)
-
-    def host_one():
-        return host_us(lambda: M.two_nn_pairs(tab, tab, counts, pi, pj),
-                       calls)
-
-    def host_two():
-        return host_us(lambda: M.two_nn_pairs_two_launch(
-            tab, tab, counts, pi, pj), calls)
-    d = [f() for f in (dev_one, dev_two, dev_two, dev_one)]
-    h = [f() for f in (host_one, host_two, host_two, host_one)]
-    out = {"device_us": (d[0] + d[3]) / 2,
-           "device_us_two_launch": (d[1] + d[2]) / 2,
-           "host_us": (h[0] + h[3]) / 2, "host_us_two_launch": (h[1] + h[2]) / 2}
-    parts = {"norms wrapper": host_us(lambda: M.two_nn_norms(tab, counts),
-                                      calls),
-             "outputs": host_us(lambda: M._outputs(B, nq, tab.device,
-                                                   norms.numel()), calls),
-             "bare 2-NN launch": host_us(one, calls),
-             "bare 2-NN launch reading the norms": host_us(ext, calls),
-             "bare norms launch": host_us(bare_norms, calls)}
-    log(f"[split] {what}: device µs a call, one launch {out['device_us']:.2f}"
-        f" ({d[0]:.2f}, {d[3]:.2f}), two-launch form "
-        f"{out['device_us_two_launch']:.2f} ({d[1]:.2f}, {d[2]:.2f}); "
-        f"wrapper host µs a call, one launch {out['host_us']:.2f} ({h[0]:.2f}"
-        f", {h[3]:.2f}), two-launch form {out['host_us_two_launch']:.2f} "
-        f"({h[1]:.2f}, {h[2]:.2f}); host µs a call: {fmt_us(parts)}")
+    out = {"device_us": device_us(bare, calls),
+           "host_us": host_us(lambda: M.two_nn_pairs(tab, tab, counts, pi,
+                                                     pj), calls)}
+    parts = {"outputs": host_us(lambda: M._outputs(B, nq, tab.device,
+                                                   n_img * kp), calls),
+             "bare 2-NN launch": host_us(bare, calls)}
+    log(f"[split] {what}: device µs a call {out['device_us']:.2f}; wrapper "
+        f"host µs a call {out['host_us']:.2f}; host µs a call: "
+        f"{fmt_us(parts)}")
     return out
 
 
 def time_two_nn_f32(tab, counts, pi, pj, reps, what):
     """Times of the f32 2-NN at one shape, all in this call: the `wgmma`
-    wrapper (pre-pass + kernel) and its `mma.sync` twin in turns (new, old,
-    old, new), the product-only split (one max a score in place of the
-    top-2, held bit-exact against its plain version first), the pre-pass
-    alone, the plain version and the library yardstick, beside the bound at
-    the bf16 tensor-core rate.  Returns a dict of ms."""
+    wrapper (pre-pass + kernel), the product-only split (one max a score
+    in place of the top-2, held bit-exact against its plain version
+    first), the pre-pass alone, the plain version and the library
+    yardstick, beside the bound at the bf16 tensor-core rate.  Returns a
+    dict of ms."""
     M = matching_cuda
     got = M.two_nn_product_max(tab, tab, counts, pi, pj)
     torch.cuda.synchronize()
     compare_outputs(got, M.product_max_plain(tab, tab, counts, pi, pj),
                     f"[kernels] two_nn_product_max_f32: {len(pi)} pairs x "
                     f"{tab.shape[1]} keys")
-
-    def new():
-        return M.two_nn_pairs(tab, tab, counts, pi, pj)
-
-    def old():
-        return M.two_nn_pairs_mma(tab, tab, counts, pi, pj)
-    turns = [cuda_ms(f, reps) for f in (new, old, old, new)]
-    t = {"ms": (turns[0] + turns[3]) / 2,
-         "ms_before": (turns[1] + turns[2]) / 2,
+    t = {"ms": cuda_ms(lambda: M.two_nn_pairs(tab, tab, counts, pi, pj),
+                       reps),
          "product_ms": cuda_ms(lambda: M.two_nn_product_max(
              tab, tab, counts, pi, pj), reps),
          "prepass_ms": cuda_ms(lambda: M.prepass_f32(tab, counts), reps),
@@ -632,11 +533,8 @@ def time_two_nn_f32(tab, counts, pi, pj, reps, what):
     bound, by = two_nn_bound_ms(tab, counts, pi, pj, BF16_TOPS)
     t.update(bound_ms=bound, bound_by=by)
     log(f"[kernels] {what}: two_nn_f32 (wgmma) {t['ms']:.4f} ms "
-        f"({turns[0]:.4f}, {turns[3]:.4f}; {100 * bound / t['ms']:.2f} % of "
-        f"the bound), mma.sync {t['ms_before']:.4f} ms ({turns[1]:.4f}, "
-        f"{turns[2]:.4f}; {100 * bound / t['ms_before']:.2f} %), speed-up "
-        f"{t['ms_before'] / t['ms']:.3f}x; split: pre-pass + product + one "
-        f"max a score {t['product_ms']:.4f} ms "
+        f"({100 * bound / t['ms']:.2f} % of the bound); split: pre-pass + "
+        f"product + one max a score {t['product_ms']:.4f} ms "
         f"({100 * bound / t['product_ms']:.2f} % of the bound), top-2 "
         f"epilogue +{t['ms'] - t['product_ms']:.4f} ms; pre-pass "
         f"{t['prepass_ms']:.4f} ms (plain {t['prepass_plain_ms']:.4f}); "
@@ -652,14 +550,6 @@ def prepass_f32_bound_ms(tab):
     rows = tab.shape[0] * tab.shape[1]
     nbytes = 4 * tab.numel() + 2 * tab.numel() + 4 * rows \
         + 4 * tab.shape[0] * kp
-    return nbytes / HBM_BYTES_S * 1e3, "bytes"
-
-
-def norms_bound_ms(tab):
-    """The norms kernel moves the table once and writes one int32 per row
-    (padded to the ring tile); its 128 MAC per row are far below."""
-    kp = -(-tab.shape[1] // matching_cuda.NORM_TILE) * matching_cuda.NORM_TILE
-    nbytes = tab.numel() * tab.element_size() + 4 * tab.shape[0] * kp
     return nbytes / HBM_BYTES_S * 1e3, "bytes"
 
 
@@ -681,13 +571,12 @@ def phase_build():
         log(f"[build] {os.path.relpath(p, ROOT)}")
     log(f"[build] {len(paths)} libraries in {time.time() - t0:.2f} s")
     # ptxas prints each kernel's spills under "Function properties for":
-    # the wgmma kernels of two_nn.cu (int8 2-NN and product-only, each
-    # folded and two-launch; f32 2-NN and product-only) and of
-    # two_nn_variants.cu (11 folded instantiations, 10 two-launch ones),
+    # the wgmma kernels of two_nn.cu (int8 2-NN and product-only; f32 2-NN
+    # and product-only) and of two_nn_variants.cu (11 instantiations),
     # none of which may spill or have its wgmma serialised.
     out = buf.getvalue()
-    for kernel, n in (("two_nn_ws_kernel", 4), ("two_nn_f32_ws_kernel", 2),
-                      ("variant_ws_kernel", 21)):
+    for kernel, n in (("two_nn_ws_kernel", 2), ("two_nn_f32_ws_kernel", 2),
+                      ("variant_ws_kernel", 11)):
         spills = re.findall(rf"Function properties for \S*{kernel}\S*\n"
                             r"\s*(.*)\n", out)
         check(len(spills) == n and all(
@@ -1265,8 +1154,8 @@ def phase_main(dump=None):
     check(n_tracks > 0, "no tracks")
     check(launches["two_nn"] > 0, f"the 2-NN kernel was not launched on "
           f"the main path: {launches}")
-    check(yardstick_launches(launches) == {}, f"a yardstick ran on the main "
-          f"path: {launches}")
+    check(stray_launches(launches) == {}, f"another 2-NN kernel ran on the "
+          f"main path: {launches}")
     entries, dims, key_xy, descs, matches = read_scene(work)
     log(f"[main] wall {wall:.2f} s; stage seconds "
         + json.dumps({k: round(v, 4) for k, v in stages.items()}))
@@ -1283,7 +1172,6 @@ def phase_main(dump=None):
         f"matches {sum(len(m) for m in matches.values())}, tracks {n_tracks}, "
         f"2-NN launches {json.dumps(launches)}, variant kernel launches "
         f"{variant_launches}")
-    check_mma_matches(descs, work)
 
     # The kernels at the main path's shapes, against their plain versions.
     table = DescriptorTable(descs, device="cuda")
@@ -1294,49 +1182,15 @@ def phase_main(dump=None):
     sp = split_two_nn_call(table.table, table.counts, pi, pj,
                            f"main path {len(pi)} pairs x "
                            f"{table.table.shape[1]} keys")
-    nb, nby = norms_bound_ms(table.table)
-    norms_dev = device_us(lambda: matching_cuda.two_nn_norms(
-        table.table, table.counts))
     records = [
         {"name": "two_nn", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": launches["two_nn"],
          "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": t["library_ms"], "ms_before": t["ms_before"],
-         "ms_two_launch": t["ms_two_launch"], **sp},
-        {"name": "two_nn_norms", "route": "cuda", "source": TWO_NN_SOURCE,
-         "replaces": TWO_NN_REPLACES, "launches": launches["two_nn_norms"],
-         "max_abs_err": 0.0, "ms": t["norms_ms"],
-         "device_us": norms_dev,
-         "plain_ms": cuda_ms(lambda: matching_cuda.two_nn_norms_plain(
-             table.table, table.counts), 20),
-         "bound_ms": nb, "bound_by": nby, "library_ms": None}]
+         "library_ms": t["library_ms"], **sp}]
     check_estimators_on_card()
     compare_verification(entries, dims, key_xy, matches, work)
     return records, failures, launches
-
-
-def check_mma_matches(descs, work):
-    """The main path's matching redone on the first design's `mma.sync`
-    kernel: matches.init.txt must come out byte-identical."""
-    from bundler_sfm_tpu_torch.io.matchfile import write_match_file
-    from bundler_sfm_tpu_torch.ops import matching
-    pairs = all_pairs(len(descs))
-    saved = matching.two_nn_pairs
-    matching.two_nn_pairs = matching_cuda.two_nn_pairs_mma
-    try:
-        m = DescriptorTable(descs, device="cuda").match_pairs(
-            pairs, min_matches=16)
-    finally:
-        matching.two_nn_pairs = saved
-    path = os.path.join(work, "matches.mma.txt")
-    write_match_file(path, m)
-    with open(path, "rb") as a, open(os.path.join(
-            work, "matches.init.txt"), "rb") as b:
-        same = a.read() == b.read()
-    log(f"[main] matches.init.txt byte-identical with the mma.sync kernel's "
-        f"matches: {same}")
-    check(same, "the mma.sync kernel's matches differ from the main path's")
 
 
 # The options RunBundler.sh writes into options.txt (RunBundler.sh:119-137),
@@ -1497,9 +1351,9 @@ def check_register_image(work, bundle_path, img):
             f"s, {runs[dev] and runs[dev]['num_inliers']} inliers")
     g, c = runs["cuda"], runs["cpu"]
     check(g is not None and c is not None, "register_image failed")
-    check(launches["two_nn"] > 0 and yardstick_launches(launches) == {},
-          f"register_image: two_nn was not launched on CUDA, or a "
-          f"yardstick was: {launches}")
+    check(launches["two_nn"] > 0 and stray_launches(launches) == {},
+          f"register_image: two_nn was not launched on CUDA, or another "
+          f"2-NN kernel was: {launches}")
     rel = max(float(np.abs(g["R"] - c["R"]).max()),
               float(np.abs(g["center"] - c["center"]).max()
                     / np.abs(c["center"]).max()),
@@ -1563,7 +1417,7 @@ def phase_staged():
     check(rc == 0, f"keymatch returned {rc}")
     log(f"[staged] (a) keymatch: {time.time() - t0:.2f} s, launches "
         f"{json.dumps(launches)}")
-    check(launches["two_nn"] > 0 and yardstick_launches(launches) == {},
+    check(launches["two_nn"] > 0 and stray_launches(launches) == {},
           f"keymatch launches {launches}")
     same_bytes(os.path.join(work, "matches.init.txt"), matches,
                "(a) keymatch vs run_bundler matches.init.txt")
@@ -1656,8 +1510,8 @@ def phase_staged():
           "not run")
     log(f"[staged] phase {time.time() - t_phase:.1f} s; 2-NN launches "
         f"{json.dumps(total)}")
-    check(yardstick_launches(total) == {}, f"a yardstick ran in the staged "
-          f"flow: {total}")
+    check(stray_launches(total) == {}, f"another 2-NN kernel ran in the "
+          f"staged flow: {total}")
     return total, failures
 
 
@@ -1893,7 +1747,7 @@ def phase_tools():
         os.path.join(fd, "list_keys.txt"), matches]))
     launches = dict(matching_cuda.LAUNCHES)
     check(rc == 0, f"(d) keymatch returned {rc}")
-    check(launches["two_nn"] > 0 and yardstick_launches(launches) == {},
+    check(launches["two_nn"] > 0 and stray_launches(launches) == {},
           f"(d) keymatch launches {launches}")
     with open(matches, "rb") as a, open(os.path.join(
             work, "matches.init.txt"), "rb") as b:
@@ -1938,13 +1792,12 @@ def _replaces(kernel):
 
 def _plain_kind(kernel):
     """The plain version a variant kernel is held to: "oneblock",
-    "blockmerge" or an ablation mode (a `_mma` twin shares its kernel's)."""
+    "blockmerge" or an ablation mode."""
     if kernel.startswith("two_nn_oneblock"):
         return "oneblock"
     if kernel.startswith("two_nn_blockmerge_bf16"):
         return "blockmerge"
-    return (kernel[len("two_nn_ablation_"):].replace("mma_", "", 1)
-            .replace("two_launch_", "", 1))
+    return kernel[len("two_nn_ablation_"):]
 
 
 def _variant_plain(kernel):
@@ -1959,63 +1812,32 @@ def _variant_plain(kernel):
 
 def variant_kernels(table16=None):
     """{counter: wrapper} of every variant kernel: the oneblock tiles and
-    dots, blockmerge, the ablations, their two-launch yardsticks
-    (`_two_launch`) and the first design's `mma.sync` yardsticks (`_mma`).
-    The one-launch bf16 kernels read `table16` when it is given."""
+    dots, blockmerge and the ablations.  The bf16 kernels read `table16`
+    when it is given."""
     V = matching_variants
     t16 = {"table16": table16}
     out = {}
     for dot in V.DOTS:
         for tq in V.ONEBLOCK_TILES:
-            for mid, fn, kw in (("", V.two_nn_oneblock,
-                                 t16 if dot == "bf16" else {}),
-                                ("mma_", V.two_nn_oneblock_mma, {})):
-                out[f"two_nn_oneblock_{mid}{dot}_{tq}"] = (
-                    lambda f, t, d, k: lambda *a: f(*a, tq=t, dot=d, **k))(
-                        fn, tq, dot, kw)
-            out[f"two_nn_oneblock_two_launch_{dot}_{tq}"] = (
-                lambda t, d: lambda *a: V.two_nn_oneblock_two_launch(
-                    *a, tq=t, dot=d))(tq, dot)
+            out[f"two_nn_oneblock_{dot}_{tq}"] = (
+                lambda t, d, k: lambda *a: V.two_nn_oneblock(
+                    *a, tq=t, dot=d, **k))(tq, dot,
+                                          t16 if dot == "bf16" else {})
     out["two_nn_blockmerge_bf16"] = lambda *a: V.two_nn_blockmerge_bf16(
         *a, **t16)
-    out["two_nn_blockmerge_bf16_two_launch"] = \
-        V.two_nn_blockmerge_bf16_two_launch
-    out["two_nn_blockmerge_bf16_mma"] = V.two_nn_blockmerge_bf16_mma
     for m in V.ABLATION_MODES:
-        for mid, fn in (("", V.two_nn_ablation), ("mma_", V.two_nn_ablation_mma)):
-            out[f"two_nn_ablation_{mid}{m}"] = (
-                lambda f, mode: lambda *a: f(*a, mode))(fn, m)
-    out["two_nn_ablation_two_launch_top1"] = V.two_nn_ablation_two_launch
+        out[f"two_nn_ablation_{m}"] = (
+            lambda mode: lambda *a: V.two_nn_ablation(*a, mode))(m)
     return out
 
 
-# The instantiations on the `wgmma` design, by counter; the last three (bf16
-# oneblock above 128 rows; clusters at 512 and 1024) are on no path.
+# The instantiations, by counter; the last three (bf16 oneblock above 128
+# rows; clusters at 512 and 1024) are on no path.
 UNPATHED = [f"two_nn_oneblock_bf16_{tq}" for tq in (256, 512, 1024)]
 WGMMA_VARIANTS = ([f"two_nn_oneblock_int8_{tq}" for tq in (128, 256, 512, 1024)]
                   + ["two_nn_oneblock_bf16_128", "two_nn_blockmerge_bf16",
                      "two_nn_ablation_matmul_max", "two_nn_ablation_top1"]
                   + UNPATHED)
-
-
-def two_launch_twin(kernel):
-    """The counter of a `wgmma` variant's two-launch form, or None
-    ("matmul_max" reads no constants)."""
-    if kernel.startswith("two_nn_oneblock_"):
-        return kernel.replace("two_nn_oneblock_", "two_nn_oneblock_two_launch_")
-    if kernel == "two_nn_ablation_top1":
-        return "two_nn_ablation_two_launch_top1"
-    if kernel == "two_nn_blockmerge_bf16":
-        return "two_nn_blockmerge_bf16_two_launch"
-    return None
-
-
-def mma_twin(kernel):
-    if kernel.startswith("two_nn_oneblock"):
-        return kernel.replace("two_nn_oneblock_", "two_nn_oneblock_mma_")
-    if kernel.startswith("two_nn_ablation"):
-        return kernel.replace("two_nn_ablation_", "two_nn_ablation_mma_")
-    return kernel + "_mma"
 
 
 def compare_variant(kernel, fn, tab, counts, pi, pj, label):
@@ -2084,182 +1906,106 @@ def _garbage_table(rng):
     return tab.cuda(), torch.tensor(sizes, dtype=torch.int32, device="cuda")
 
 
-def compare_prepass(tab, counts, label):
-    """The pre-pass kernel (int8 and bf16 flavours, and the bf16 table
-    alone) bit-exact against its plain version."""
-    V = matching_variants
-    bad = int((V.bf16_table(tab).view(torch.int16)
+def compare_bf16_table(tab, label):
+    """The pre-pass kernel (`bf16_table`) bit-exact against its plain
+    version."""
+    bad = int((matching_variants.bf16_table(tab).view(torch.int16)
                != tab.to(torch.bfloat16).view(torch.int16)).sum())
     log(f"[variants] bf16_table {label}: mismatches {bad}")
     check(bad == 0, f"bf16_table disagrees with its plain version: {label}")
-    for bf16 in (False, True):
-        got = V.variants_prepass(tab, counts, bf16)
-        torch.cuda.synchronize()
-        want = V.prepass_plain(tab, counts, bf16)
-        bad = [0 if w is None else int((g != w).sum())
-               for g, w in zip(got, want)]
-        log(f"[variants] two_nn_variants_prepass {label} "
-            f"{'bf16' if bf16 else 'int8'}: {tab.shape[0]} x {tab.shape[1]} "
-            f"rows, mismatches norms {bad[0]}, qsq {bad[1]}, bf16 table "
-            f"{bad[2]}")
-        check(not any(bad), f"two_nn_variants_prepass disagrees with its "
-              f"plain version: {label}")
 
 
-def prepass_bound_ms(tab, bf16):
-    """The pre-pass reads the table once and writes two int32 per row (and
-    the bf16 table); its dp4a work is far below."""
-    rows = tab.shape[0] * tab.shape[1]
-    nbytes = tab.numel() + 8 * rows + (2 * tab.numel() if bf16 else 0)
+def prepass_bound_ms(tab):
+    """The pre-pass reads the table once and writes its bf16 copy once."""
+    nbytes = tab.numel() + 2 * tab.numel()
     return nbytes / HBM_BYTES_S * 1e3, "bytes"
 
 
 def split_two_nn(tab, counts, pi, pj, base, ragged):
     """The wgmma kernel's time split: its product-only ablation (one max a
-    score in place of the top-2) and that ablation's two-launch form, held
-    bit-exact against their plain version at the probe shape and on ragged
-    counts, then timed beside base."""
+    score in place of the top-2), held bit-exact against its plain version
+    at the probe shape and on ragged counts, then timed beside base."""
     M = matching_cuda
     for label, (t, c), a, b in (("probe", (tab, counts), pi, pj),
                                 ("ragged", ragged, *pair_tensors(
                                     [(i, j) for i in range(5)
                                      for j in range(5)]))):
-        want = M.product_max_plain(t, t, c, a, b)
-        for name, fn in (("two_nn_product_max", M.two_nn_product_max),
-                         ("two_nn_product_max_two_launch",
-                          M.two_nn_product_max_two_launch)):
-            got = fn(t, t, c, a, b)
-            torch.cuda.synchronize()
-            compare_outputs(got, want, f"[variants] {name} {label}: "
-                            f"{len(a)} pairs x {t.shape[1]} keys")
+        got = M.two_nn_product_max(t, t, c, a, b)
+        torch.cuda.synchronize()
+        compare_outputs(got, M.product_max_plain(t, t, c, a, b),
+                        f"[variants] two_nn_product_max {label}: "
+                        f"{len(a)} pairs x {t.shape[1]} keys")
     ms = cuda_ms(lambda: M.two_nn_product_max(tab, tab, counts, pi, pj), 10)
-    ms2 = cuda_ms(lambda: M.two_nn_product_max_two_launch(
-        tab, tab, counts, pi, pj), 10)
-    log(f"[variants] product-only split, two-launch form {ms2:.4f} ms")
     log(f"[variants] wgmma split at 2208 pairs x 2048^2: product + one max "
         f"a score {ms:.4f} ms ({100 * base['bound_ms'] / ms:.2f} % of the "
         f"bound), top-2 epilogue +{base['ms'] - ms:.4f} ms, whole "
         f"{base['ms']:.4f} ms")
 
 
-def bare_variant(kernel, tab, counts, pi, pj, two_launch):
+def bare_variant(kernel, tab, counts, pi, pj):
     """A `wgmma` variant launched bare through ctypes on preallocated
-    tensors, for `device_us`: the one-launch kernel on its scratch (the
-    bf16 table made beforehand, as the probe makes it), or the two-launch
-    form, the pre-pass kernel (which also writes the bf16 table) and then
-    the kernel reading its output."""
+    tensors, for `device_us`: the kernel on its scratch, the bf16 table
+    made beforehand (as the probe makes it)."""
     V = matching_variants
     lib = V._load()
     stream = torch.cuda.current_stream().cuda_stream
     B, (n_img, K) = len(pi), tab.shape[:2]
     bf16 = "bf16" in kernel
     *out, scratch = V._outputs(B, K, tab.device, 2 * n_img * K)
-    norms, qsq, t16 = V.variants_prepass(tab, counts, bf16)
-    if not two_launch:
-        norms, qsq = scratch.view(2, -1)
+    norms, qsq = scratch.view(2, -1)
+    t16 = V.bf16_table(tab) if bf16 else None
     if kernel.startswith("two_nn_oneblock"):
         entry, extra = lib.two_nn_oneblock, (int(kernel.rsplit("_", 1)[1]),
                                              int(bf16))
     elif kernel.startswith("two_nn_blockmerge"):
         entry, extra = lib.two_nn_blockmerge_bf16, ()
     else:
-        entry, extra = lib.two_nn_ablation, (1,)
+        entry, extra = lib.two_nn_ablation, (
+            V.ABLATION_MODES.index(_plain_kind(kernel)),)
 
     def run():
-        if two_launch:
-            lib.two_nn_variants_prepass(
-                tab.data_ptr(), n_img, K, counts.data_ptr(), int(bf16),
-                norms.data_ptr(), qsq.data_ptr(),
-                t16.data_ptr() if bf16 else None, stream)
         entry(tab.data_ptr(), t16.data_ptr() if bf16 else None, n_img, K,
               counts.data_ptr(), norms.data_ptr(), qsq.data_ptr(),
-              int(two_launch), pi.data_ptr(), pj.data_ptr(), B, *extra,
+              pi.data_ptr(), pj.data_ptr(), B, *extra,
               *(o.data_ptr() for o in out), stream)
     return run
 
 
-def split_variant_calls(rows, kinds, tab, counts, pi, pj, calls=10):
-    """Where a variant call's time goes at the timing shape, each `wgmma`
-    variant that reads constants beside its two-launch form, in turns (one,
-    two, two, one): the device time of the call's kernels launched bare
-    (`bare_variant`, `device_us`) and the wrapper's host time; then the
-    device time of the pre-pass kernel and the host time of the pre-pass
-    wrapper, of the output allocation and of one bare variant launch in
-    each form (oneblock int8 at tq 128).  Returns ({counter: {"device_us",
-    "device_us_two_launch", "host_us", "host_us_two_launch"}}, device µs,
-    host µs)."""
+def split_variant_calls(rows, tab, counts, pi, pj, calls=10):
+    """Where a variant call's time goes at the timing shape: the device
+    time of each variant's kernel launched bare (`bare_variant`,
+    `device_us`) and its wrapper's host time; then the device time of the
+    pre-pass kernel and the host time of its wrapper, of the output
+    allocation and of one bare variant launch (oneblock int8 at tq 128).
+    Returns ({counter: {"device_us", "host_us"}}, device µs, host µs)."""
     V = matching_variants
     res = {}
     for v in rows:
-        twin = two_launch_twin(v.kernel)
-        if twin is None:
-            continue
-        one, two = (bare_variant(v.kernel, tab, counts, pi, pj, t)
-                    for t in (False, True))
-        d = [device_us(f, calls) for f in (one, two, two, one)]
-        h = [host_us(lambda f=f: f(tab, counts, pi, pj), calls)
-             for f in (v.fn, kinds[twin], kinds[twin], v.fn)]
-        res[v.kernel] = {"device_us": (d[0] + d[3]) / 2,
-                         "device_us_two_launch": (d[1] + d[2]) / 2,
-                         "host_us": (h[0] + h[3]) / 2,
-                         "host_us_two_launch": (h[1] + h[2]) / 2}
-        log(f"[split] {v.kernel} at {len(pi)} pairs: device µs a call, one "
-            f"launch {res[v.kernel]['device_us']:.2f} ({d[0]:.2f}, "
-            f"{d[3]:.2f}), two-launch form "
-            f"{res[v.kernel]['device_us_two_launch']:.2f} ({d[1]:.2f}, "
-            f"{d[2]:.2f}); wrapper host µs a call, one launch "
-            f"{res[v.kernel]['host_us']:.2f} ({h[0]:.2f}, {h[3]:.2f}), "
-            f"two-launch form {res[v.kernel]['host_us_two_launch']:.2f} "
-            f"({h[1]:.2f}, {h[2]:.2f})")
+        res[v.kernel] = {
+            "device_us": device_us(bare_variant(v.kernel, tab, counts, pi,
+                                                pj), calls),
+            "host_us": host_us(lambda: v.fn(tab, counts, pi, pj), calls)}
+        log(f"[split] {v.kernel} at {len(pi)} pairs: device µs a call "
+            f"{res[v.kernel]['device_us']:.2f}; wrapper host µs a call "
+            f"{res[v.kernel]['host_us']:.2f}")
     B, (n_img, K) = len(pi), tab.shape[:2]
-    dev = {f"pre-pass {d}": device_us(
-        lambda b=(d == "bf16"): V.variants_prepass(tab, counts, b), calls)
-        for d in ("int8", "bf16")}
-    dev["bf16 table alone"] = device_us(lambda: V.bf16_table(tab), calls)
-    host = {"pre-pass int8 wrapper": host_us(
-                lambda: V.variants_prepass(tab, counts, False), calls),
-            "pre-pass bf16 wrapper": host_us(
-                lambda: V.variants_prepass(tab, counts, True), calls),
-            "bf16_table wrapper": host_us(lambda: V.bf16_table(tab), calls),
+    dev = {"bf16 table": device_us(lambda: V.bf16_table(tab), calls)}
+    host = {"bf16_table wrapper": host_us(lambda: V.bf16_table(tab), calls),
             "outputs": host_us(lambda: V._outputs(B, K, tab.device,
                                                   2 * n_img * K), calls),
             "bare oneblock_int8_128 launch": host_us(bare_variant(
-                "two_nn_oneblock_int8_128", tab, counts, pi, pj, False),
-                calls),
-            "bare oneblock_int8_128 two-launch form": host_us(bare_variant(
-                "two_nn_oneblock_int8_128", tab, counts, pi, pj, True),
-                calls)}
+                "two_nn_oneblock_int8_128", tab, counts, pi, pj), calls)}
     log(f"[split] variants at {len(pi)} pairs x {K}^2: device µs a call: "
         f"{fmt_us(dev)}; host µs a call: {fmt_us(host)}")
     return res, dev, host
 
 
-def time_variant(kernel, fn, kinds, tab, counts, pi, pj, bound, ops):
+def time_variant(kernel, fn, tab, counts, pi, pj, bound, ops):
     """A variant kernel at the timing shape, by CUDA events around 10
-    back-to-back calls: in turns with its two-launch form where it has one
-    and its `mma.sync` twin (one, two, mma, mma, two, one);
-    the plain version and the library yardstick; logged with the shares of
-    the int8 (and bf16) bound."""
+    back-to-back calls; the plain version and the library yardstick;
+    logged with the shares of the int8 (and bf16) bound."""
     bf16 = "bf16" in kernel
-    twin = kinds.get(mma_twin(kernel))
-    two = kinds.get(two_launch_twin(kernel))
-    if twin is None:
-        t = {"ms": cuda_ms(lambda: fn(tab, counts, pi, pj), 10)}
-        turns = ""
-    else:
-        order = [fn, twin, twin, fn] if two is None else \
-            [fn, two, twin, twin, two, fn]
-        r = [cuda_ms(lambda f=f: f(tab, counts, pi, pj), 10) for f in order]
-        t = {"ms": (r[0] + r[-1]) / 2,
-             "ms_before": (r[len(r) // 2 - 1] + r[len(r) // 2]) / 2}
-        turns = (f" ({r[0]:.4f}, {r[-1]:.4f}); mma.sync {t['ms_before']:.4f} "
-                 f"ms ({r[len(r) // 2 - 1]:.4f}, {r[len(r) // 2]:.4f}; "
-                 f"{100 * bound / t['ms_before']:.2f} % of the int8 bound), "
-                 f"speed-up {t['ms_before'] / t['ms']:.3f}x")
-        if two is not None:
-            t["ms_two_launch"] = (r[1] + r[4]) / 2
-            turns += (f"; two-launch form {t['ms_two_launch']:.4f} ms "
-                      f"({r[1]:.4f}, {r[4]:.4f})")
+    t = {"ms": cuda_ms(lambda: fn(tab, counts, pi, pj), 10)}
     t["plain_ms"] = cuda_ms(
         lambda: _variant_plain(kernel)(tab, counts, pi, pj), 2)
     kind = ("exact" if "ablation" not in kernel
@@ -2271,7 +2017,7 @@ def time_variant(kernel, fn, kinds, tab, counts, pi, pj, bound, ops):
         t["bound_bf16_ms"] = ops / BF16_TOPS * 1e3
         extra = (f", {100 * t['bound_bf16_ms'] / t['ms']:.2f} % of the bf16 "
                  f"bound ({t['bound_bf16_ms']:.4f} ms)")
-    log(f"[variants] {kernel}: {t['ms']:.4f} ms{turns}; "
+    log(f"[variants] {kernel}: {t['ms']:.4f} ms; "
         f"{100 * bound / t['ms']:.2f} % of the int8 bound{extra}; plain "
         f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
     return t
@@ -2284,11 +2030,9 @@ def phase_variants():
     shapes = {"probe": P.make_table(2048, "cuda"),
               "ragged": _ragged_table(rng), "ties": _ties_table(rng),
               "garbage": _garbage_table(rng)}
-    # Every kernel and mode of both designs and every two-launch form,
-    # bit-exact on every table; each one-launch kernel also identical to
-    # its two-launch form and its `mma.sync` twin, and each exact one to
-    # two_nn_pairs.  The bf16 kernels read the table's bf16 copy, made once
-    # per table as the probe makes it.
+    # Every kernel and mode bit-exact on every table, and each exact one
+    # identical to two_nn_pairs.  The bf16 kernels read the table's bf16
+    # copy, made once per table as the probe makes it.
     for kernel in UNPATHED:
         tq = int(kernel.rsplit("_", 1)[1])
         lay = V.oneblock_layout(tq, "bf16")
@@ -2303,7 +2047,7 @@ def phase_variants():
         pairs = (P.make_pairs(276) if label == "probe"
                  else [(i, j) for i in range(n) for j in range(n)])
         pi, pj = pair_tensors(pairs)
-        compare_prepass(tab, counts, label)
+        compare_bf16_table(tab, label)
         kinds = variant_kernels(V.bf16_table(tab))
         plain, outs = {}, {}
         for kernel, fn in kinds.items():
@@ -2317,20 +2061,13 @@ def phase_variants():
                 f"{len(pi)} pairs x {tab.shape[1]} keys"))
         pairs_out = matching_cuda.two_nn_pairs(tab, tab, counts, pi, pj)
         for kernel in WGMMA_VARIANTS:
-            for twin, what in ((two_launch_twin(kernel), "two-launch form"),
-                               (mma_twin(kernel), "mma.sync twin")):
-                if twin is not None:
-                    check(all(torch.equal(a, b) for a, b in zip(
-                        outs[kernel], outs[twin])), f"{kernel} differs from "
-                        f"its {what}: {label}")
             if "ablation" not in kernel:
                 check(all(torch.equal(a, b) for a, b in zip(
                     outs[kernel], pairs_out)), f"{kernel} differs from "
                     f"two_nn_pairs: {label}")
-        log(f"[variants] {label}: every one-launch kernel identical to its "
-            f"two-launch form and its mma.sync twin, every exact one to "
+        log(f"[variants] {label}: every exact kernel identical to "
             f"two_nn_pairs")
-    check(len(errs) == len(kinds), f"compared {sorted(errs)}")
+    check(sorted(errs) == sorted(WGMMA_VARIANTS), f"compared {sorted(errs)}")
 
     # The probe path through its command-line entry point, with every
     # launch count zeroed just before it.
@@ -2358,8 +2095,9 @@ def phase_variants():
         if v.exact and v.kernel != "two_nn":
             check(res[v.name][0] == "IDENTICAL",
                   f"probe: {v.name} {res[v.name][0]}")
-    check(yardstick_launches(launches) == {}, f"probe: a yardstick ran: "
-          f"{yardstick_launches(launches)}")
+    ran = {k for k, n in launches.items() if n}
+    expected = {v.kernel for v in P.variants()} | {"two_nn_variants_prepass"}
+    check(ran == expected, f"probe: other kernels ran: {ran - expected}")
     check(launches["two_nn_variants_prepass"] == 1,
           "probe: one pre-pass launch (the bf16 table, made once), got "
           f"{launches['two_nn_variants_prepass']}")
@@ -2382,12 +2120,11 @@ def phase_variants():
     split_two_nn_call(tab, counts, pi, pj, "probe shape 2208 pairs x 2048^2")
     splits, pre_dev, pre_host = split_variant_calls(
         rows + [types.SimpleNamespace(kernel=k, fn=kinds[k])
-                for k in UNPATHED], kinds, tab, counts, pi, pj)
+                for k in UNPATHED], tab, counts, pi, pj)
     records = []
     for v in rows:
         compare_variant(v.kernel, v.fn, tab, counts, pi, pj, "2208 pairs")
-        t = time_variant(v.kernel, v.fn, kinds, tab, counts, pi, pj, bound,
-                         ops)
+        t = time_variant(v.kernel, v.fn, tab, counts, pi, pj, bound, ops)
         log(f"[variants] {v.kernel}: probe best-of-3 {res[v.name][1]:.4f} ms "
             f"at 276 pairs")
         records.append({"name": v.kernel, "route": "cuda",
@@ -2395,28 +2132,24 @@ def phase_variants():
                         "replaces": _replaces(v.kernel),
                         "launches": launches[v.kernel],
                         "max_abs_err": errs[v.kernel], "bound_ms": bound,
-                        "bound_by": by, **t, **splits.get(v.kernel, {})})
+                        "bound_by": by, **t, **splits[v.kernel]})
     # Oneblock bf16 above 128 rows: no path launches them; timed for the
-    # record beside their two-launch forms and mma.sync twins.
+    # record.
     for k in UNPATHED:
         compare_variant(k, kinds[k], tab, counts, pi, pj, "2208 pairs")
-        t = time_variant(k, kinds[k], kinds, tab, counts, pi, pj, bound, ops)
+        t = time_variant(k, kinds[k], tab, counts, pi, pj, bound, ops)
         records.append({"name": k, "route": "cuda", "source": VARIANTS_SOURCE,
                         "replaces": _replaces(k), "launches": launches[k],
                         "max_abs_err": errs[k], "bound_ms": bound,
                         "bound_by": by, **t, **splits[k]})
-    # The pre-pass kernel: the two-launch forms' first launch, and the
-    # bf16 table the probe makes once.
-    pb, pby = prepass_bound_ms(tab, True)
-    pre = {"ms": cuda_ms(lambda: V.variants_prepass(tab, counts, True), 10),
-           "plain_ms": cuda_ms(lambda: V.prepass_plain(tab, counts, True), 10),
-           "bf16_table_ms": cuda_ms(lambda: V.bf16_table(tab), 10),
-           "device_us": pre_dev["pre-pass bf16"],
-           "bf16_table_device_us": pre_dev["bf16 table alone"]}
-    log(f"[variants] two_nn_variants_prepass (bf16, {tab.shape[0]} x "
-        f"{tab.shape[1]} rows): {pre['ms']:.4f} ms, int8 "
-        f"{cuda_ms(lambda: V.variants_prepass(tab, counts, False), 10):.4f} "
-        f"ms, the bf16 table alone {pre['bf16_table_ms']:.4f} ms; plain "
+    # The pre-pass kernel: the bf16 table the probe makes once.
+    pb, pby = prepass_bound_ms(tab)
+    pre = {"ms": cuda_ms(lambda: V.bf16_table(tab), 10),
+           "plain_ms": cuda_ms(lambda: tab.to(torch.bfloat16), 10),
+           "device_us": pre_dev["bf16 table"],
+           "host_us": pre_host["bf16_table wrapper"]}
+    log(f"[variants] two_nn_variants_prepass (the bf16 table, "
+        f"{tab.shape[0]} x {tab.shape[1]} rows): {pre['ms']:.4f} ms; plain "
         f"{pre['plain_ms']:.4f} ms; bound {pb:.4f} ms ({pby})")
     records.append({"name": "two_nn_variants_prepass", "route": "cuda",
                     "source": VARIANTS_SOURCE, "replaces": f"{PROBE}:62",
@@ -2502,11 +2235,6 @@ def library_matching(descs, lib, check_later):
                 got_k, M._two_nn_pairs_plain(tab, tab, counts, pi, pj),
                 f"[library] (a) chunk {c} {name}: {len(pi)} pairs of "
                 f"{tab.shape[0]} images x {tab.shape[1]} keys"))
-            if name == "uint8":
-                two = M.two_nn_pairs_two_launch(tab, tab, counts, pi, pj)
-                check(all(torch.equal(a, b) for a, b in zip(got_k, two)),
-                      f"(a) chunk {c}: two_nn differs from its two-launch "
-                      f"form")
         reps = 5
         t0 = time.time()
         for _ in range(reps):
@@ -2850,9 +2578,7 @@ def _multi_device_rank(mesh, descs, pairs, host, run, workdir, imgs):
     got = M.two_nn_pairs(q, db, dbc, pi, pj)
     torch.cuda.synchronize()
     want = M._two_nn_pairs_plain(q, db, dbc, pi, pj)
-    two = M.two_nn_pairs_two_launch(q, db, dbc, pi, pj)
     out["kernel_mismatches"] = [int((g != w).sum()) for g, w in zip(got, want)]
-    out["kernel_mismatches"] += [int((g != w).sum()) for g, w in zip(two, got)]
     out["kernel_pairs"] = int(len(pi))
 
     # (b) the outlier loop, point-sharded: run twice, timed warm (the
@@ -3015,9 +2741,8 @@ def phase_multi_device():
             for k, v in x["launches"].items():
                 counted[k] = counted.get(k, 0) + v
         log(f"[multi] (a) {tag}: two_nn on one rotation's tensors "
-            f"({r['kernel_pairs']} pairs x 4096 keys) vs its plain version, "
-            f"then its two-launch form vs two_nn: mismatches d0/i0/d1 "
-            f"{r['kernel_mismatches']}")
+            f"({r['kernel_pairs']} pairs x 4096 keys) vs its plain version: "
+            f"mismatches d0/i0/d1 {r['kernel_mismatches']}")
         check_later(not any(r["kernel_mismatches"]),
                     f"(a) {tag}: two_nn disagrees with its plain version")
         b = r["ba"]
@@ -3603,21 +3328,17 @@ def main(argv=None):
     check(not bench_failures, f"bench checks failed: {bench_failures}")
     check(not pixels_failures, f"pixels checks failed: {pixels_failures}")
     kernels[0]["staged_launches"] = staged_launches["two_nn"]
-    kernels[1]["staged_launches"] = staged_launches["two_nn_norms"]
     kernels[0]["tools_launches"] = tools_launches["two_nn"]
-    kernels[1]["tools_launches"] = tools_launches["two_nn_norms"]
     kernels[0]["library_path_launches"] = lib_launches["two_nn"]
-    kernels[1]["library_path_launches"] = lib_launches.get("two_nn_norms", 0)
     kernels[0]["library_path_ms"] = lib_times["uint8"]["kernel_ms"]
     kernels[0]["multi_device_launches"] = md_launches.get("two_nn", 0)
-    kernels[1]["multi_device_launches"] = md_launches.get("two_nn_norms", 0)
     kernels.append(
         {"name": "two_nn_f32", "route": "cuda", "source": TWO_NN_SOURCE,
          "replaces": TWO_NN_REPLACES, "launches": main_launches["two_nn_f32"],
          "max_abs_err": t32["max_abs_err"], "ms": t32["ms"],
          "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
          "bound_by": t32["bound_by"], "library_ms": t32["library_ms"],
-         "ms_before": t32["ms_before"], "product_ms": t32["product_ms"],
+         "product_ms": t32["product_ms"],
          "tolerance_ratio": t32["tolerance_ratio"],
          "staged_launches": staged_launches["two_nn_f32"],
          "probe_launches": probe_launches["two_nn_f32"],

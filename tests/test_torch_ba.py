@@ -18,6 +18,7 @@ Tolerances:
     within 1e-9.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,8 @@ from bundler_sfm_tpu.ops import ba as J
 
 from bundler_sfm_tpu_torch.convert import ba_problem_from_numpy
 from bundler_sfm_tpu_torch.ops import ba as T
+from tests.test_torch_ba_graph import ba_host, flags_and_counts, windowed_host
+from tests.test_torch_ba_windows import _jax_problem
 
 
 def host_problem(rng, C=4, P=100, noise=0.3, cam_noise=0.02, pt_noise=0.03,
@@ -202,3 +205,79 @@ def test_repeated_pair_is_refused(rng):
         host[k] = np.concatenate([host[k], host[k][:1]])
     with pytest.raises(ValueError, match="observed more than once"):
         ba_problem_from_numpy(**host, device="cpu")
+
+
+# The LM loop's CPU runs on the problems that tests/test_torch_ba_graph.py
+# replays as CUDA graphs on the card, cut to 6 cameras and 300 points:
+# (problem keywords, run_ba keywords).  On the CPU the loop runs eagerly and
+# records no `ba_graph_*` counter.
+LOOP_RUN_CASES = {
+    "8-iters": ({}, dict(max_iters=8)),
+    "150-iters": ({}, dict(max_iters=150)),
+    "rejecting": (dict(seed=3, cam_noise=0.6, pt_noise=0.4),
+                  dict(max_iters=40)),
+    "fixed-points": ({}, dict(max_iters=40, fix_points=True)),
+    "huber-cg": (dict(outliers=0.03),
+                 dict(max_iters=20, loss="huber", solver="cg")),
+}
+NO_GRAPHS = dict(ba_graph_iters=0, ba_graph_captures=0)
+
+
+@pytest.mark.parametrize("case", list(LOOP_RUN_CASES))
+def test_cpu_run_ba_is_the_loop_before(case):
+    """`run_ba` against the JAX package's: a run that stops at max_iters
+    is held as `test_run_ba_capped` holds one (the same iteration count,
+    costs within 1e-9), one that converges first as
+    `test_run_ba_converged` does (final costs within 1e-10); cameras and
+    points within 1e-8 in both."""
+    pkw, rkw = LOOP_RUN_CASES[case]
+    jp, tp = both(ba_host(C=6, P=300, **pkw))
+    with flags_and_counts({}) as rec:
+        tr = T.run_ba(tp, **rkw)
+    jr = J.run_ba(jp, **rkw)
+    capped = tr.iters == rkw["max_iters"]
+    if capped:
+        assert int(jr.iters) == tr.iters
+    close(float(jr.cost), float(tr.cost), 1e-9 if capped else 1e-10)
+    close(float(jr.initial_cost), float(tr.initial_cost), 1e-12)
+    check_result(jr, tr, 6, 300)
+    assert rec["counts"] == dict(lm_iters=tr.iters, **NO_GRAPHS)
+    if case == "rejecting":
+        assert any(not a for a, d in rec["flags"][:-1]), \
+            "no step was rejected"
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_cpu_outlier_loop_is_the_loop_before(windowed):
+    """`run_ba_outlier_loop` against the JAX package's, as
+    `test_outlier_loop` holds it (windowed: as
+    tests/test_torch_ba_windows.py holds its windowed loop): the same
+    passes (more than one) and removed points, cameras and points within
+    1e-8."""
+    if windowed:
+        host, plan = windowed_host(outliers=0.01)
+        row_of, _, Wd, G, _ = plan
+        jp = _jax_problem(host, plan)
+        obs_pt = row_of[host["obs_pt"]]
+        kw = dict(max_iters=8, min_outliers=2, window=Wd, group_pts=G)
+        tp = T.build_problem(**host, schur_plan=plan, device="cpu")
+    else:
+        host = ba_host(C=6, P=300, outliers=0.02)
+        jp, tp = both(host)
+        row_of, obs_pt = np.arange(300), host["obs_pt"]
+        kw = dict(max_iters=40, min_outliers=2)
+    C = len(host["cam0"])
+    cam_obs, cam_mask = J.build_cam_obs_table(
+        host["obs_cam"], obs_pt, C, max_views=jp.views_mask.shape[1])
+    with flags_and_counts({}) as rec:
+        tr = T.run_ba_outlier_loop(tp, **kw)
+    jr = J.run_ba_outlier_loop(jp, jnp.asarray(cam_obs),
+                               jnp.asarray(cam_mask), **kw)
+    assert int(jr.passes) == tr.passes > 1
+    np.testing.assert_array_equal(np.asarray(jr.pt_removed)[row_of],
+                                  tr.pt_removed.numpy())
+    np.testing.assert_array_equal(np.asarray(jr.n_outliers), tr.n_outliers)
+    close(np.asarray(jr.cam)[:C], tr.cam.numpy(), 1e-8)
+    close(np.asarray(jr.R)[:C], tr.R.numpy(), 1e-8)
+    close(np.asarray(jr.pts)[row_of], tr.pts.numpy(), 1e-8)
+    assert rec["counts"] == dict(lm_iters=tr.iters, **NO_GRAPHS)

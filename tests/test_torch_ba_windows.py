@@ -32,6 +32,7 @@ JAX is imported inside the tests only: `tests/test_torch_parallel.py`'s
 ranks import `arc_sfm_state` from here.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import functools
 

@@ -22,6 +22,7 @@ variables (and `sys.path`) when imported, so the loads run inside
 into later tests of the same worker.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import ast
 import contextlib
 import importlib.util

@@ -7,6 +7,7 @@ from the same read-back keys and matches and run through verification and
 stage 5 directly; and the spans and counters of the entry's load path and
 verification's checkpoints."""
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 import json

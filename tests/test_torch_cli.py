@@ -7,6 +7,7 @@ surgery mode, --estimate_up_vector_szeliski, --output_relposes and
 --num_devices other than 1 parses, and on a host without a card `main`
 stops where it would start the ranks on CUDA."""
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import io
 import os
 

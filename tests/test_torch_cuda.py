@@ -8,6 +8,7 @@ no JAX, so the repository's conftest is left out):
 This file imports nothing of JAX or of the JAX package.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 
@@ -75,24 +76,16 @@ def _mismatches(got, want):
 
 
 def _hold_int8(tab, counts, pi, pj, want=None):
-    """The wgmma kernel (one launch), its two-launch form and the mma.sync
-    kernel, each bit-exact against the plain version (or `want`); the
-    norms kernel against its plain version."""
+    """The wgmma kernel, one launch, bit-exact against the plain version
+    (or `want`)."""
     want = want or MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     launches = dict(MC.LAUNCHES)
     got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
-    two = MC.two_nn_pairs_two_launch(tab, tab, counts, pi, pj)
-    mma = MC.two_nn_pairs_mma(tab, tab, counts, pi, pj)
-    norms = MC.two_nn_norms(tab, counts)
     torch.cuda.synchronize()
     moved = {k: v - launches[k] for k, v in MC.LAUNCHES.items()
              if v != launches[k]}
-    assert moved == {"two_nn": 1, "two_nn_two_launch": 1, "two_nn_norms": 2,
-                     "two_nn_mma": 1}
-    assert torch.equal(norms, MC.two_nn_norms_plain(tab, counts))
+    assert moved == {"two_nn": 1}
     assert _mismatches(got, want) == [0, 0, 0], "wgmma vs plain"
-    assert _mismatches(two, got) == [0, 0, 0], "two-launch form vs wgmma"
-    assert _mismatches(mma, want) == [0, 0, 0], "mma.sync vs plain"
 
 
 def test_extreme_descriptors(cuda):
@@ -123,8 +116,8 @@ def test_ragged_counts_4096(cuda):
                          ids=["int8", "f32"])
 def test_garbage_rows_past_count(cuda, dtype):
     """Rows past the count hold nonzero garbage, a count of 0 included:
-    every kernel bit-exact against the plain version, which masks them,
-    and i0 = 0, d0 = d1 = 3e38 where the db has no valid row."""
+    the kernel bit-exact against the plain version, which masks them, and
+    i0 = 0, d0 = d1 = 3e38 where the db has no valid row."""
     rng = np.random.default_rng(6)
     sizes = [512, 300, 129, 1, 0, 0]
     tab = _table(rng, sizes, dtype, 512)
@@ -137,15 +130,10 @@ def test_garbage_rows_past_count(cuda, dtype):
     want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     empty = pj >= 4
     assert not want[1][empty].any() and (want[0][empty] == MC.BIG).all()
-    kernels = [MC.two_nn_pairs, MC.two_nn_pairs_mma]
-    if dtype == torch.int8:
-        kernels.append(MC.two_nn_pairs_two_launch)
-        _hold_int8(tab, counts, pi, pj, want=want)
-    for fn in kernels:
-        got = fn(tab, tab, counts, pi, pj)
-        torch.cuda.synchronize()
-        bad = _mismatches(got, want)
-        assert bad == [0, 0, 0], f"{fn.__name__}: mismatches d0, i0, d1 {bad}"
+    got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    bad = _mismatches(got, want)
+    assert bad == [0, 0, 0], f"mismatches d0, i0, d1 {bad}"
 
 
 def test_ties_and_repeated_rows(cuda):
@@ -188,15 +176,12 @@ def test_product_max_matches_plain(cuda):
     pi, pj = _all_pairs(len(sizes), cuda)
     before = dict(MC.LAUNCHES)
     got = MC.two_nn_product_max(tab, tab, counts, pi, pj)
-    two = MC.two_nn_product_max_two_launch(tab, tab, counts, pi, pj)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in MC.LAUNCHES.items()
              if v != before[k]}
-    assert moved == {"two_nn_product_max": 1, "two_nn_norms": 1,
-                     "two_nn_product_max_two_launch": 1}
+    assert moved == {"two_nn_product_max": 1}
     want = MC.product_max_plain(tab, tab, counts, pi, pj)
     assert _mismatches(got, want) == [0, 0, 0]
-    assert _mismatches(two, got) == [0, 0, 0]
 
 
 def _f32_case(kind):
@@ -237,10 +222,10 @@ def _f32_case(kind):
 
 @pytest.mark.parametrize("kind", ["extremes", "ragged", "ties", "garbage",
                                   "separate"])
-def test_f32_kernel_and_twin_bit_exact(cuda, kind):
-    """The f32 `wgmma` kernel and its `mma.sync` twin bit-exact against
-    the plain version on integer-valued tables; one pre-pass launch when
-    the query table is the db table, two otherwise."""
+def test_f32_kernel_bit_exact(cuda, kind):
+    """The f32 `wgmma` kernel bit-exact against the plain version on
+    integer-valued tables; one pre-pass launch when the query table is the
+    db table, two otherwise."""
     qtab, dbtab, counts = _f32_case(kind)
     shared = qtab is dbtab
     dbtab, counts = dbtab.to(cuda), counts.to(cuda)
@@ -251,21 +236,19 @@ def test_f32_kernel_and_twin_bit_exact(cuda, kind):
     want = MC._two_nn_pairs_plain(qtab, dbtab, counts, pi, pj)
     before = dict(MC.LAUNCHES)
     got = MC.two_nn_pairs(qtab, dbtab, counts, pi, pj)
-    twin = MC.two_nn_pairs_mma(qtab, dbtab, counts, pi, pj)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in MC.LAUNCHES.items()
              if v != before[k]}
-    assert moved == {"two_nn_f32": 1, "two_nn_f32_mma": 1,
+    assert moved == {"two_nn_f32": 1,
                      "two_nn_f32_prepass": 2 if kind == "separate" else 1}
     assert _mismatches(got, want) == [0, 0, 0], "wgmma vs plain"
-    assert _mismatches(twin, want) == [0, 0, 0], "mma.sync vs plain"
     assert not got[1][counts[pj.long()] == 0].any()
 
 
 def test_f32_real_valued_within_tolerance(cuda):
     """Real-valued tables (L2-normalised Gaussian rows scaled to 512,
-    noisy near-duplicates): both f32 kernels within MC.f32_tolerance of
-    the plain version."""
+    noisy near-duplicates): the f32 kernel within MC.f32_tolerance of the
+    plain version."""
     rng = np.random.default_rng(12)
     x = rng.normal(size=(4, 1024, 128))
     x[1, :500] = x[0, :500] + 0.05 * rng.normal(size=(500, 128))
@@ -276,10 +259,9 @@ def test_f32_real_valued_within_tolerance(cuda):
     pi, pj = _all_pairs(4, cuda)
     want = MC._two_nn_pairs_plain(tab, tab, counts, pi, pj)
     tol = MC.f32_tolerance(tab, tab, counts, pi, pj)
-    for fn in (MC.two_nn_pairs, MC.two_nn_pairs_mma):
-        got = fn(tab, tab, counts, pi, pj)
-        torch.cuda.synchronize()
-        assert MC.f32_mismatches(got, want, tol) == [0, 0, 0], fn.__name__
+    got = MC.two_nn_pairs(tab, tab, counts, pi, pj)
+    torch.cuda.synchronize()
+    assert MC.f32_mismatches(got, want, tol) == [0, 0, 0]
 
 
 def test_f32_prepass_matches_plain(cuda):
@@ -328,54 +310,21 @@ def test_kernel_rejects_bad_inputs(cuda):
 VARIANTS = ([("oneblock", dict(tq=tq, dot=dot)) for dot in MV.DOTS
              for tq in MV.ONEBLOCK_TILES]
             + [("blockmerge", {})]
-            + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES]
-            + [("oneblock_two_launch", dict(tq=tq, dot=dot))
-               for dot in MV.DOTS for tq in MV.ONEBLOCK_TILES]
-            + [("blockmerge_two_launch", {}),
-               ("ablation_two_launch", dict(mode="top1"))]
-            + [("oneblock_mma", dict(tq=tq, dot=dot)) for dot in MV.DOTS
-               for tq in MV.ONEBLOCK_TILES]
-            + [("blockmerge_mma", {})]
-            + [("ablation_mma", dict(mode=m)) for m in MV.ABLATION_MODES])
-# The instantiations on the `wgmma` design, and their `mma.sync` twins.
-WGMMA = ([(dict(tq=tq, dot=dot), f"two_nn_oneblock_{dot}_{tq}")
-          for dot in MV.DOTS for tq in MV.ONEBLOCK_TILES]
-         + [(None, "two_nn_blockmerge_bf16")]
-         + [(dict(mode=m), f"two_nn_ablation_{m}")
-            for m in MV.ABLATION_MODES])
+            + [("ablation", dict(mode=m)) for m in MV.ABLATION_MODES])
 
 
 def _variant(kind, kw):
-    if kind == "oneblock_two_launch":
-        return (lambda *a: MV.two_nn_oneblock_two_launch(*a, **kw),
-                f"two_nn_oneblock_two_launch_{kw['dot']}_{kw['tq']}")
-    if kind == "blockmerge_two_launch":
-        return (MV.two_nn_blockmerge_bf16_two_launch,
-                "two_nn_blockmerge_bf16_two_launch")
-    if kind == "ablation_two_launch":
-        return (lambda *a: MV.two_nn_ablation_two_launch(*a, **kw),
-                "two_nn_ablation_two_launch_top1")
-    if kind in ("oneblock", "oneblock_mma"):
-        fn = MV.two_nn_oneblock if kind == "oneblock" else \
-            MV.two_nn_oneblock_mma
-        mid = "" if kind == "oneblock" else "mma_"
-        return (lambda *a: fn(*a, **kw),
-                f"two_nn_oneblock_{mid}{kw['dot']}_{kw['tq']}")
+    """The wrapper of one variant, its launch counter and its plain
+    version."""
+    if kind == "oneblock":
+        return (lambda *a: MV.two_nn_oneblock(*a, **kw),
+                f"two_nn_oneblock_{kw['dot']}_{kw['tq']}", MV.oneblock_plain)
     if kind == "blockmerge":
-        return MV.two_nn_blockmerge_bf16, "two_nn_blockmerge_bf16"
-    if kind == "blockmerge_mma":
-        return MV.two_nn_blockmerge_bf16_mma, "two_nn_blockmerge_bf16_mma"
-    if kind == "ablation_mma":
-        return (lambda *a: MV.two_nn_ablation_mma(*a, **kw),
-                f"two_nn_ablation_mma_{kw['mode']}")
+        return (MV.two_nn_blockmerge_bf16, "two_nn_blockmerge_bf16",
+                MV.blockmerge_plain)
     return (lambda *a: MV.two_nn_ablation(*a, **kw),
-            f"two_nn_ablation_{kw['mode']}")
-
-
-def _plain(kind, kw):
-    return {"oneblock": MV.oneblock_plain, "blockmerge": MV.blockmerge_plain,
-            "ablation": lambda *a: MV.ablation_plain(*a, **kw)
-            }[kind.replace("_mma", "").replace("_two_launch", "")]
+            f"two_nn_ablation_{kw['mode']}",
+            lambda *a: MV.ablation_plain(*a, **kw))
 
 
 def _variant_table(cuda, garbage):
@@ -399,78 +348,31 @@ def _variant_table(cuda, garbage):
             pi.to(cuda), pj.to(cuda))
 
 
+@pytest.mark.parametrize("garbage", [False, True], ids=["zeros", "garbage"])
 @pytest.mark.parametrize("kind,kw", VARIANTS,
                          ids=[f"{k}-{'-'.join(map(str, kw.values()))}"
                               for k, kw in VARIANTS])
-def test_variant_kernel_matches_plain(cuda, kind, kw):
-    """Each variant kernel (both designs, and the two-launch forms)
-    bit-exact against its plain version: ragged counts, duplicated rows
-    (ties), one repeated row, exact hits."""
-    tab, counts, pi, pj = _variant_table(cuda, garbage=False)
-    fn, counter = _variant(kind, kw)
-    before = MV.LAUNCHES[counter]
+def test_variant_kernel_matches_plain(cuda, kind, kw, garbage):
+    """Each variant kernel, one launch (a bf16 one also makes the table's
+    bf16 copy, one pre-pass launch), bit-exact against its plain version
+    and the exact ones against `two_nn_pairs`: ragged counts, duplicated
+    rows (ties), one repeated row, exact hits, and with `garbage` random
+    rows past every count."""
+    tab, counts, pi, pj = _variant_table(cuda, garbage)
+    fn, counter, plain = _variant(kind, kw)
+    before = dict(MV.LAUNCHES)
     got = fn(tab, counts, pi, pj)
     torch.cuda.synchronize()
-    assert MV.LAUNCHES[counter] == before + 1
-    want = _plain(kind, kw)(tab, counts, pi, pj)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    if not kind.startswith("ablation"):
-        for g, w in zip(got, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
-            assert torch.equal(g, w)
-
-
-@pytest.mark.parametrize("garbage", [False, True], ids=["zeros", "garbage"])
-@pytest.mark.parametrize("kw,counter", WGMMA, ids=[c for _, c in WGMMA])
-def test_wgmma_variant_equals_mma_twin(cuda, kw, counter, garbage):
-    """Each `wgmma` instantiation (one launch; a bf16 one also makes the
-    table's bf16 copy, one pre-pass launch) bit-identical to its `mma.sync`
-    twin, to its two-launch form (the pre-pass, then the kernel reading
-    it; "matmul_max" has none) and to `two_nn_pairs` (an ablation: to its
-    plain version), also with garbage in the rows past the counts."""
-    tab, counts, pi, pj = _variant_table(cuda, garbage)
-    two = None
-    if kw is None:
-        new, old = MV.two_nn_blockmerge_bf16, MV.two_nn_blockmerge_bf16_mma
-        two = MV.two_nn_blockmerge_bf16_two_launch
-        two_counter = "two_nn_blockmerge_bf16_two_launch"
-        twin_counter = "two_nn_blockmerge_bf16_mma"
-    elif "mode" in kw:
-        new = lambda *a: MV.two_nn_ablation(*a, **kw)          # noqa: E731
-        old = lambda *a: MV.two_nn_ablation_mma(*a, **kw)      # noqa: E731
-        if kw["mode"] == "top1":
-            two = MV.two_nn_ablation_two_launch
-            two_counter = "two_nn_ablation_two_launch_top1"
-        twin_counter = f"two_nn_ablation_mma_{kw['mode']}"
-    else:
-        new = lambda *a: MV.two_nn_oneblock(*a, **kw)          # noqa: E731
-        old = lambda *a: MV.two_nn_oneblock_mma(*a, **kw)      # noqa: E731
-        two = lambda *a: MV.two_nn_oneblock_two_launch(*a, **kw)  # noqa: E731
-        two_counter = counter.replace("two_nn_oneblock_",
-                                      "two_nn_oneblock_two_launch_")
-        twin_counter = counter.replace("two_nn_oneblock_",
-                                       "two_nn_oneblock_mma_")
-    before = dict(MV.LAUNCHES)
-    got = new(tab, counts, pi, pj)
-    twin = old(tab, counts, pi, pj)
-    torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in MV.LAUNCHES.items() if v != before[k]}
-    expect = {counter: 1, twin_counter: 1}
+    expect = {counter: 1}
     if "bf16" in counter:
         expect["two_nn_variants_prepass"] = 1
     assert moved == expect
-    ref = (MV.ablation_plain(tab, counts, pi, pj, kw["mode"])
-           if kw and "mode" in kw
-           else MC.two_nn_pairs(tab, tab, counts, pi, pj))
-    for g, w, p in zip(got, twin, ref):
-        assert torch.equal(g, w) and torch.equal(g, p)
-    if two is not None:
-        before = dict(MV.LAUNCHES)
-        for g, w in zip(got, two(tab, counts, pi, pj)):
+    for g, w in zip(got, plain(tab, counts, pi, pj)):
+        assert torch.equal(g, w)
+    if kind != "ablation":
+        for g, w in zip(got, MC.two_nn_pairs(tab, tab, counts, pi, pj)):
             assert torch.equal(g, w)
-        moved = {k: v - before[k] for k, v in MV.LAUNCHES.items()
-                 if v != before[k]}
-        assert moved == {"two_nn_variants_prepass": 1, two_counter: 1}
     if counter != "two_nn_ablation_matmul_max":
         assert not got[1][pj == 5].any()            # no valid db row: i0 = 0
 
@@ -487,19 +389,15 @@ def test_oneblock_layout(cuda, dot):
         assert 0 < lay["smem"] <= 232448 and lay["resident"] > 0
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
-def test_variants_prepass_matches_plain(cuda, bf16):
-    """The pre-pass kernel (the two-launch forms' first launch), and with
-    bf16 the table's bf16 copy alone (`bf16_table`), against their plain
-    versions."""
-    tab, counts, _, _ = _variant_table(cuda, garbage=True)
-    got = MV.variants_prepass(tab, counts, bf16)
+def test_bf16_table_matches_plain(cuda):
+    """The pre-pass kernel, one launch: the table's bf16 copy
+    (`bf16_table`) equal to its plain version."""
+    tab, _, _, _ = _variant_table(cuda, garbage=True)
+    before = MV.LAUNCHES["two_nn_variants_prepass"]
+    got = MV.bf16_table(tab)
     torch.cuda.synchronize()
-    want = MV.prepass_plain(tab, counts, bf16)
-    for g, w in zip(got, want):
-        assert (g is None and w is None) or torch.equal(g, w)
-    if bf16:
-        assert torch.equal(MV.bf16_table(tab), tab.to(torch.bfloat16))
+    assert MV.LAUNCHES["two_nn_variants_prepass"] == before + 1
+    assert torch.equal(got, tab.to(torch.bfloat16))
 
 
 def test_variant_wrappers_reject_bad_inputs(cuda):

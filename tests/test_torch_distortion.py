@@ -9,6 +9,7 @@ the JAX package's on the same coefficients; the round trip of
 its 2e-4.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

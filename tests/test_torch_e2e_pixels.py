@@ -25,6 +25,7 @@
     without a card.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 import json

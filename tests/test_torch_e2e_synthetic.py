@@ -17,6 +17,7 @@ on the CPU:
     the CPU; without --workdir the run leaves no directory behind.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 import json

@@ -10,6 +10,7 @@ tests/test_export.py), `radial_undistort`'s images, `bundle.rd.out` and
 are swapped.  The PMVS projections map every point to its observations.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 import shutil
 

@@ -12,6 +12,7 @@ message); the fisheye end-to-end run registering every camera at the true
 focal within 5 %.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 
 import jax.numpy as jnp

@@ -14,6 +14,7 @@ The synthetic scenes below were checked for knife-edge samples: their
 masks do not move under a 1-ulp scaling of the inputs in the JAX package.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

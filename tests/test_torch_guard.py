@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, no import of the JAX package, and
 its entry points run on the card unless asked for the CPU."""
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import ast
 import os
 import subprocess
@@ -253,3 +254,22 @@ def test_new_entry_points_run_on_cpu_when_asked(tmp_path, monkeypatch):
     assert bundler.main(["list.txt", "--device", "cpu"]) == 0
     assert register_image(BundleFile(cameras=[], points=[]), d, d,
                           np.zeros((4, 2)), device="cpu") is None
+
+
+def test_port_tests_cap_torch_threads_first():
+    """Every port test file imports `tests/torch_threads.py` before
+    anything else, so each xdist worker runs torch on one thread."""
+    tests = os.path.join(ROOT, "tests")
+    late = []
+    for name in sorted(os.listdir(tests)):
+        if not (name.startswith("test_torch_") and name.endswith(".py")):
+            continue
+        with open(os.path.join(tests, name)) as f:
+            tree = ast.parse(f.read(), name)
+        first = next(n for n in tree.body
+                     if isinstance(n, (ast.Import, ast.ImportFrom))
+                     and getattr(n, "module", None) != "__future__")
+        if not (isinstance(first, ast.Import)
+                and [a.name for a in first.names] == ["tests.torch_threads"]):
+            late.append(name)
+    assert not late, f"import tests.torch_threads first in {late}"

@@ -9,6 +9,7 @@ least 1e-9 from the threshold).  The assertions of
 `tests/test_extras.py::test_similarity_ransac` run as a port case too.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,7 @@
 """The port's copies of the host I/O modules write byte-identical files to
 the JAX package's, from the same data."""
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import gzip
 
 import numpy as np

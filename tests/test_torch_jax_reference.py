@@ -12,6 +12,7 @@ gt.json, measured as `chip_smoke.py` measures the port's.  The test below
 holds the loader: the JAX scene it builds equals the port scene dumped.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import json
 import os
 import pickle

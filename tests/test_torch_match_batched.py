@@ -12,6 +12,7 @@ run as port cases too.  `block` is the JAX signature's and has no
 effect on the result.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

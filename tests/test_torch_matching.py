@@ -6,6 +6,7 @@ Tolerance: exact — i0 and d0 bit-identical, d1 bit-identical (3e38 where
 fewer than two db rows are valid), match dicts identical.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ within 1e-10 of the largest entry of `jax.jacfwd`'s.  The assertions of
 cases too.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

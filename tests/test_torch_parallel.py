@@ -36,6 +36,7 @@ Tolerances:
     cameras, and files from rank 0 only.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import datetime
 import os
 import pickle

@@ -4,6 +4,7 @@ indices.  Tolerances: inlier masks identical; F and H within 1e-9
 (max abs difference after scaling each to unit Frobenius norm); small
 linear algebra within 1e-12 relative."""
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

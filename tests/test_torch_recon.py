@@ -15,6 +15,7 @@ scaled by 1 + 2^-52 (the decisions downstream of BA — reprojection and f32
 ray-angle gates — are as sensitive to rounding as verification is).
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import copy
 import dataclasses
 

@@ -19,6 +19,7 @@ happens is decided by rounding, so two summation orders stop a lane up to
 This file imports nothing of JAX or of the JAX package.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch

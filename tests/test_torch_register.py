@@ -26,6 +26,7 @@ trimmed LM whose stopping step is chaotic under rounding (ROADMAP section
 3), hence its wider 1e-6.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 

@@ -19,6 +19,7 @@ Held:
     guess): the same matches and inliers, camera within 1e-6.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 import shutil
 

@@ -20,6 +20,7 @@ and `probes/scaling_mesh_cpu.py`) against the JAX package's
     1e-9 relative of D = 1's.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 import json

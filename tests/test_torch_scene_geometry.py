@@ -14,6 +14,7 @@ from each RANSAC threshold, so rounding cannot flip an inlier.  The
 assertions of `tests/test_scene_geometry.py` run as port cases too.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import xml.dom.minidom as minidom
 
 import jax

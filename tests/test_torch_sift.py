@@ -15,6 +15,7 @@ within 1e-3 (px for x, y, scale; rad for orientation), and agreeing keys'
 descriptors within 1.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ verification with the JAX draw equals the JAX package's unchanged under
 check.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import copy
 import dataclasses
 import os

@@ -17,6 +17,7 @@ Held:
   * `write_match_table`: byte-identical files.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import copy
 import dataclasses
 

@@ -5,6 +5,7 @@ refine LM's iteration counter, and the spans of both jobs written by
 `--telemetry`, against the set of spans `sfmbench/metrics/sfm_self_s.py`
 subtracts."""
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 import json

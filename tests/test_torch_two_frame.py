@@ -29,6 +29,7 @@ key set is compared for equality, so a rounding flip at a threshold
 shows as a failure, not inside a tolerance; none flips on these scenes.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import io
 import os

@@ -23,6 +23,7 @@ emulation is held to `matching_cuda.f32_tolerance`: |Δd| ≤ 1e-5·(|q|² +
 |b|²), i0 equal wherever the plain version's d1 − d0 exceeds twice that.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ step, so the bit budget (keys never leave int32), the tie order and the
 poisoning are checked where no card is.  Tolerance: exact.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,8 +123,8 @@ def emulate(q, db, count, rng):
     of int8 db [Nd, 128], by the kernel's arithmetic.  Products past Nd
     (rows of the next image, or TMA's zero fill) are random garbage."""
     nq = q.shape[0]
-    # The constants the launch's first phase writes; they equal the
-    # two-launch form's (the norms kernel's plain version).
+    # The constants the launch's first phase writes; they equal their
+    # plain version's.
     kp = -(-db.shape[0] // NT) * NT
     norms = prephase_constants(db[None], [count], 384, kp)[0][0]
     assert torch.equal(norms, MC.two_nn_norms_plain(
@@ -266,7 +267,7 @@ def test_product_max_plain(rng):
 def test_prephase_constants_match_norms_plain_and_jax(nd, counts, threads):
     """The launch's first phase over grids of 1, 3 and 132 blocks, garbage
     in the rows past every count and Nd not a multiple of 128: every
-    constant equal to `two_nn_norms_plain` (the two-launch form's), with
+    constant equal to `two_nn_norms_plain`, with
     |b|² in the high bits equal to the JAX package's squared norms."""
     rng = np.random.default_rng(nd)
     tab = torch.from_numpy(rng.integers(-128, 128, (len(counts), nd, 128)

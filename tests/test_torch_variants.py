@@ -13,6 +13,7 @@ kernels are held against those on the card (tests/test_torch_cuda.py,
 chip_smoke.py).  Tolerance: exact — every output bit-identical.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,13 +179,7 @@ def _bad_call(what):
                   "out of range"),
         "count": (lambda: V.two_nn_ablation(tab, c + 1, p, p, "matmul_max"),
                   "out of range"),
-        "ablation_mma_k": (lambda: V.two_nn_ablation_mma(tab[:, :200], c, p,
-                                                         p, "top1"),
-                           "K % 128"),
-        "ablation_mma_mode": (lambda: V.two_nn_ablation_mma(tab, c, p, p,
-                                                            "top2"),
-                              "unknown mode"),
-        "ablation_mma_index": (lambda: V.two_nn_ablation_mma(
+        "ablation_index": (lambda: V.two_nn_ablation(
             tab, c, p - 1, p, "matmul_max"), "out of range"),
         "index_dtype": (lambda: V.two_nn_blockmerge_bf16(
             torch.zeros((1, 512, 128), dtype=torch.int8), c[:1], p.long(),
@@ -197,8 +192,7 @@ def _bad_call(what):
 
 @pytest.mark.parametrize("what", ["dtype", "tile", "block", "ablation_k",
                                   "mode", "tq", "dot", "index", "count",
-                                  "index_dtype", "device", "ablation_mma_k",
-                                  "ablation_mma_mode", "ablation_mma_index"])
+                                  "index_dtype", "device", "ablation_index"])
 def test_wrappers_reject_bad_inputs(what):
     fn, msg = _bad_call(what)
     with pytest.raises(ValueError, match=msg):

@@ -5,9 +5,9 @@ the JAX package's composition of the probe's kernels (`_tile_top2`,
 `_merge_top2`).
 
 The kernel never forms distances per score.  The launch's first phase
-(`prephase_constants`, the arithmetic of `prepass_plain`, the two-launch
-form's pre-pass) gives every db row the column constant c = |b|²·256 +
-row % 128 (KEY_POISON at or past the count) and every row |q|²; with the
+(`prephase_constants`, the arithmetic of `prepass_plain`) gives every db
+row the column constant c = |b|²·256 + row % 128 (KEY_POISON at or past
+the count) and every row |q|²; with the
 bf16 dot, c also carries F32_MAGIC_BIAS and the accumulator, an f32 sum of
 bf16 products, becomes an int32 by reading acc + 1.5·2²³ as an int32
 (acc + 0x4B400000).  key = c − 512·acc wraps to (|b|² − 2q·b)·256 + column.
@@ -35,6 +35,7 @@ as the TPU kernel does; it reads no pre-pass.
 Tolerance: exact.
 """
 
+import tests.torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,8 +146,8 @@ def _a_rows(tq, bf16):
 
 def _prephase(table, counts, bf16, threads=3 * 384):
     """The constants and |q|² the launch's first phase writes (over a grid
-    of `threads` threads), held equal to the two-launch form's pre-pass,
-    and the bf16 table the bf16 dot's ring loads."""
+    of `threads` threads), held equal to their plain version
+    (`prepass_plain`), and the bf16 table the bf16 dot's ring loads."""
     norms, qsq, tab16 = V.prepass_plain(table, counts, bf16)
     c, sq = prephase_constants(table, counts, threads,
                                bias=V.F32_MAGIC_BIAS if bf16 else 0)
@@ -386,7 +387,7 @@ def test_prepass_plain(bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["int8", "bf16"])
 def test_prephase_matches_prepass_plain_and_jax(bf16, threads):
     """The launch's first phase: column constants (with the bf16 offset)
-    and |q|² of every row equal to the two-launch form's pre-pass
+    and |q|² of every row equal to their plain version
     (`prepass_plain`), |q|² and the constants' high bits to the JAX
     package's squared norms, garbage past the counts poisoned."""
     tab, cnt = _table(256, [256, 200, 1, 0, 130], 7)
