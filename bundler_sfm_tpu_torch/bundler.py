@@ -53,7 +53,7 @@ from bundler_sfm_tpu_torch.ops.fisheye import (
     read_fisheye_file, undistort_points,
 )
 from bundler_sfm_tpu_torch.pipeline.incremental import (
-    bundle_adjust_fast, bundle_adjust_slow, run_sfm, to_bundle_file,
+    bundle_adjust_fast, bundle_adjust_slow, run_sfm, to_bundle_arrays,
 )
 from bundler_sfm_tpu_torch.pipeline.resume import (
     continue_reconstruction, resume_from_bundle,
@@ -588,7 +588,7 @@ def _run(args, mesh, sampler: Callable = None) -> int:
         if writer:
             out = os.path.join(args.output_dir, scene.config.
                                bundle_output_file or "bundle.out")
-            write_bundle_file(out, to_bundle_file(recon, scene))
+            write_bundle_file(out, to_bundle_arrays(recon, scene))
             print(f"[bundler] wrote {out}")
         return 0
 

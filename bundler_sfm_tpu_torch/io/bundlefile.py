@@ -1,5 +1,6 @@
 """`bundle.out` v0.3 reader/writer, bit-compatible with the reference —
-a copy of `bundler_sfm_tpu/io/bundlefile.py` (host numpy only).
+a copy of `bundler_sfm_tpu/io/bundlefile.py`, whose writer formats flat
+arrays (`BundleArrays`) in one native call (`io/bundle_text.py`).
 
 Writer semantics from `src/BundleIO.cpp:730-875`; reader from
 `src/BundleIO.cpp:417-607`; format documented in the reference README
@@ -27,6 +28,8 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from bundler_sfm_tpu_torch.io import bundle_text
 
 
 @dataclasses.dataclass
@@ -140,31 +143,54 @@ def read_bundle_file(path: str) -> BundleFile:
     return out
 
 
-def write_bundle_file(path: str, bundle: BundleFile) -> None:
+@dataclasses.dataclass
+class BundleArrays:
+    """A bundle with its points as flat arrays, the form its text is
+    formatted from.  Point p's views are views[o : o + counts[p]] (and the
+    same rows of xy), o the sum of the counts before p; a point without
+    views is not written."""
+    cameras: List[BundleCamera]
+    pos: np.ndarray     # [P,3]
+    color: np.ndarray   # [P,3]
+    counts: np.ndarray  # [P] int, views per point
+    views: np.ndarray   # [V,2] int (img, key)
+    xy: np.ndarray      # [V,2] centered key coordinates
+
+
+def bundle_arrays(bundle: BundleFile) -> BundleArrays:
+    """The points of a `BundleFile` as flat arrays (image and key truncated
+    to integers, as the writer always wrote them)."""
+    views = [np.asarray(p.views, dtype=np.float64).reshape(-1, 4)
+             for p in bundle.points]
+    flat = np.concatenate(views) if views else np.zeros((0, 4))
+    return BundleArrays(
+        cameras=bundle.cameras,
+        pos=np.array([p.pos for p in bundle.points],
+                     dtype=np.float64).reshape(-1, 3),
+        color=np.array([p.color for p in bundle.points],
+                       dtype=np.float64).reshape(-1, 3),
+        counts=np.array([len(v) for v in views], dtype=np.int64),
+        views=flat[:, :2].astype(np.int64), xy=flat[:, 2:])
+
+
+def _camera_rows(cameras: List[BundleCamera]) -> np.ndarray:
+    """[C, 15]: f, k1, k2, R row-major, t; zeros for unregistered cameras."""
+    rows = np.zeros((len(cameras), 15))
+    for row, c in zip(rows, cameras):
+        if c.registered:
+            row[0:3] = c.f, c.k1, c.k2
+            row[3:12] = np.ravel(c.R)
+            row[12:15] = np.ravel(c.t)
+    return rows
+
+
+def write_bundle_file(path: str, bundle) -> None:
+    """`bundle` (a `BundleFile` or `BundleArrays`) as `bundle.out` v0.3,
+    formatted in one native call (`io/bundle_text.py`)."""
+    b = bundle if isinstance(bundle, BundleArrays) else bundle_arrays(bundle)
     with open(path, "w") as f:
-        num_visible = sum(1 for p in bundle.points if len(p.views) > 0)
-        f.write("# Bundle file v0.3\n")
-        f.write(f"{len(bundle.cameras)} {num_visible}\n")
-        for cam in bundle.cameras:
-            if not cam.registered:
-                f.write("0 0 0\n0 0 0\n0 0 0\n0 0 0\n0 0 0\n")
-                continue
-            f.write(f"{cam.f:0.10e} {cam.k1:0.10e} {cam.k2:0.10e}\n")
-            for r in range(3):
-                f.write(
-                    f"{cam.R[r, 0]:0.10e} {cam.R[r, 1]:0.10e} {cam.R[r, 2]:0.10e}\n"
-                )
-            f.write(f"{cam.t[0]:0.10e} {cam.t[1]:0.10e} {cam.t[2]:0.10e}\n")
-        for p in bundle.points:
-            if len(p.views) == 0:
-                continue
-            f.write(f"{p.pos[0]:0.10e} {p.pos[1]:0.10e} {p.pos[2]:0.10e}\n")
-            f.write(f"{int(round(p.color[0]))} {int(round(p.color[1]))} "
-                    f"{int(round(p.color[2]))}\n")
-            f.write(str(len(p.views)))
-            for v in p.views:
-                f.write(f" {int(v[0])} {int(v[1])} {v[2]:0.4f} {v[3]:0.4f}")
-            f.write("\n")
+        bundle_text.write_bundle(f, _camera_rows(b.cameras), b.pos, b.color,
+                                 b.counts, b.views, b.xy)
 
 
 def camera_from_center(f: float, k1: float, k2: float,

@@ -10,8 +10,8 @@ note says what bounds it (latency) and what the design does about that.
 
 `refine_lm` counts its launches in `LAUNCHES["refine_lm"]` and in the
 telemetry counter `refine_lm_launches`.  The library is built with `nvcc`
-at first use into `build/kernels/`, as `ops/matching_cuda.py` builds the
-2-NN kernels (`matching_cuda.build`).
+at first use into `build/kernels/` (`csrc_build.py`), as the 2-NN
+kernels are.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from bundler_sfm_tpu_torch.ops import matching_cuda
+from bundler_sfm_tpu_torch.csrc_build import build
 from bundler_sfm_tpu_torch.utils import counter
 
 SOURCE = "refine_lm.cu"
@@ -33,7 +33,7 @@ _lib = None
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(matching_cuda.build(SOURCE))
+        lib = ctypes.CDLL(build(SOURCE))
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         # cam0, R0, X, P, mask, fc, fw, active, B, N, adjust_focal, free_k,
         # dw, max_iters, tau, cam, R, cost, iters, stream

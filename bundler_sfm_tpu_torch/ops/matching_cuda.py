@@ -41,34 +41,25 @@ For CPU tensors each runs its plain PyTorch version (`two_nn_reference`,
 kernel or raises.  `two_nn_norms_plain` is the int8 kernel's column
 constants, which its first phase writes.
 The library is built with `nvcc` from the sources in this package at
-first use, into `build/kernels/` at the repository root; `csrc/two_nn.cu`
-shares its TMA ring, `wgmma` and packed-key helpers with
+first use, into `build/kernels/` at the repository root (`csrc_build.py`);
+`csrc/two_nn.cu` shares its TMA ring, `wgmma` and packed-key helpers with
 `csrc/two_nn_variants.cu` through `csrc/wgmma_ring.cuh`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Optional, Tuple
 
 import torch
+
+from bundler_sfm_tpu_torch.csrc_build import build
 
 BIG = 3.0e38
 QUERY_TILE = 128      # query rows per kernel work item
 DB_TILE = 64          # db rows per image must be a multiple of this
 NORM_TILE = 128       # db rows per ring stage of the int8 kernel
 KEY_POISON = 0x7FFFFFFF
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 # Kernel launches, one count per kernel: "two_nn" (the int8 `wgmma`
 # kernel), "two_nn_f32" (the f32 `wgmma` kernel), "two_nn_f32_prepass",
@@ -80,49 +71,10 @@ LAUNCHES = {"two_nn": 0, "two_nn_f32": 0, "two_nn_f32_prepass": 0,
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def build(source: str = "two_nn.cu", verbose: bool = False,
-          force: bool = False) -> str:
-    """Compile `csrc/<source>` into its own library in `build/kernels/`,
-    named after the source and keyed by the hash of the source, the headers
-    beside it (`csrc/*.cuh`) and the flags (an edited source or header
-    rebuilds; `force` rebuilds anyway); returns the library path.
-    `verbose` prints what ptxas reports of each kernel."""
-    src = os.path.join(_CSRC, source)
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + sorted(os.path.join(_CSRC, f) for f in
-                               os.listdir(_CSRC) if f.endswith(".cuh")):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    digest = h.hexdigest()[:12]
-    stem = os.path.splitext(source)[0]
-    out = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
-    if os.path.exists(out) and not force:
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
-    return out
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(build("two_nn.cu"))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # qtab, q_stride, nq, dbtab, n_img, nd, counts, norms, pi, pj, B,
         # d0, i0, d1, stream

@@ -50,8 +50,9 @@ from typing import Callable, Tuple
 
 import torch
 
+from bundler_sfm_tpu_torch.csrc_build import build
 from bundler_sfm_tpu_torch.ops.matching_cuda import (
-    BIG, KEY_POISON, NORM_TILE, build,
+    BIG, KEY_POISON, NORM_TILE,
 )
 
 SOURCE = "two_nn_variants.cu"

@@ -227,6 +227,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from bundler_sfm_tpu_torch import bench  # noqa: E402
+from bundler_sfm_tpu_torch.csrc_build import build  # noqa: E402
 from bundler_sfm_tpu_torch.ops import lm, lm_cuda  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_cuda  # noqa: E402
 from bundler_sfm_tpu_torch.ops import matching_variants  # noqa: E402
@@ -564,7 +565,7 @@ def phase_build():
     with contextlib.redirect_stdout(buf), ThreadPoolExecutor(
             len(sources)) as pool:
         paths = list(pool.map(
-            lambda s: matching_cuda.build(s, verbose=True, force=True),
+            lambda s: build(s, verbose=True, force=True),
             sources))
     print(buf.getvalue(), end="", flush=True)
     for p in paths:
